@@ -4,23 +4,64 @@
 
 Phases, one JSON line each (a failure raises and exits non-zero):
   device    the card's name, count and power limit (nvidia-smi)
-  build     nvcc builds every csrc/*.cu of effort_tpu_torch
+  build     nvcc builds every csrc/*.cu of effort_tpu_torch, in parallel
   kernels   K1 (mxu_matvec, csrc/mxu_matvec.cu) against its plain PyTorch
             version at the four fused Mistral-7B projection shapes x
             {bf16, int8, int4} x efforts {0.1, 0.25, 0.5, 1.0} x tau
             {0.97, 1.0}: equal streamed length C, cos >= 0.9999 and
             max|dy| <= 1e-2 max|y_ref|; device times beside the memory
             bound and a dense bf16 torch.mm GEMV of the same shape
+  kernels_batch
+            K2 (mxu_matvec_batch, csrc/mxu_matvec_batch.cu) likewise at
+            the four shapes x {bf16, int8, int4} x T in {4, 64} slots x
+            tau {0.97, 1.0}, per-slot efforts 0.1/0.25/0.5/1.0 repeated
+            with the last slot at 0: equal C, cos >= 0.9999 per slot,
+            max|dy| <= 1e-2 max|y_ref|; times beside the bound (bytes, or
+            bf16 operations where they weigh more) and a dense bf16
+            torch.mm [T, in] @ [in, out]
+  attention K3 (flash_attention, csrc/flash_attention.cu) against its plain
+            version at Mistral-7B's heads (32 query, 8 KV, 128 wide) over
+            a 512-slot cache: left-padded prompts of 32 and 64 queries, 64
+            queries at slot 448, and a 128-slot window; cos >= 0.9999 per
+            row, max|dy| <= 1e-2 max|y_ref|, queries with no live key
+            exactly 0; times beside the bound and torch's SDPA with the
+            same boolean mask (timed only, never called by the port)
   generate  Mistral-7B width, 32 layers, int8 row-prefix buckets, fused
             projections, int8 LM head: Engine.generate answers four
             requests at efforts 0.25 and 0.5 (K1) and 1.0 (dense copies);
-            K1's launch count must be 4 * 32 per decode step
+            K1's launch count must be 4 * 32 per decode step, K2's and
+            K3's 0
   profile   device time by kernel over one request, and the card's busy
             share of that request's wall time
   teacher   logits of the kernel route against the route through K1's
             plain version over one reply's tokens at tau = 1, both reading
             the same history: cos >= 0.999 at every step at depth 4;
             depth 32, and the reference route, are printed only
+  prefill   the same model, Engine(prefill=True): the four prompts at
+            efforts 0.25, 0.5 and 1.0; time to first token and decode ms
+            per token; per call K3 must run 32 times, K2 4 * 32 times
+            below effort 1 (0 at 1: dense copies) and K1 4 * 32 times a
+            decode step below effort 1; beside it the token-loop engine's
+            time to first token on the same prompts; then device time by
+            kernel over one prefill call (64 tokens, effort 0.25)
+  prefill_teacher
+            forward_seq at tau = 1 over a left-padded prompt: the kernel
+            route (K2, K3) against the plain route, and dense forward_seq
+            against dense forward_token steps, cos >= 0.999 at every
+            position at depth 4; depth 32 printed only, beside two
+            witnesses: at each of the 32 layers K2 and K3 against their
+            plain versions on the inputs the kernel route gave them (cos
+            >= 0.9999, equal C), and the plain route against itself with
+            the attention-norm weights moved by a relative 2^-20 (printed)
+  serve     BatchEngine(batch_size=4) + ContinuousBatcher: 8 requests
+            (prompts of 5 to 64 tokens, efforts 0.25/0.5/1.0, 32 new
+            tokens each) through 4 slots; aggregate tokens/s; K2 must run
+            4 * 32 times a decode step and an admission, K3 32 times an
+            admission, K1 never. Then device time by kernel over four
+            8-token requests, one batched step against the
+            single-stream K1 route at depth 4, tau = 1 (cos >= 0.999 per
+            slot), and make_batch_server on 127.0.0.1 answering four
+            concurrent /q, one stream=1 and one /v1/completions
 Then the `kernels` summary line, the card's nvidia-smi line, and last
 {"ok": true, "device": {...}}. The full per-point table is written to
 chiprun_out/chip_smoke.json. float32 matmuls run in full f32 (TF32 off).
@@ -40,8 +81,13 @@ import torch
 from effort_tpu_torch.config import BucketConfig, mistral_7b
 from effort_tpu_torch.kernels import LAUNCHES, _build, reset_launches
 from effort_tpu_torch.kernels import fused_stream
+from effort_tpu_torch.kernels.flash_attention import flash_attention_seq
+from effort_tpu_torch.models import transformer
 from effort_tpu_torch.models.generate import Engine
+from effort_tpu_torch.ops import bucketmul
 from effort_tpu_torch.models.transformer import (embed, forward_layers,
+                                                 forward_seq, forward_token,
+                                                 forward_token_batch,
                                                  head_logits,
                                                  init_random_weights,
                                                  make_kv_cache,
@@ -50,18 +96,32 @@ from effort_tpu_torch.ops.bucketize import (bucketize, calib_row_order,
                                             pick_chunk_rows)
 from effort_tpu_torch.ops.bucketmul import dense_matvec
 from effort_tpu_torch.ops.effort import effort_q16
+from effort_tpu_torch.serving.batcher import BatchEngine, ContinuousBatcher
+from effort_tpu_torch.serving.server import make_batch_server
 from effort_tpu_torch.utils.timing import gpu_ms
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
+BF16_FLOPS = 989e12                # dense bf16 tensor-core peak, same sheet
 SHAPES = {"wqkv": (4096, 6144), "wo": (4096, 4096),
           "w13": (4096, 28672), "w2": (14336, 4096)}
 DTYPES = ("bf16", "int8", "int4")
 EFFORTS = (0.1, 0.25, 0.5, 1.0)
 TAUS = (0.97, 1.0)
 RUNS = 20
+BATCH_TS = (4, 64)                 # batched decode slots, prefill tokens
+ATTN_CASES = (
+    dict(name="prefill32", T=32, start_slot=0, mask_from=27, window=0),
+    dict(name="prefill64", T=64, start_slot=0, mask_from=47, window=0),
+    dict(name="chunk64_at448", T=64, start_slot=448, mask_from=0, window=0),
+    dict(name="window128", T=64, start_slot=448, mask_from=0, window=128),
+)
 # the summary line's times: one layer's four launches of the generate
 # phase's layout (int8) at effort 0.25 and the default tau
 SUMMARY = ("int8", 0.25, 0.97)
+# K2's: one prefill layer's four launches (int8, T = 64, default tau); K3's:
+# one prefill call at T = 64
+SUMMARY_BATCH = ("int8", 64, 0.97)
+SUMMARY_ATTN = "prefill64"
 PROMPT_LENS = (5, 17, 32, 64)
 N_NEW = 32
 OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
@@ -79,6 +139,10 @@ def cos(a: torch.Tensor, b: torch.Tensor) -> float:
 def median(xs):
     xs = sorted(xs)
     return xs[len(xs) // 2]
+
+
+def padded(n: int, pad_to: int = 32) -> int:
+    return max(pad_to, -(-n // pad_to) * pad_to)
 
 
 def phase_device() -> tuple:
@@ -171,7 +235,175 @@ def phase_kernels(flush: torch.Tensor) -> list:
     return points
 
 
-def phase_generate():
+def k2_bytes(bm, C: int, T: int) -> int:
+    """Bytes K2 must move: the streamed prefix once (shared by the T
+    slots), V, probes, stats and scales once each, Y written once."""
+    row_bytes = bm.vals.shape[2] * bm.vals.element_size()
+    per_row = 4 * (1 + (bm.scales is not None)) + 4 * T   # stats, scales, V
+    return (C * bm.chunk_rows * row_bytes + bm.in_dim * per_row
+            + bm.probes.shape[1] * 4 + T * bm.n_buckets * 4)
+
+
+def batch_efforts(T: int) -> torch.Tensor:
+    """0.1 / 0.25 / 0.5 / 1.0 repeated over the slots, the last slot at 0."""
+    e = [EFFORTS[t % len(EFFORTS)] for t in range(T)]
+    e[-1] = 0.0
+    return torch.tensor(e, dtype=torch.float32, device="cuda")
+
+
+def rows_agree(y: torch.Tensor, yr: torch.Tensor) -> float:
+    """The least cosine over rows; a row that is 0 in the plain version
+    must be exactly 0 in the kernel's output (counted as cosine 1)."""
+    worst = 1.0
+    for a, b in zip(y, yr):
+        if not bool(b.any()):
+            if bool(a.any()):
+                return 0.0
+            continue
+        worst = min(worst, cos(a, b))
+    return worst
+
+
+def phase_kernels_batch(flush: torch.Tensor) -> list:
+    """K2 against its plain version: the four fused projections x {bf16,
+    int8, int4} x T in {4 (batched decode), 64 (prefill)} x tau {0.97, 1},
+    with mixed per-slot efforts."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(4321)
+    points = []
+    for name, (i, o) in SHAPES.items():
+        rms = torch.exp(torch.randn(i, generator=g, device="cuda") * 1.2)
+        pi = calib_row_order(rms)
+        wt = torch.randn((i, o), generator=g, device="cuda") * 0.02
+        dense = wt[pi.long()].to(torch.bfloat16)
+        Vs = {T: [rms[pi.long()] * torch.randn((T, i), generator=g,
+                                               device="cuda")
+                  for _ in range(RUNS)] for T in BATCH_TS}
+        lib_ms = {T: median([gpu_ms(lambda a: torch.mm(a, dense),
+                                    (V.to(torch.bfloat16),), flush)
+                             for V in Vs[T]]) for T in BATCH_TS}
+        del dense
+        for dtype in DTYPES:
+            bc = BucketConfig(bucket_size=1, chunk_rows=128, dtype=dtype)
+            bc = dataclasses.replace(bc, chunk_rows=pick_chunk_rows(bc, i, o))
+            bm = bucketize(wt, bc, in_perm=pi)
+            for T in BATCH_TS:
+                eff = batch_efforts(T)
+                for tau in TAUS:
+                    V = Vs[T][0]
+                    y, C = fused_stream.mxu_matvec_batch(
+                        bm, V, eff, 0, tau=tau, return_len=True)
+                    yr, Cr = fused_stream.mxu_matvec_batch_ref(
+                        bm, V, eff, 0, tau=tau, return_len=True)
+                    torch.cuda.synchronize()
+                    C, Cr = int(C), int(Cr)
+                    err = float((y - yr).abs().max())
+                    scale = float(yr.abs().max())
+                    c = rows_agree(y, yr)
+                    p = dict(shape=name, in_dim=i, out_dim=o, dtype=dtype,
+                             T=T, chunk_rows=bm.chunk_rows,
+                             n_chunks=bm.n_chunks, tau=tau, C=C, C_plain=Cr,
+                             min_slot_cos=c, max_abs_err=err,
+                             max_abs_ref=scale)
+                    if C != Cr or not c >= 0.9999 or not err <= 1e-2 * scale:
+                        raise AssertionError(f"K2 disagrees with its plain "
+                                             f"version: {p}")
+                    p["ms"] = median([gpu_ms(
+                        lambda v: fused_stream.mxu_matvec_batch(
+                            bm, v, eff, 0, tau=tau), (v,), flush)
+                        for v in Vs[T]])
+                    p["plain_ms"] = median([gpu_ms(
+                        lambda v: fused_stream.mxu_matvec_batch_ref(
+                            bm, v, eff, 0, tau=tau), (v,), flush)
+                        for v in Vs[T]])
+                    p["bytes"] = k2_bytes(bm, C, T)
+                    p["flops"] = 2 * T * C * bm.chunk_rows * o
+                    bytes_ms = p["bytes"] / HBM_BYTES_PER_S * 1e3
+                    flops_ms = p["flops"] / BF16_FLOPS * 1e3
+                    p["bound_ms"] = max(bytes_ms, flops_ms)
+                    p["bound_by"] = ("bytes" if bytes_ms >= flops_ms
+                                     else "operations")
+                    p["library_ms"] = lib_ms[T]
+                    points.append(p)
+                    emit({"phase": "kernels_batch", **p})
+            del bm
+        del wt, Vs
+        torch.cuda.empty_cache()
+    return points
+
+
+def phase_attention(flush: torch.Tensor) -> list:
+    """K3 against its plain version at Mistral-7B's heads (H 32, KV 8,
+    D 128) over a 512-slot cache, in the forward_seq layout. Times are
+    taken with L2 flushed, as K1's and K2's are."""
+    H, KV, D, S = 32, 8, 128, 512
+    g = torch.Generator(device="cuda")
+    g.manual_seed(99)
+    points = []
+    for case in ATTN_CASES:
+        T, start, mf, win = (case["T"], case["start_slot"],
+                             case["mask_from"], case["window"])
+        kc = torch.randn((S, KV, D), generator=g, device="cuda").to(
+            torch.bfloat16)
+        vc = torch.randn((S, KV, D), generator=g, device="cuda").to(
+            torch.bfloat16)
+        Qs = [torch.randn((T, H * D), generator=g, device="cuda") * 2.0
+              for _ in range(RUNS)]
+
+        def run(q, plain=False):
+            return flash_attention_seq(q, kc, vc, start, mf, H, D,
+                                       window=win, plain=plain)
+        y, yr = run(Qs[0]), run(Qs[0], plain=True)
+        torch.cuda.synchronize()
+        slot = start + torch.arange(T, device="cuda")
+        dead = slot < mf                    # queries with no live key
+        rows, rows_r = y.reshape(T * H, D), yr.reshape(T * H, D)
+        live_rows = (~dead).repeat_interleave(H)
+        c = rows_agree(rows[live_rows], rows_r[live_rows])
+        err = float((y - yr).abs().max())
+        scale = float(yr.abs().max())
+        dead_zero = not bool(y[dead].any())
+        p = dict(case=case["name"], T=T, S=S, H=H, KV=KV, D=D,
+                 start_slot=start, mask_from=mf, window=win,
+                 dead_rows=int(dead.sum()), min_row_cos=c,
+                 max_abs_err=err, max_abs_ref=scale,
+                 dead_rows_zero=dead_zero)
+        if not c >= 0.9999 or not err <= 1e-2 * scale or not dead_zero:
+            raise AssertionError(f"K3 disagrees with its plain version: {p}")
+        # the live keys of each query, for the bound
+        k_ids = torch.arange(S, device="cuda")
+        live = (k_ids[None] <= slot[:, None]) & (k_ids[None] >= mf)
+        if win:
+            live &= k_ids[None] > slot[:, None] - win
+        n_live = int(live.sum())
+        keys = int(live.any(dim=0).sum())
+        p["bytes"] = 2 * T * H * D * 4 + 2 * keys * KV * D * 2
+        p["flops"] = 4 * H * D * n_live
+        bytes_ms = p["bytes"] / HBM_BYTES_PER_S * 1e3
+        flops_ms = p["flops"] / BF16_FLOPS * 1e3
+        p["bound_ms"] = max(bytes_ms, flops_ms)
+        p["bound_by"] = "bytes" if bytes_ms >= flops_ms else "operations"
+        p["ms"] = median([gpu_ms(run, (q,), flush) for q in Qs])
+        p["plain_ms"] = median([gpu_ms(lambda q: run(q, True), (q,), flush)
+                                for q in Qs])
+        # yardstick only: torch's SDPA with the same boolean mask
+        kf = kc.permute(1, 0, 2).repeat_interleave(H // KV, 0)[None]
+        vf = vc.permute(1, 0, 2).repeat_interleave(H // KV, 0)[None]
+        qb = [q.reshape(T, H, D).permute(1, 0, 2)[None].to(torch.bfloat16)
+              for q in Qs]
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        p["library_ms"] = median([gpu_ms(
+            lambda q: sdpa(q, kf, vf, attn_mask=live), (q,), flush)
+            for q in qb])
+        points.append(p)
+        emit({"phase": "attention", **p})
+    return points
+
+
+def build_model():
+    """Mistral-7B width and depth, int8 row-prefix buckets, fused wqkv and
+    w13, int8 LM head, dense copies kept; random calibrated weights from
+    seed 0. Returns (cfg, w, engine, prompts); every model phase uses it."""
     cfg = mistral_7b(n_layers=32, max_seq_len=512)
     bcfg = BucketConfig(bucket_size=1, chunk_rows=128, dtype="int8")
     t0 = time.perf_counter()
@@ -179,63 +411,88 @@ def phase_generate():
                                           fuse=True, keep_dense=True,
                                           device="cuda"))
     torch.cuda.synchronize()
-    emit({"phase": "generate_setup", "seconds": time.perf_counter() - t0,
+    emit({"phase": "model_setup", "seconds": time.perf_counter() - t0,
           "weights_gib": torch.cuda.memory_allocated() / 2**30})
-    eng = Engine(w, cfg, eos_id=-1)
     g = torch.Generator().manual_seed(7)
     prompts = [torch.randint(3, cfg.vocab_size, (n,), generator=g).tolist()
                for n in PROMPT_LENS]
-    steps = sum(max(eng.pad_to, -(-n // eng.pad_to) * eng.pad_to)
-                + N_NEW - 1 for n in PROMPT_LENS)
+    return cfg, w, Engine(w, cfg, eos_id=-1), prompts
+
+
+def check_replies(replies, cfg, n_new: int, what: str) -> None:
+    for toks in replies:
+        if len(toks) != n_new or not all(0 <= t < cfg.vocab_size
+                                         for t in toks):
+            raise AssertionError(f"bad reply ({what}): {toks}")
+
+
+def check_launches(got: dict, want: dict, what: str) -> None:
+    """Every kernel's count in one run of a path against the count the path
+    must give (kernels the path must not reach are given as 0)."""
+    bad = {k: (got[k], n) for k, n in want.items() if got[k] != n}
+    if bad:
+        raise AssertionError(f"launches (got, expected) in {what}: {bad}")
+
+
+def phase_generate(cfg, w, eng, prompts):
+    """Single-stream decode, the prompt fed token by token (K1)."""
+    steps = sum(padded(n, eng.pad_to) + N_NEW - 1 for n in PROMPT_LENS)
     eng.generate(prompts[0], n_new=2, effort=0.25)       # warm-up
     results, replies = [], {}
-    torch.cuda.synchronize()
-    reset_launches()                    # the main path's run starts here
     for effort in (0.25, 0.5, 1.0):
-        before = LAUNCHES["mxu_matvec"]
+        torch.cuda.synchronize()
+        reset_launches()                # the path's run starts here ...
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         out = [eng.generate(p, n_new=N_NEW, effort=effort) for p in prompts]
         end.record()
         end.synchronize()
-        launches = LAUNCHES["mxu_matvec"] - before
+        launches = dict(LAUNCHES)       # ... and is read here
         ms = start.elapsed_time(end)
         want = 4 * cfg.n_layers * steps if effort < 0.999 else 0
         r = dict(effort=effort, requests=len(prompts), steps=steps,
                  ms=ms, ms_per_token=ms / steps, launches=launches,
-                 launches_expected=want, first_tokens=out[0].token_ids[:8])
+                 first_tokens=out[0].token_ids[:8])
         results.append(r)
         emit({"phase": "generate", **r})
-        for rep in out:
-            if len(rep.token_ids) != N_NEW or not all(
-                    0 <= t < cfg.vocab_size for t in rep.token_ids):
-                raise AssertionError(f"bad reply at effort {effort}: "
-                                     f"{rep.token_ids}")
-        if launches != want:
-            raise AssertionError(f"K1 launched {launches} times at effort "
-                                 f"{effort}, expected {want}")
+        check_replies([rep.token_ids for rep in out], cfg, N_NEW,
+                      f"generate, effort {effort}")
+        check_launches(launches, {"mxu_matvec": want, "mxu_matvec_batch": 0,
+                                  "flash_attention": 0},
+                       f"generate at effort {effort}")
         replies[effort] = out
-    total = LAUNCHES["mxu_matvec"]      # ... and is read here
-    if total == 0 or total != sum(r["launches"] for r in results):
-        raise AssertionError(f"K1 launches in the main path's run: {total}")
-    return cfg, w, eng, prompts, replies, results
+    if not sum(r["launches"]["mxu_matvec"] for r in results):
+        raise AssertionError("K1 was not launched on the decode path")
+    return results, replies
 
 
-def phase_profile(eng, prompt) -> dict:
-    """Where one request's time goes: device time by kernel (torch.profiler)
-    over one request of 8 new tokens at effort 0.25, against the wall time
-    of the same request run again without the profiler."""
+# the ported kernels' own CUDA kernels, by a part of their profiler names
+# (K1's and K2's live in anonymous namespaces; torch's own reductions are
+# named reduce_kernel too)
+KERNEL_PARTS = {"k1_select": "namespace)::select_kernel",
+                "k1_stream": "namespace)::stream_kernel",
+                "k1_reduce": "namespace)::reduce_kernel",
+                "k2_select": "namespace)::select_batch_kernel",
+                "k2_stream": "namespace)::stream_batch_kernel",
+                "k2_reduce": "namespace)::reduce_batch_kernel",
+                "k3": "namespace)::flash_kernel"}
+
+
+def device_profile(fn) -> dict:
+    """Where the time of fn() goes: device time by kernel (torch.profiler)
+    against the wall time of fn() run again without the profiler; the
+    card's busy share is their ratio."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    n_new = 8
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        eng.generate(prompt, n_new=n_new, effort=0.25)
+        fn()
         torch.cuda.synchronize()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    eng.generate(prompt, n_new=n_new, effort=0.25)
+    fn()
+    torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     # kernels only: an operator's row repeats the time of its kernels
     kernels = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
@@ -244,15 +501,21 @@ def phase_profile(eng, prompt) -> dict:
                       and e.self_device_time_total > 0),
                      key=lambda k: -k[1])
     device_ms = sum(k[1] for k in kernels)
-    # K1's three kernels live in an anonymous namespace of mxu_matvec.cu
-    # (torch's own reductions are named reduce_kernel too)
-    k1 = {part: sum(k[1] for k in kernels if f"namespace)::{part}" in k[0])
-          for part in ("select_kernel", "stream_kernel", "reduce_kernel")}
-    steps = max(eng.pad_to, -(-len(prompt) // eng.pad_to) * eng.pad_to) \
-        + n_new - 1
-    r = dict(steps=steps, wall_ms=wall_ms, device_ms=device_ms,
-             device_busy_share=device_ms / wall_ms,
-             k1_ms=k1, top=[(name[:60], ms, n) for name, ms, n in kernels[:8]])
+    parts = {part: sum(k[1] for k in kernels if sub in k[0])
+             for part, sub in KERNEL_PARTS.items()}
+    return dict(wall_ms=wall_ms, device_ms=device_ms,
+                device_busy_share=device_ms / wall_ms,
+                kernel_ms={k: v for k, v in parts.items() if v},
+                top=[(name[:60], ms, n) for name, ms, n in kernels[:8]])
+
+
+def phase_profile(eng, prompt) -> dict:
+    """Where one request's time goes: one request of 8 new tokens at
+    effort 0.25 on the token-loop engine."""
+    n_new = 8
+    r = dict(steps=padded(len(prompt), eng.pad_to) + n_new - 1,
+             **device_profile(lambda: eng.generate(prompt, n_new=n_new,
+                                                   effort=0.25)))
     emit({"phase": "profile", **r})
     return r
 
@@ -324,6 +587,371 @@ def phase_teacher(cfg, w, tokens) -> list:
     return rows
 
 
+def phase_prefill(cfg, w, eng, prompts) -> list:
+    """Engine(prefill=True): each prompt runs through one forward_seq pass
+    (K2 per projection below effort 1, dense copies at 1; K3 per layer),
+    then greedy decode (K1). Time to first token: the wall time of a call
+    asking for one token (the reply read back on the host included);
+    decode ms per token: the rest of a 32-token call over its 31 steps."""
+    pre = Engine(w, cfg, eos_id=-1, prefill=True)
+    pre.generate(prompts[0], n_new=2, effort=0.25)       # warm-up
+    L, results = cfg.n_layers, []
+    for effort in (0.25, 0.5, 1.0):
+        ttft, decode, replies = {}, [], []
+        torch.cuda.synchronize()
+        reset_launches()                # the path's run starts here ...
+        for p in prompts:
+            t0 = time.perf_counter()
+            first = pre.generate(p, n_new=1, effort=effort).token_ids
+            t1 = time.perf_counter()
+            rep = pre.generate(p, n_new=N_NEW, effort=effort).token_ids
+            t2 = time.perf_counter()
+            ttft.setdefault(padded(len(p)), []).append((t1 - t0) * 1e3)
+            decode.append(((t2 - t1) - (t1 - t0)) * 1e3 / (N_NEW - 1))
+            replies.append(rep)
+            if rep[:1] != first:
+                raise AssertionError(f"prefill's first token differs "
+                                     f"between two calls: {first} {rep}")
+        launches = dict(LAUNCHES)       # ... and is read here
+        calls, low = 2 * len(prompts), effort < 0.999
+        r = dict(effort=effort, requests=len(prompts),
+                 ttft_ms={P: median(v) for P, v in ttft.items()},
+                 ttft_ms_all={P: v for P, v in ttft.items()},
+                 decode_ms_per_token=median(decode), launches=launches,
+                 first_tokens=replies[0][:8])
+        results.append(r)
+        emit({"phase": "prefill", **r})
+        check_replies(replies, cfg, N_NEW, f"prefill, effort {effort}")
+        check_launches(launches, {
+            "flash_attention": L * calls,
+            "mxu_matvec_batch": 4 * L * calls if low else 0,
+            "mxu_matvec": 4 * L * len(prompts) * (N_NEW - 1) if low else 0},
+            f"prefill at effort {effort}")
+        # beside it, the token-loop engine's time to first token on the
+        # same prompts (every prompt slot one decode step)
+        loop = {}
+        for p in prompts:
+            t0 = time.perf_counter()
+            eng.generate(p, n_new=1, effort=effort)
+            loop.setdefault(padded(len(p)), []).append(
+                (time.perf_counter() - t0) * 1e3)
+        r["ttft_token_loop_ms"] = {P: median(v) for P, v in loop.items()}
+        emit({"phase": "prefill_vs_token_loop", "effort": effort,
+              "ttft_ms": r["ttft_ms"],
+              "ttft_token_loop_ms": r["ttft_token_loop_ms"]})
+    # where the time to first token goes: the 64-token prompt at 0.25
+    prof = device_profile(lambda: pre.generate(prompts[-1], n_new=1,
+                                               effort=0.25))
+    emit({"phase": "prefill_profile", "prompt_len": len(prompts[-1]),
+          **prof})
+    results[0]["profile"] = prof
+    return results
+
+
+def min_row_cos(y: torch.Tensor, yr: torch.Tensor) -> torch.Tensor:
+    """rows_agree on the device, with no wait: the least cosine over rows
+    as a scalar tensor; a row that is 0 in yr counts 1 if it is 0 in y
+    too, else 0."""
+    y, yr = y.double(), yr.double()
+    c = torch.nn.functional.cosine_similarity(y, yr, dim=-1)
+    zero_ok = torch.where(y.abs().amax(-1) > 0, 0.0, 1.0).double()
+    return torch.where(yr.abs().amax(-1) > 0, c, zero_ok).min()
+
+
+def same_input_layers(seq, cfg_d, eff) -> dict:
+    """One kernel-route pass of forward_seq in which every K2 and K3 call is
+    also run through its plain version on the very inputs it was given: per
+    layer, the least row cosine of its K2 calls and of its K3 call, and
+    whether each K2 call's C equals the plain version's. A fault that shows
+    only at later layers (a stale or strided cache read) shows here."""
+    k2, k3 = bucketmul.mxu_matvec_batch, transformer.flash_attention_seq
+    k2_cos, k2_c, k3_cos = [], [], []
+    D = cfg_d.head_dim
+
+    def k2_both(bm, V, efforts, expert=0, tau=None):
+        y, C = k2(bm, V, efforts, expert, tau, return_len=True)
+        yr, Cr = fused_stream.mxu_matvec_batch_ref(bm, V, efforts, expert,
+                                                   tau, return_len=True)
+        k2_cos.append(min_row_cos(y, yr))
+        k2_c.append((C == Cr).all())
+        return y
+
+    def k3_both(*args, **kw):
+        y = k3(*args, **kw)
+        yr = k3(*args, **{**kw, "plain": True})
+        k3_cos.append(min_row_cos(y.reshape(-1, D), yr.reshape(-1, D)))
+        return y
+
+    bucketmul.mxu_matvec_batch = k2_both
+    transformer.flash_attention_seq = k3_both
+    try:
+        seq(cfg_d, eff, "kernel", "flash")
+    finally:
+        bucketmul.mxu_matvec_batch, transformer.flash_attention_seq = k2, k3
+    L = cfg_d.n_layers
+    if len(k2_cos) != 4 * L or len(k3_cos) != L:
+        raise AssertionError(f"{len(k2_cos)} K2 and {len(k3_cos)} K3 calls "
+                             f"in {L} layers")
+    return dict(k2_min_cos=torch.stack(k2_cos).reshape(L, 4).amin(1).tolist(),
+                k2_c_equal=torch.stack(k2_c).reshape(L, 4).all(1).tolist(),
+                k3_min_cos=torch.stack(k3_cos).tolist())
+
+
+def phase_prefill_teacher(cfg, w, eng, prompts) -> list:
+    """forward_seq over one left-padded prompt (17 tokens in 32 slots) at
+    tau = 1: the kernel route (K2, K3) against the plain route (both plain
+    versions), and the dense forward_seq against dense forward_token steps
+    over the same tokens, by the cosine of each real position's logits
+    (exact bf16 head). Required at depth 4: >= 0.999 everywhere; depth 32
+    is printed only. Two witnesses of why depth 32 parts: every layer's K2
+    and K3 calls against their plain versions on the same inputs (required:
+    cos >= 0.9999, equal C, at each of the 32 layers), and the plain route
+    against itself with each attention-norm weight moved by a relative
+    2^-20 x N(0, 1), about 16 f32 ulps (printed only)."""
+    saved = fused_stream._TAU
+    fused_stream._TAU = 1.0
+    prompt = prompts[1]
+    P = padded(len(prompt))
+    off = P - len(prompt)
+    ids = torch.tensor([0] * off + prompt, dtype=torch.int32, device="cuda")
+    rows = []
+    g = torch.Generator(device="cuda")
+    g.manual_seed(7)
+    nudge = torch.randn(w.layers.attn_norm.shape, generator=g, device="cuda")
+    w_nudged = dataclasses.replace(w, layers=dataclasses.replace(
+        w.layers, attn_norm=w.layers.attn_norm * (1 + 2.0**-20 * nudge)))
+
+    def seq(cfg_d, effort, impl, attn_impl, weights=w):
+        return forward_seq(weights, cfg_d, ids,
+                           *make_kv_cache(cfg_d, "cuda"), rope_offset=off,
+                           mask_from=off, effort=effort, impl=impl,
+                           attn_impl=attn_impl)[off:]
+
+    def token_loop(cfg_d):
+        kv = make_kv_cache(cfg_d, "cuda")
+        out = []
+        for pos in range(off, P):
+            h = forward_layers(w, cfg_d, embed(w, ids[pos]), pos, *kv,
+                               effort=1.0, impl="dense", rope_offset=off,
+                               mask_from=off)
+            out.append(dense_matvec(rms_norm(h, w.norm, cfg.norm_eps),
+                                    w.output))
+        return torch.stack(out)
+
+    try:
+        for depth in (4, 32):
+            cfg_d = dataclasses.replace(cfg, n_layers=depth)
+            pairs = {}
+            for effort in (0.25, 0.5):
+                eff = torch.tensor(effort, device="cuda")
+                plain = seq(cfg_d, eff, "plain", "plain")
+                pairs[f"kernel_vs_plain_{effort}"] = (
+                    seq(cfg_d, eff, "kernel", "flash"), plain)
+                pairs[f"plain_nudged_vs_plain_{effort}"] = (
+                    seq(cfg_d, eff, "plain", "plain", w_nudged), plain)
+            pairs["dense_seq_vs_token"] = (seq(cfg_d, 1.0, "dense", "flash"),
+                                           token_loop(cfg_d))
+            for what, (a, b) in pairs.items():
+                cs = [cos(x, y) for x, y in zip(a, b)]
+                r = dict(depth=depth, pair=what, positions=len(cs),
+                         min_cos=min(cs), mean_cos=sum(cs) / len(cs),
+                         argmax_agreement=float(
+                             (a.argmax(-1) == b.argmax(-1)).float().mean()),
+                         finite=bool(torch.isfinite(a).all()),
+                         required=depth == 4 and "nudged" not in what)
+                rows.append(r)
+                emit({"phase": "prefill_teacher", **r})
+                if not r["finite"] or (r["required"]
+                                       and not r["min_cos"] >= 0.999):
+                    raise AssertionError(f"prefill teacher check: {r}")
+            if depth == 32:
+                for effort in (0.25, 0.5):
+                    r = dict(depth=depth, pair=f"same_input_{effort}",
+                             **same_input_layers(
+                                 seq, cfg_d, torch.tensor(effort,
+                                                          device="cuda")))
+                    r["min_cos"] = min(r["k2_min_cos"] + r["k3_min_cos"])
+                    r["required"] = True
+                    rows.append(r)
+                    emit({"phase": "prefill_teacher", **r})
+                    if not (r["min_cos"] >= 0.9999 and all(r["k2_c_equal"])):
+                        raise AssertionError(f"same-input check: {r}")
+    finally:
+        fused_stream._TAU = saved
+    return rows
+
+
+SERVE_LENS = (5, 64, 17, 40, 9, 33, 60, 24)
+SERVE_EFFORTS = (0.25, 0.5, 1.0, 0.25, 0.5, 1.0, 0.25, 0.5)
+
+
+def phase_serve(cfg, w, eng, prompts) -> list:
+    """Continuous batching: BatchEngine(batch_size=4) + ContinuousBatcher
+    serve 8 requests through 4 slots (prompt lengths 5-64, efforts mixed,
+    32 new tokens each), then a teacher check of one batched step against
+    the single-stream K1 route, then the HTTP server in batch mode."""
+    g = torch.Generator().manual_seed(11)
+    reqs = [torch.randint(3, cfg.vocab_size, (n,), generator=g).tolist()
+            for n in SERVE_LENS]
+    be = BatchEngine(w, cfg, batch_size=4, eos_id=-1)
+    cb = ContinuousBatcher(be)
+    cb.submit(reqs[0], 2, 0.25, lambda toks: None)        # warm-up
+    cb.run_until_drained()
+    done = {}
+    for i, (p, e) in enumerate(zip(reqs, SERVE_EFFORTS)):
+        cb.submit(p, N_NEW, e, lambda toks, i=i: done.__setitem__(i, toks))
+    torch.cuda.synchronize()
+    reset_launches()                    # the path's run starts here ...
+    t0 = time.perf_counter()
+    ticks = 0
+    while cb.has_work():
+        cb.tick()
+        ticks += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)           # ... and is read here
+    L, admits = cfg.n_layers, len(reqs)
+    r = dict(requests=admits, slots=4, new_tokens=N_NEW, steps=ticks,
+             wall_s=wall, tokens_per_s=admits * N_NEW / wall,
+             ms_per_step=wall * 1e3 / ticks, launches=launches,
+             first_tokens=done.get(0, [])[:8])
+    emit({"phase": "serve", **r})
+    check_replies([done.get(i) or [] for i in range(admits)], cfg, N_NEW,
+                  "serve")
+    check_launches(launches, {"mxu_matvec_batch": 4 * L * (ticks + admits),
+                              "flash_attention": L * admits,
+                              "mxu_matvec": 0}, "serve")
+    # where serving time goes: four requests of 8 tokens filling the slots
+    def wave():
+        for p, e in zip(reqs[:4], SERVE_EFFORTS):
+            cb.submit(p, 8, e, lambda toks: None)
+        cb.run_until_drained()
+    r["profile"] = device_profile(wave)
+    emit({"phase": "serve_profile", "requests": 4, "new_tokens": 8,
+          **r["profile"]})
+    r["teacher"] = serve_teacher(cfg, w, reqs)
+    r["http"] = serve_http(cfg, w)
+    return [r]
+
+
+def serve_teacher(cfg, w, reqs) -> list:
+    """At depth 4 and tau = 1, one batched decode step's logits for each
+    slot against forward_token on the single-stream K1 route at the slot's
+    effort, both reading copies of the same cache (exact bf16 head)."""
+    saved = fused_stream._TAU
+    fused_stream._TAU = 1.0
+    cfg4 = dataclasses.replace(cfg, n_layers=4)
+    w_exact = dataclasses.replace(w, output_q=None, output_qscale=None)
+    try:
+        be = BatchEngine(w_exact, cfg4, batch_size=4, eos_id=-1)
+        for b in range(4):
+            be.admit(b, b, reqs[b], N_NEW, SERVE_EFFORTS[b])
+        for _ in range(3):
+            be.step()
+        kc, vc = be.k_cache.clone(), be.v_cache.clone()
+        lb = forward_token_batch(be.w, cfg4, be.tokens, be.pos, kc, vc,
+                                 be.efforts, offs=be.offs, impl="kernel")
+        rows = []
+        for b in range(4):
+            kv = (be.k_cache[:, b].clone(), be.v_cache[:, b].clone())
+            pos, off = int(be.pos[b]), int(be.offs[b])
+            ls = forward_token(be.w, cfg4, be.tokens[b], pos, *kv,
+                               effort=effort_q16(SERVE_EFFORTS[b], "cuda"),
+                               impl="kernel", rope_offset=off, mask_from=off)
+            rows.append(dict(slot=b, effort=SERVE_EFFORTS[b], pos=pos,
+                             cos=cos(lb[b], ls),
+                             argmax_equal=bool(lb[b].argmax()
+                                               == ls.argmax())))
+        emit({"phase": "serve_teacher", "slots": rows})
+        if not all(x["cos"] >= 0.999 for x in rows):
+            raise AssertionError(f"batched step vs single stream: {rows}")
+    finally:
+        fused_stream._TAU = saved
+    return rows
+
+
+def serve_http(cfg, w) -> dict:
+    """make_batch_server on 127.0.0.1 (a free port), in this process: four
+    concurrent /q requests, one stream=1 request and one /v1/completions
+    request. Every answer must be 200 with its full token count (or end at
+    the end-of-sequence id 2)."""
+    import asyncio
+    import urllib.request
+    n = 8
+
+    def fetch(port, path, payload=None):
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}{path}",
+            data=None if payload is None else json.dumps(payload).encode(),
+            headers={"content-type": "application/json"})
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            return resp.status, resp.read().decode()
+
+    def full(toks):
+        return len(toks) == n or (0 < len(toks) < n and toks[-1] == 2)
+
+    async def run():
+        srv = make_batch_server(w, cfg, batch_size=4, port=0)
+        await srv.start()
+        loop = asyncio.get_running_loop()
+        try:
+            t0 = time.perf_counter()
+            got = await asyncio.gather(*[
+                loop.run_in_executor(None, fetch, srv.port,
+                                     f"/q?query=hello{i}&effort={e}"
+                                     f"&numtokens={n}")
+                for i, e in enumerate((25, 50, 100, 25))])
+            concurrent_s = time.perf_counter() - t0
+            streamed = await loop.run_in_executor(
+                None, fetch, srv.port,
+                f"/q?query=stream&effort=50&numtokens={n}&stream=1")
+            completion = await loop.run_in_executor(
+                None, fetch, srv.port, "/v1/completions",
+                {"prompt": "hello", "max_tokens": n, "effort": 0.5})
+        finally:
+            await srv.stop()
+        return got, streamed, completion, concurrent_s
+
+    got, streamed, completion, concurrent_s = asyncio.run(run())
+    ok = all(st == 200 and full(json.loads(body)["token_ids"])
+             for st, body in got)
+    st, body = streamed
+    events = [e for e in body.split("\n\n") if e.strip()]
+    data = [json.loads(e.split("data: ", 1)[1]) for e in events
+            if e.startswith("data: ")]
+    final = [json.loads(e.split("data: ", 1)[1]) for e in events
+             if e.startswith("event: done")]
+    ok &= (st == 200 and len(final) == 1 and full(final[0]["token_ids"])
+           and [d["token"] for d in data] == final[0]["token_ids"])
+    st, body = completion
+    obj = json.loads(body)
+    ok &= (st == 200 and obj["object"] == "text_completion"
+           and full(json.loads(obj["choices"][0]["text"])))
+    r = dict(concurrent_q=[st for st, _ in got], concurrent_s=concurrent_s,
+             stream_events=len(data), completion=obj["choices"][0], ok=ok)
+    emit({"phase": "serve_http", **r})
+    if not ok:
+        raise AssertionError(f"batch server: {r}")
+    return r
+
+
+def summary_row(name: str, source: str, replaces: str, points: list,
+                launches: int, pick) -> dict:
+    """One kernel's entry of the `kernels` line: times summed over the
+    points `pick` selects (one layer's launches, or one call), the largest
+    error over all points."""
+    rows = [p for p in points if pick(p)]
+    by = {p["bound_by"] for p in rows if "bound_by" in p} or {"bytes"}
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(p["max_abs_err"] for p in points),
+            "ms": sum(p["ms"] for p in rows),
+            "plain_ms": sum(p["plain_ms"] for p in rows),
+            "bound_ms": sum(p["bound_ms"] for p in rows),
+            "bound_by": "operations" if by == {"operations"} else "bytes",
+            "library_ms": sum(p["library_ms"] for p in rows)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this "
@@ -333,34 +961,47 @@ def main() -> int:
     t_start = time.perf_counter()
     name, smi = phase_device()
     phase_build()
+    out = {"device": name, "nvidia_smi": smi}
     flush = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")
-    points = phase_kernels(flush)
+    out["points"] = phase_kernels(flush)
+    out["points_batch"] = phase_kernels_batch(flush)
+    out["attention"] = phase_attention(flush)
     del flush
     torch.cuda.empty_cache()
-    cfg, w, eng, prompts, replies, gen = phase_generate()
-    profiled = phase_profile(eng, prompts[0])
-    teacher = phase_teacher(cfg, w, prompts[0] + replies[0.25][0].token_ids)
+    model = build_model()
+    out["generate"], replies = phase_generate(*model)
+    out["profile"] = phase_profile(model[2], model[3][0])
+    out["teacher"] = phase_teacher(
+        *model[:2], model[3][0] + replies[0.25][0].token_ids)
+    out["prefill"] = phase_prefill(*model)
+    out["prefill_teacher"] = phase_prefill_teacher(*model)
+    out["serve"] = phase_serve(*model)
 
-    summary = [p for p in points
-               if (p["dtype"], p["effort"], p["tau"]) == SUMMARY]
-    k1 = {"name": "mxu_matvec", "route": "cuda",
-          "source": "effort_tpu_torch/csrc/mxu_matvec.cu",
-          "replaces": "effort_tpu/kernels/fused_stream.py:270",
-          "launches": sum(r["launches"] for r in gen),
-          "max_abs_err": max(p["max_abs_err"] for p in points),
-          "ms": sum(p["ms"] for p in summary),
-          "plain_ms": sum(p["plain_ms"] for p in summary),
-          "bound_ms": sum(p["bound_ms"] for p in summary),
-          "bound_by": "bytes",
-          "library_ms": sum(p["library_ms"] for p in summary)}
+    out["kernels"] = kernels = [
+        summary_row(
+            "mxu_matvec", "effort_tpu_torch/csrc/mxu_matvec.cu",
+            "effort_tpu/kernels/fused_stream.py:270", out["points"],
+            sum(r["launches"]["mxu_matvec"]
+                for r in out["generate"] + out["prefill"]),
+            lambda p: (p["dtype"], p["effort"], p["tau"]) == SUMMARY),
+        summary_row(
+            "mxu_matvec_batch", "effort_tpu_torch/csrc/mxu_matvec_batch.cu",
+            "effort_tpu/kernels/fused_stream.py:391", out["points_batch"],
+            sum(r["launches"]["mxu_matvec_batch"]
+                for r in out["prefill"] + out["serve"]),
+            lambda p: (p["dtype"], p["T"], p["tau"]) == SUMMARY_BATCH),
+        summary_row(
+            "flash_attention", "effort_tpu_torch/csrc/flash_attention.cu",
+            "effort_tpu/kernels/flash_attention.py:36", out["attention"],
+            sum(r["launches"]["flash_attention"]
+                for r in out["prefill"] + out["serve"]),
+            lambda p: p["case"] == SUMMARY_ATTN)]
+    out["seconds"] = time.perf_counter() - t_start
     OUT_DIR.mkdir(exist_ok=True)
     with open(OUT_DIR / "chip_smoke.json", "w") as f:
-        json.dump({"device": name, "nvidia_smi": smi, "k1": k1,
-                   "points": points, "generate": gen, "profile": profiled,
-                   "teacher": teacher,
-                   "seconds": time.perf_counter() - t_start}, f, indent=1)
-    emit({"phase": "done", "seconds": time.perf_counter() - t_start})
-    emit({"kernels": [k1]})
+        json.dump(out, f, indent=1)
+    emit({"phase": "done", "seconds": out["seconds"]})
+    emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

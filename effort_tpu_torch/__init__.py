@@ -9,7 +9,9 @@ Layout mirrors the JAX package:
   - config:   configuration dataclasses (own copy, same JSON schema)
   - ops:      bucketized weight format, effort selection, bucketMul math
   - kernels:  kernel wrappers + plain PyTorch versions, the nvcc build
-  - models:   decode forward pass, weight synthesis, generation engine
+  - models:   decode, prefill and batched-decode forward passes, weight
+              synthesis, generation engine
+  - serving:  continuous batching and the HTTP server
   - utils:    CUDA-event timing
 
 Importing the package builds nothing and needs no GPU: kernels are built

@@ -2,17 +2,9 @@
 //
 // Replaces the TPU kernel effort_tpu/kernels/fused_stream.py:_kernel_mxu
 // (entry mxu_matvec, fused_stream.py:616-684). What it computes, for one
-// instance e of a packed [E*nc+1, G, OBv] value tensor:
-//
-//   scores  = |v[::stride][:P] * probes_e|
-//   cutoff  = two-level 32-threshold search at kq = clip(rint(P*eff), 1, P),
-//             eff the 16.16 fixed-point effort; geometric thresholds
-//             m*exp((j+1) ln 0.62), then linear ones hi-(hi-lo)(j+1)/32
-//             (fused_stream.py:98-142; the table comes from the wrapper)
-//   sel_i   = stats_i * |v_i| > cutoff
-//   u_i     = bf16(v_i * sel_i * scale_i)
-//   C       = shortest prefix of the nc row chunks holding tau of the
-//             selected mass, 1 <= C <= nc (fused_stream.py:61-96)
+// instance e of a packed [E*nc+1, G, OBv] value tensor: the selection of
+// row_prefix.cuh (u, the cutoff and the stream length C) at the 16.16
+// fixed-point effort, then
 //   y[j]    = sum over rows r < C*G of u_r * W_e[r, j], accumulated in f32
 //
 // Three launches on the caller's stream, no host sync: a one-block
@@ -29,230 +21,26 @@
 // a cp.async/TMA ring, skipping all-zero u rows inside the prefix, and
 // fusing the selection into the streaming launch.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "row_prefix.cuh"
 
 namespace {
 
-constexpr int kNL = 32;              // thresholds per search level
-constexpr int kSelThreads = 1024;
-constexpr int kSelWarps = kSelThreads / 32;
-constexpr int kMaxP = 4096;          // probes per instance
-constexpr int kMaxChunks = 1024;
-constexpr int kSegRows = 256;        // rows per selection segment (at most)
-constexpr int kMaxSegs = 2048;
+using namespace row_prefix;
+
 constexpr int kStreamThreads = 256;  // 8 warps; one warp row = 512 bytes
 constexpr int kWarps = kStreamThreads / 32;
 constexpr int kUnroll = 4;
 
-enum Kind { kBf16 = 0, kInt8 = 1, kInt4 = 2 };
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-// Selection segments: each of the nc chunks is cut into spc row segments
-// of at most kSegRows rows, and at least one segment per warp overall, so
-// every warp has rows to load.
-__host__ __device__ __forceinline__ int segs_per_chunk(int G, int nc) {
-  const int by_rows = (G + kSegRows - 1) / kSegRows;
-  const int by_warps = (kSelWarps + nc - 1) / nc;
-  return by_rows > by_warps ? by_rows : by_warps;
-}
-
-// One level of the threshold search (fused_stream.py:_vec_cutoff.level)
-// over the descending thresholds s_t[0..kNL). Each warp counts 32 scores
-// at a time against every threshold with one ballot each; lane j keeps the
-// count for threshold j, and the warps' counts meet in s_cnt (integer
-// sums: exact, whatever the order). The first index whose count reaches
-// kq equals the number of misses, since counts grow along the level.
-__device__ __forceinline__ void search_level(const float* s_scores, int P,
-                                             const float* s_t, int* s_cnt,
-                                             float kq, float lo0, float hi0,
-                                             float* lo, float* hi) {
-  const int lane = threadIdx.x & 31;
-  int mine = 0;
-  for (int base = threadIdx.x - lane; base < P; base += kSelThreads) {
-    const int i = base + lane;
-    const float s = i < P ? s_scores[i] : -1.f;  // thresholds are >= 0
-#pragma unroll
-    for (int j = 0; j < kNL; ++j) {
-      const int n = __popc(__ballot_sync(0xffffffffu, s > s_t[j]));
-      if (j == lane) mine += n;
-    }
-  }
-  atomicAdd(&s_cnt[lane], mine);
-  __syncthreads();
-  int nh = 0;
-#pragma unroll
-  for (int j = 0; j < kNL; ++j) nh += (float)s_cnt[j] < kq ? 1 : 0;
-  *lo = nh < kNL ? s_t[nh] : lo0;
-  *hi = (nh < kNL && nh >= 1) ? s_t[nh - 1] : hi0;
-  __syncthreads();  // s_t and s_cnt are rewritten next
-}
-
 __global__ void __launch_bounds__(kSelThreads) select_kernel(
-    const float* __restrict__ v, int in_dim, int P, int stride,
+    const float* __restrict__ v, int P, int stride,
     const float* __restrict__ probes, const float* __restrict__ stats,
     const float* __restrict__ scales, const int32_t* __restrict__ eff_q,
     const float* __restrict__ tables, int G, int nc, float tau,
     __nv_bfloat16* __restrict__ u, int32_t* __restrict__ c_out,
     float* __restrict__ cutoff_out) {
-  __shared__ float s_scores[kMaxP];
-  __shared__ float s_seg[kMaxSegs];
-  __shared__ float s_wmax[kSelWarps];
-  __shared__ float s_t[kNL];
-  __shared__ int s_cnt[kNL];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-
-  float mx = 0.f;  // scores are >= 0
-#pragma unroll 4
-  for (int i = tid; i < P; i += kSelThreads) {
-    const float s = fabsf(__fmul_rn(v[(size_t)i * stride], probes[i]));
-    s_scores[i] = s;
-    mx = fmaxf(mx, s);
-  }
-  mx = warp_max(mx);
-  if (lane == 0) s_wmax[warp] = mx;
-  __syncthreads();
-  mx = s_wmax[0];
-  for (int w = 1; w < kSelWarps; ++w) mx = fmaxf(mx, s_wmax[w]);
-  const float m = __fadd_rn(mx, 1e-30f);
   const float eff = __fmul_rn((float)eff_q[0], 1.0f / 65536.0f);
-  const float kq = fminf(fmaxf(rintf(__fmul_rn((float)P, eff)), 1.f),
-                         (float)P);
-
-  // level 1: geometric thresholds below the max
-  if (tid < kNL) s_t[tid] = __fmul_rn(m, tables[tid]);
-  if (tid < kNL) s_cnt[tid] = 0;
-  __syncthreads();
-  float lo, hi;
-  search_level(s_scores, P, s_t, s_cnt, kq, 0.f, m, &lo, &hi);
-  // level 2: linear thresholds inside [lo, hi]
-  if (tid < kNL)
-    s_t[tid] = __fsub_rn(hi, __fmul_rn(__fsub_rn(hi, lo), tables[kNL + tid]));
-  if (tid < kNL) s_cnt[tid] = 0;
-  __syncthreads();
-  float cutoff, unused;
-  search_level(s_scores, P, s_t, s_cnt, kq, lo, hi, &cutoff, &unused);
-
-  // selection, u, and the selected mass of every segment: one warp per
-  // segment, four rows a lane in flight, a fixed reduction order
-  const int spc = segs_per_chunk(G, nc);
-  for (int sg = warp; sg < nc * spc; sg += kSelWarps) {
-    const int c = sg / spc, q = sg % spc;
-    const int r1 = c * G + ((q + 1) * G) / spc;
-    float part = 0.f;
-    for (int i = c * G + (q * G) / spc + lane; i < r1; i += 32 * 4) {
-      float vi[4], st[4], sc[4];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int ii = i + 32 * k;
-        vi[k] = ii < r1 ? v[ii] : 0.f;
-        st[k] = ii < r1 ? stats[ii] : 0.f;
-        sc[k] = (ii < r1 && scales != nullptr) ? scales[ii] : 1.f;
-      }
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int ii = i + 32 * k;
-        if (ii >= r1) break;
-        const float x = __fmul_rn(st[k], fabsf(vi[k]));
-        const bool sel = x > cutoff;
-        if (sel) part = __fadd_rn(part, x);
-        const float ui = scales != nullptr ? __fmul_rn(vi[k], sc[k]) : vi[k];
-        u[ii] = __float2bfloat16_rn(sel ? ui : 0.f);
-      }
-    }
-    part = warp_sum(part);
-    if (lane == 0) s_seg[sg] = part;
-  }
-  __syncthreads();
-
-  if (tid == 0) {
-    // chunk masses, then a serial prefix in chunk order, each prefix
-    // rounded to f32 once
-    double acc = 0.0;
-    float tot = 0.f;
-    for (int c = 0; c < nc; ++c) {
-      float mass = 0.f;
-      for (int q = 0; q < spc; ++q) mass = __fadd_rn(mass, s_seg[c * spc + q]);
-      acc += (double)mass;
-      const float cum = __double2float_rn(acc);
-      s_seg[c] = cum;  // chunk c's segments are all read by now
-      tot = fmaxf(tot, cum);
-    }
-    const float thr = __fmul_rn(tau, tot);
-    int below = 0;
-    for (int c = 0; c < nc; ++c) below += s_seg[c] < thr ? 1 : 0;
-    c_out[0] = min(below + 1, nc);  // an empty selection streams 1 chunk
-    cutoff_out[0] = cutoff;
-  }
-}
-
-__device__ __forceinline__ float bf16_lo(uint32_t w) {
-  return __uint_as_float(w << 16);
-}
-__device__ __forceinline__ float bf16_hi(uint32_t w) {
-  return __uint_as_float(w & 0xffff0000u);
-}
-
-// Accumulators per thread: 16 bytes of one row decode to 8 (bf16),
-// 16 (int8) or 32 (int4: 16 low nibbles, then 16 high nibbles) columns.
-template <int KIND>
-struct Acc {
-  static constexpr int N = KIND == kBf16 ? 8 : (KIND == kInt8 ? 16 : 32);
-};
-
-template <int KIND>
-__device__ __forceinline__ void fma_row(float* acc, uint4 w, float uu) {
-  const uint32_t words[4] = {w.x, w.y, w.z, w.w};
-  if (KIND == kBf16) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      acc[2 * q] = fmaf(uu, bf16_lo(words[q]), acc[2 * q]);
-      acc[2 * q + 1] = fmaf(uu, bf16_hi(words[q]), acc[2 * q + 1]);
-    }
-  } else if (KIND == kInt8) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const float x = (float)(int8_t)((words[q] >> (8 * b)) & 0xffu);
-        acc[4 * q + b] = fmaf(uu, x, acc[4 * q + b]);
-      }
-    }
-  } else {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const uint32_t byte = (words[q] >> (8 * b)) & 0xffu;
-        const float lo = (float)((int)(byte & 15u) - 8);
-        const float hi = (float)((int)(byte >> 4) - 8);
-        acc[4 * q + b] = fmaf(uu, lo, acc[4 * q + b]);
-        acc[16 + 4 * q + b] = fmaf(uu, hi, acc[16 + 4 * q + b]);
-      }
-    }
-  }
-}
-
-// Decoded column of accumulator k for the thread whose 16 bytes start at
-// byte cb of a row of row_bytes bytes.
-template <int KIND>
-__device__ __forceinline__ int acc_col(int cb, int k, int row_bytes) {
-  if (KIND == kBf16) return cb / 2 + k;
-  if (KIND == kInt8) return cb + k;
-  return k < 16 ? cb + k : row_bytes + cb + (k - 16);
+  select_rows(v, P, stride, probes, stats, scales, eff, tables, G, nc, tau,
+              u, c_out, cutoff_out);
 }
 
 // grid (ceil(row_bytes / 512), ceil(in_dim / rows_per_block)). Block y
@@ -341,17 +129,16 @@ int effort_mxu_matvec(const float* v, const float* probes,
                       void* u, int32_t* c_out, float* cutoff_out,
                       float* partial, float* y, int device,
                       void* stream) {
-  if (P < 1 || P > kMaxP || nc < 1 || nc > kMaxChunks || kind < 0 ||
-      kind > 2 || row_bytes % 16 != 0 ||
-      nc * segs_per_chunk(G, nc) > kMaxSegs)
+  if (!select_fits(P, G, nc) || kind < 0 || kind > 2 ||
+      row_bytes % 16 != 0)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   __nv_bfloat16* ub = static_cast<__nv_bfloat16*>(u);
-  select_kernel<<<1, kSelThreads, 0, st>>>(v, in_dim, P, stride, probes,
-                                           stats, scales, eff_q, tables, G,
-                                           nc, tau, ub, c_out, cutoff_out);
+  select_kernel<<<1, kSelThreads, 0, st>>>(v, P, stride, probes, stats,
+                                           scales, eff_q, tables, G, nc, tau,
+                                           ub, c_out, cutoff_out);
   const dim3 grid((row_bytes + 511) / 512,
                   (in_dim + rows_per_block - 1) / rows_per_block);
   const uint8_t* vb = static_cast<const uint8_t*>(vals);

@@ -1,15 +1,18 @@
-"""Row-prefix effort matvec (bucket_size = 1): the CUDA kernel's wrapper and
-its plain PyTorch version.
+"""Row-prefix effort matvec and matmul (bucket_size = 1): the CUDA kernels'
+wrappers and their plain PyTorch versions.
 
-Replaces the TPU kernel effort_tpu/kernels/fused_stream.py:mxu_matvec ->
-_kernel_mxu. The kernel (csrc/mxu_matvec.cu) selects input rows against an
-effort-dependent cutoff, finds the shortest chunk prefix that holds tau of
-the selected mass, and streams only that prefix of the weights. It is bound
-by the streamed bytes, C*G*row_bytes, over the card's memory rate.
-
-Effort reaches the kernel as a 16.16 fixed-point int32 device tensor, as
-the TPU kernel takes it, so moving the knob needs no host sync and no
-rebuild.
+  - mxu_matvec (K1) replaces effort_tpu/kernels/fused_stream.py:mxu_matvec
+    -> _kernel_mxu, in csrc/mxu_matvec.cu. The kernel selects input rows
+    against an effort-dependent cutoff, finds the shortest chunk prefix
+    that holds tau of the selected mass, and streams only that prefix of
+    the weights. It is bound by the streamed bytes, C*G*row_bytes, over the
+    card's memory rate. Effort reaches it as a 16.16 fixed-point int32
+    device tensor, as the TPU kernel takes it, so moving the knob needs no
+    host sync and no rebuild.
+  - mxu_matvec_batch (K2) replaces fused_stream.py:mxu_matvec_batch ->
+    _kernel_mxu_batch, in csrc/mxu_matvec_batch.cu: the same for T slots
+    (prefill tokens or batched decode slots), each with its own f32 effort
+    and selection; the streamed prefix is the longest slot's.
 """
 
 from __future__ import annotations
@@ -37,7 +40,11 @@ _KIND = {torch.bfloat16: 0, torch.int8: 1, torch.uint8: 2}
 _MIN_BLOCKS = 264
 
 LAUNCHES["mxu_matvec"] = 0
+LAUNCHES["mxu_matvec_batch"] = 0
 _TABLES: dict = {}
+# partial sums of the batched stream, [splits, T, width] f32, stay under
+# this many bytes (fewer, longer row splits past it)
+_MAX_PARTIAL_BYTES = 32 * 2**20
 
 
 def thresh_tables(device) -> torch.Tensor:
@@ -54,22 +61,27 @@ def thresh_tables(device) -> torch.Tensor:
 
 
 def _vec_cutoff(scores, kq, m, tables):
-    """Two-level threshold search with the kernel's table; the first index
-    whose count reaches kq equals the number of misses (counts are
+    """Two-level threshold search with the kernel's table, batched over the
+    leading axes: scores [..., P], kq and m [...]. The first index whose
+    count reaches kq equals the number of misses (counts are
     non-decreasing along a level)."""
     geo, frac = tables[:_NL], tables[_NL:]
 
-    def level(t, lo0, hi0):
-        cnt = (scores[None, :] > t[:, None]).sum(dim=1).to(torch.float32)
-        nh = (cnt < kq).sum()
+    def level(t, lo0, hi0):                                # t [..., NL]
+        cnt = (scores[..., None, :] > t[..., :, None]).sum(dim=-1).to(
+            torch.float32)
+        nh = (cnt < kq[..., None]).sum(dim=-1)
         hit = nh < _NL
-        t_lo = torch.where(hit, t[torch.clamp(nh, max=_NL - 1)], lo0)
-        t_hi = torch.where(hit & (nh >= 1), t[torch.clamp(nh - 1, min=0)],
+
+        def at(i):
+            return torch.gather(t, -1, i[..., None])[..., 0]
+        t_lo = torch.where(hit, at(torch.clamp(nh, max=_NL - 1)), lo0)
+        t_hi = torch.where(hit & (nh >= 1), at(torch.clamp(nh - 1, min=0)),
                            hi0)
         return t_lo, t_hi
 
-    lo, hi = level(m * geo, torch.zeros_like(m), m)
-    cutoff, _ = level(hi - (hi - lo) * frac, lo, hi)
+    lo, hi = level(m[..., None] * geo, torch.zeros_like(m), m)
+    cutoff, _ = level(hi[..., None] - (hi - lo)[..., None] * frac, lo, hi)
     return cutoff
 
 
@@ -87,54 +99,114 @@ def _weights_as_float(bm: BucketedMatrix, expert: int) -> torch.Tensor:
     return w.reshape(nc * G, bm.n_buckets)
 
 
-def mxu_matvec_ref(bm: BucketedMatrix, v: torch.Tensor, effort,
-                   expert: int = 0, tau: float = None,
-                   return_len: bool = False):
-    """Plain PyTorch version of the kernel: the same cutoff on the 16.16
-    effort, u rounded to bf16, C from torch.cumsum, and
-    y = u[:C*G] @ W[:C*G] in f32. Returns y [OB] f32, or (y, C) with C an
-    int32 [1] tensor."""
-    tau = _TAU if tau is None else tau
-    if bm.bucket_size != 1:
-        raise ValueError("mxu_matvec needs the row-prefix layout "
-                         "(bucket_size=1)")
+def _select_ref(bm: BucketedMatrix, vp: torch.Tensor, eff: torch.Tensor,
+                expert: int, tau: float):
+    """The kernels' selection, batched over the leading axes of vp
+    [..., in] (permuted, f32) with eff [...] f32: u [..., in] bf16 and each
+    vector's stream length C [...] int32. The selected masses add in f64
+    (exact in any order for terms spanning less than 2^29, so C does not
+    hang on summation order) and each chunk prefix is rounded to f32 once,
+    as the kernels sum."""
     G, nc = bm.chunk_rows, bm.n_chunks
-    vp = bm.permute_v(v, expert).to(torch.float32)
     dev = vp.device
     vs = strided_sample(vp, bm.in_dim, bm.probes.shape[1])
-    P = vs.shape[0]
+    P = vs.shape[-1]
     scores = torch.abs(vs * bm.probes[expert].to(torch.float32))
-    eff = effort_q16(effort, dev).to(torch.float32)[0] * (1.0 / 65536.0)
     kq = torch.clamp(torch.round(P * eff), 1.0, float(P))
-    m = torch.max(scores) + 1e-30
+    m = torch.amax(scores, dim=-1) + 1e-30
     cutoff = _vec_cutoff(scores, kq, m, thresh_tables(dev))
 
     x = bm.stats[expert, :, 0] * torch.abs(vp)
-    sel = x > cutoff
+    sel = x > cutoff[..., None]
     u = torch.where(sel, vp, torch.zeros_like(vp))
     if bm.scales is not None:
         u = u * bm.scales[expert, :, 0]
-    u = u.to(torch.bfloat16)
+    mass = torch.where(sel, x, torch.zeros_like(x)).to(torch.float64)
+    cum = torch.cumsum(mass.reshape(*x.shape[:-1], nc, G).sum(-1),
+                       -1).to(torch.float32)
+    tot = torch.amax(cum, dim=-1, keepdim=True)
+    C = torch.clamp((cum < tau * tot).sum(-1) + 1, max=nc).to(torch.int32)
+    return u.to(torch.bfloat16), C
 
-    mass = torch.where(sel, x, torch.zeros_like(x)).reshape(nc, G).sum(1)
-    # each prefix rounded to f32 once, as the kernel's serial sum does
-    cum = torch.cumsum(mass.to(torch.float64), 0).to(torch.float32)
-    tot = torch.max(cum)
-    C = torch.clamp((cum < tau * tot).sum() + 1, max=nc).to(torch.int32)
-    rows = torch.arange(bm.in_dim, device=dev) < C * G
-    u_pre = torch.where(rows, u.to(torch.float32), torch.zeros_like(vp))
-    y = u_pre @ _weights_as_float(bm, expert)
+
+def _prefix_product(bm: BucketedMatrix, u: torch.Tensor, C: torch.Tensor,
+                    expert: int) -> torch.Tensor:
+    """u[..., :C*G] @ W[:C*G] in f32 (rows past the prefix zeroed)."""
+    rows = torch.arange(bm.in_dim, device=u.device) < C * bm.chunk_rows
+    u_pre = torch.where(rows, u.to(torch.float32),
+                        torch.zeros((), device=u.device))
+    return u_pre @ _weights_as_float(bm, expert)
+
+
+def _need_row_prefix(bm: BucketedMatrix):
+    if bm.bucket_size != 1:
+        raise ValueError("the row-prefix kernels need bucket_size=1")
+
+
+def mxu_matvec_ref(bm: BucketedMatrix, v: torch.Tensor, effort,
+                   expert: int = 0, tau: float = None,
+                   return_len: bool = False):
+    """Plain PyTorch version of K1: the same cutoff on the 16.16 effort, u
+    rounded to bf16, C from torch.cumsum, and y = u[:C*G] @ W[:C*G] in f32.
+    Returns y [OB] f32, or (y, C) with C an int32 [1] tensor."""
+    tau = _TAU if tau is None else tau
+    _need_row_prefix(bm)
+    vp = bm.permute_v(v, expert).to(torch.float32)
+    eff = effort_q16(effort, vp.device).to(torch.float32)[0] \
+        * (1.0 / 65536.0)
+    u, C = _select_ref(bm, vp, eff, expert, tau)
+    y = _prefix_product(bm, u, C, expert)
     return (y, C.reshape(1)) if return_len else y
 
 
-def _lib():
-    lib = _build.load("mxu_matvec")
+def slot_efforts(efforts, T: int, device) -> torch.Tensor:
+    """Per-slot efforts as K2 takes them: f32 [T] on `device`, from a float
+    or an f32 tensor ([T], or a scalar repeated). A float is filled in on
+    the device (no copy from the host, no wait). Other dtypes raise: K2
+    takes no 16.16 effort (that is K1's form)."""
+    if isinstance(efforts, (int, float)):
+        return torch.full((T,), float(efforts), dtype=torch.float32,
+                          device=device)
+    if not isinstance(efforts, torch.Tensor) \
+            or efforts.dtype != torch.float32:
+        raise TypeError(f"efforts: want a float or an f32 tensor, got "
+                        f"{getattr(efforts, 'dtype', type(efforts))}")
+    return efforts.to(device).reshape(-1).expand(T).contiguous()
+
+
+def mxu_matvec_batch_ref(bm: BucketedMatrix, V: torch.Tensor, efforts,
+                         expert: int = 0, tau: float = None,
+                         return_len: bool = False):
+    """Plain PyTorch version of K2: each slot of V [T, in] selects at its
+    own f32 effort (kq = clip(round(P*eff), 1, P)), u is rounded to bf16,
+    and every slot streams C = the largest slot's coverage length:
+    Y = u[:, :C*G] @ W[:C*G] in f32. Returns Y [T, OB] f32, or (Y, C)."""
+    tau = _TAU if tau is None else tau
+    _need_row_prefix(bm)
+    Vp = bm.permute_v(V, expert).to(torch.float32)
+    eff = slot_efforts(efforts, Vp.shape[0], Vp.device)
+    u, C = _select_ref(bm, Vp, eff, expert, tau)
+    C = torch.amax(C)
+    y = _prefix_product(bm, u, C, expert)
+    return (y, C.reshape(1)) if return_len else y
+
+
+def _lib(name: str = "mxu_matvec"):
+    lib = _build.load(name)
     if not getattr(lib, "_effort_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.effort_mxu_matvec.argtypes = [
-            p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, f, i, i,
-            p, p, p, p, p, i, p]
-        lib.effort_mxu_matvec.restype = i
+        if name == "mxu_matvec":
+            lib.effort_mxu_matvec.argtypes = [
+                p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, f, i, i,
+                p, p, p, p, p, i, p]
+            lib.effort_mxu_matvec.restype = i
+        else:
+            lib.effort_mxu_matvec_batch.argtypes = [
+                p, i, p, p, p, p, p, p, i, i, i, i, i, i, i, i, f, i, i,
+                p, p, p, p, p, p, i, p]
+            lib.effort_mxu_matvec_batch.restype = i
+            lib.effort_mxu_batch_slot_tile.argtypes = [i]
+            lib.effort_mxu_batch_slot_tile.restype = i
         lib.effort_cuda_error_string.argtypes = [i]
         lib.effort_cuda_error_string.restype = ctypes.c_char_p
         lib._effort_typed = True
@@ -153,9 +225,7 @@ def _rows_per_block(tiles: int, in_dim: int) -> int:
 
 def _check(bm: BucketedMatrix, v: torch.Tensor, expert: int):
     E, nc, G = bm.n_experts, bm.n_chunks, bm.chunk_rows
-    if bm.bucket_size != 1:
-        raise ValueError("mxu_matvec needs the row-prefix layout "
-                         "(bucket_size=1)")
+    _need_row_prefix(bm)
     if not isinstance(expert, int) or not 0 <= expert < E:
         raise ValueError(f"expert {expert!r} not an int in [0, {E})")
     vals = bm.vals
@@ -246,4 +316,80 @@ def mxu_matvec(bm: BucketedMatrix, v: torch.Tensor, effort,
         raise RuntimeError("mxu_matvec launch failed: "
                            + lib.effort_cuda_error_string(err).decode())
     LAUNCHES["mxu_matvec"] += 1
+    return (y, c_len) if return_len else y
+
+
+def _batch_rows_per_block(tiles: int, in_dim: int, T: int,
+                          width: int) -> int:
+    """Rows per block of the batched stream: K1's rule, then longer row
+    splits while the partial sums [splits, T, width] f32 would pass
+    _MAX_PARTIAL_BYTES (they grow with T: 117 MB at T = 64 over w13's
+    28672 columns in 16 splits)."""
+    rb = _rows_per_block(tiles, in_dim)
+    while rb < in_dim and \
+            -(-in_dim // rb) * T * width * 4 > _MAX_PARTIAL_BYTES:
+        rb *= 2
+    return rb
+
+
+def mxu_matvec_batch(bm: BucketedMatrix, V: torch.Tensor, efforts,
+                     expert: int = 0, tau: float = None,
+                     return_len: bool = False):
+    """Batched row-prefix effort matmul: Y [T, OB] f32 for V [T, in] (or
+    (Y, C) with the streamed chunk count C, the largest slot's, as an int32
+    [1] device tensor).
+
+    efforts: per-slot f32 efforts [T] (a float or scalar f32 tensor is
+    shared by every slot; other dtypes raise). tau: coverage target,
+    default the module's _TAU. No padding of T is needed.
+
+    CPU tensors run the plain version (mxu_matvec_batch_ref); CUDA tensors
+    launch the kernel, on the current stream without synchronising, or
+    raise."""
+    if not V.is_cuda:
+        return mxu_matvec_batch_ref(bm, V, efforts, expert, tau, return_len)
+    tau = _TAU if tau is None else tau
+    if V.ndim != 2 or V.shape[0] < 1:
+        raise ValueError(f"V {tuple(V.shape)}: want [T, in] with T >= 1")
+    _check(bm, V, expert)
+    dev = V.device
+    Vp = bm.permute_v(V, expert).to(torch.float32).contiguous()
+    T = Vp.shape[0]
+    if Vp.shape[1] != bm.in_dim:
+        raise ValueError(f"V {tuple(V.shape)} vs in_dim {bm.in_dim}")
+    eff = slot_efforts(efforts, T, dev)
+    tables = thresh_tables(dev)
+    G, nc, in_dim = bm.chunk_rows, bm.n_chunks, bm.in_dim
+    P = bm.probes.shape[1]
+    stride = max(1, -(-in_dim // P))
+    row_bytes = bm.vals.shape[2] * bm.vals.element_size()
+    width = bm.vals.shape[2] * (2 if bm.vals_packed else 1)
+    kind = _KIND[bm.vals.dtype]
+    lib = _lib("mxu_matvec_batch")
+    ts = lib.effort_mxu_batch_slot_tile(kind)
+    rb = _batch_rows_per_block(-(-T // ts) * -(-row_bytes // 2048), in_dim,
+                               T, width)
+
+    u = torch.empty((T, in_dim), dtype=torch.bfloat16, device=dev)
+    c_slot = torch.empty(T, dtype=torch.int32, device=dev)
+    cutoff = torch.empty(T, dtype=torch.float32, device=dev)
+    c_len = torch.empty(1, dtype=torch.int32, device=dev)
+    partial = torch.empty((-(-in_dim // rb), T, width), dtype=torch.float32,
+                          device=dev)
+    y = torch.empty((T, bm.n_buckets), dtype=torch.float32, device=dev)
+    vals_ptr = bm.vals.data_ptr() + expert * in_dim * row_bytes
+    scales_ptr = (bm.scales.data_ptr() + expert * in_dim * 4
+                  if bm.scales is not None else None)
+    err = lib.effort_mxu_matvec_batch(
+        Vp.data_ptr(), T, bm.probes.data_ptr() + expert * P * 4,
+        bm.stats.data_ptr() + expert * in_dim * 4, scales_ptr,
+        eff.data_ptr(), tables.data_ptr(), vals_ptr, kind, in_dim,
+        row_bytes, bm.n_buckets, G, nc, P, stride, float(tau), rb, width,
+        u.data_ptr(), c_slot.data_ptr(), cutoff.data_ptr(),
+        c_len.data_ptr(), partial.data_ptr(), y.data_ptr(), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError("mxu_matvec_batch launch failed: "
+                           + lib.effort_cuda_error_string(err).decode())
+    LAUNCHES["mxu_matvec_batch"] += 1
     return (y, c_len) if return_len else y

@@ -1,5 +1,11 @@
-"""Transformer decode forward pass (Mistral family) with the effort knob,
-and random-weight synthesis.
+"""Transformer forward passes (Mistral family) with the effort knob, and
+random-weight synthesis.
+
+  - forward_token: one decode step of one sequence (K1 per projection).
+  - forward_seq: prefill, T tokens of one sequence in one pass (K2 per
+    projection, K3 for attention).
+  - forward_token_batch: one decode step of B slots, each with its own
+    position, left-pad offset and effort (K2 per projection).
 
   - Bucketized projection weights of all layers are packed into single
     BucketedMatrix containers (instance axis = layer); the kernel indexes an
@@ -20,9 +26,11 @@ import numpy as np
 import torch
 
 from effort_tpu_torch.config import BucketConfig, ModelConfig
+from effort_tpu_torch.kernels.flash_attention import flash_attention_seq
 from effort_tpu_torch.ops.bucketize import (bucketize, calib_row_order,
                                             pick_chunk_rows)
-from effort_tpu_torch.ops.bucketmul import bucket_matvec, dense_matvec, mm_f32
+from effort_tpu_torch.ops.bucketmul import (bucket_matmul, bucket_matvec,
+                                            dense_matvec, mm_f32)
 from effort_tpu_torch.ops.layouts import BucketedMatrix, concat_bucketed
 
 PROJ_FIELDS = ("wq", "wk", "wv", "wo", "w1", "w2", "w3", "wqkv", "w13")
@@ -115,12 +123,16 @@ _HEAD_RESCORE_K = 16
 _INT_MM_ROWS = 17
 
 
-def _int8_matvec(x: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
-    """x [k] int8 @ wq [k, n] int8 -> [n] int32, exact."""
-    a = torch.zeros((_INT_MM_ROWS, x.shape[0]), dtype=torch.int8,
-                    device=x.device)
-    a[0] = x
-    return torch._int_mm(a, wq)[0]
+def _int8_matmul(x: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """x [B, k] int8 @ wq [k, n] int8 -> [B, n] int32, exact. Fewer than
+    _INT_MM_ROWS rows ride in a zero-padded block."""
+    B = x.shape[0]
+    if B < _INT_MM_ROWS:
+        a = torch.zeros((_INT_MM_ROWS, x.shape[1]), dtype=torch.int8,
+                        device=x.device)
+        a[:B] = x
+        x = a
+    return torch._int_mm(x, wq)[:B]
 
 
 def head_logits(w: ModelWeights, h: torch.Tensor) -> torch.Tensor:
@@ -133,7 +145,7 @@ def head_logits(w: ModelWeights, h: torch.Tensor) -> torch.Tensor:
         return dense_matvec(h, w.output)
     vm = h.abs().max() / 127.0 + 1e-30
     hi = torch.round(h / vm).to(torch.int8)
-    y = _int8_matvec(hi, w.output_q).to(torch.float32) \
+    y = _int8_matmul(hi[None], w.output_q)[0].to(torch.float32) \
         * (w.output_qscale * vm)
     if w.output is not None:
         top_i = torch.topk(y, _HEAD_RESCORE_K).indices
@@ -141,6 +153,28 @@ def head_logits(w: ModelWeights, h: torch.Tensor) -> torch.Tensor:
         exact = mm_f32(h.to(torch.bfloat16)[None], cols)[0]
         y = y.scatter(0, top_i, exact)
     return y
+
+
+def head_logits_batch(w: ModelWeights, H: torch.Tensor) -> torch.Tensor:
+    """Batched decode LM head: H [B, dim] -> [B, vocab] f32, as head_logits
+    with a per-row activation scale."""
+    if w.output_q is None:
+        return mm_f32(H.to(torch.bfloat16), w.output)
+    B = H.shape[0]
+    vm = H.abs().amax(dim=1, keepdim=True) / 127.0 + 1e-30
+    Hi = torch.round(H / vm).to(torch.int8)
+    Y = _int8_matmul(Hi, w.output_q).to(torch.float32) \
+        * (w.output_qscale[None, :] * vm)
+    if w.output is not None:
+        top_i = torch.topk(Y, _HEAD_RESCORE_K, dim=1).indices     # [B, K]
+        cols = w.output.index_select(1, top_i.reshape(-1)).reshape(
+            -1, B, _HEAD_RESCORE_K)                            # [dim, B, K]
+        # bf16 products are exact in f32; the sum is f32
+        exact = torch.einsum("bd,dbk->bk",
+                             H.to(torch.bfloat16).to(torch.float32),
+                             cols.to(torch.float32))
+        Y = Y.scatter(1, top_i, exact)
+    return Y
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
@@ -154,15 +188,19 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
 _FREQS: dict = {}
 
 
-def rope_angles(pos: int, head_dim: int, theta: float, device):
-    """(cos, sin) [head_dim // 2] f32 at integer position pos, frequencies
-    theta ** (-i / h) in f32."""
+def rope_angles(pos, head_dim: int, theta: float, device):
+    """(cos, sin) [..., head_dim // 2] f32 at integer position pos (an int,
+    or an integer tensor [...] of positions), frequencies theta ** (-i / h)
+    in f32."""
     key = (head_dim, theta, str(device))
     if key not in _FREQS:
         h = head_dim // 2
         _FREQS[key] = (theta ** (-torch.arange(0, h, dtype=torch.float32)
                                  / h)).to(device)
-    angle = float(pos) * _FREQS[key]
+    if isinstance(pos, torch.Tensor):
+        angle = pos.to(torch.float32)[..., None] * _FREQS[key]
+    else:
+        angle = float(pos) * _FREQS[key]
     return torch.cos(angle), torch.sin(angle)
 
 
@@ -187,16 +225,18 @@ def make_kv_cache(cfg: ModelConfig, device, dtype=torch.bfloat16):
 
 
 def _attn_core(q, kf, vf, live, cfg: ModelConfig):
-    """Masked-softmax attention read for one query token.
-    q [H*D]; kf/vf [S, KV, D] f32; live [S] bool."""
+    """Masked-softmax attention read for one query token per slot; leading
+    axes are slots. q [..., H*D]; kf/vf [..., S, KV, D] f32;
+    live [..., S] bool."""
     KV, rep, D = cfg.n_kv_heads, cfg.kv_repeats, cfg.head_dim
-    qh = q.reshape(KV, rep, D).to(torch.float32)
-    scores = torch.einsum("krd,tkd->krt", qh, kf) / math.sqrt(D)
-    scores = torch.where(live[None, None, :], scores,
+    lead = q.shape[:-1]
+    qh = q.reshape(*lead, KV, rep, D).to(torch.float32)
+    scores = torch.einsum("...krd,...tkd->...krt", qh, kf) / math.sqrt(D)
+    scores = torch.where(live[..., None, None, :], scores,
                          torch.full_like(scores, -math.inf))
     probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("krt,tkd->krd", probs, vf)
-    return out.reshape(cfg.n_heads * D)
+    out = torch.einsum("...krt,...tkd->...krd", probs, vf)
+    return out.reshape(*lead, cfg.n_heads * D)
 
 
 def active_window(cfg: ModelConfig) -> int:
@@ -205,15 +245,49 @@ def active_window(cfg: ModelConfig) -> int:
     return w if 0 < w < cfg.max_seq_len else 0
 
 
-def _attention(q, k_cache, v_cache, pos: int, cfg: ModelConfig,
-               mask_from: int = 0):
-    """q: [n_heads*head_dim]; caches: [S, n_kv, hd]. Returns [n_heads*hd]."""
-    t_ids = torch.arange(cfg.max_seq_len, device=q.device)
+def _live_slots(pos, mask_from, S: int, cfg: ModelConfig, device):
+    """Cache slots a query at slot pos sees: [mask_from, pos], within the
+    sliding window. pos/mask_from: ints, or device tensors [...] ->
+    [..., S]. Ints stay python numbers: making a CUDA tensor of one would
+    copy it from the host and wait for the card."""
+    t_ids = torch.arange(S, device=device)
+    if isinstance(pos, torch.Tensor):
+        pos = pos[..., None]
+    if isinstance(mask_from, torch.Tensor):
+        mask_from = mask_from[..., None]
     live = (t_ids <= pos) & (t_ids >= mask_from)
     if active_window(cfg):
         live &= t_ids > pos - cfg.sliding_window
+    return live
+
+
+def _attention(q, k_cache, v_cache, pos: int, cfg: ModelConfig,
+               mask_from: int = 0):
+    """q: [n_heads*head_dim]; caches: [S, n_kv, hd]. Returns [n_heads*hd]."""
+    live = _live_slots(pos, mask_from, k_cache.shape[0], cfg, q.device)
     return _attn_core(q, k_cache.to(torch.float32),
                       v_cache.to(torch.float32), live, cfg)
+
+
+def _attention_seq(Q, k_cache, v_cache, slots, mask_from: int,
+                   cfg: ModelConfig):
+    """Causal attention for prefill with materialized scores (the JAX
+    package's "xla" route): Q [T, H*D] f32 (RoPE'd, kept in f32), caches
+    [S, KV, D] already holding this block's rows, slots [T] the queries'
+    cache slots. Query t sees slots [mask_from, slots[t]]; a query with no
+    live slot gets 0. Returns [T, H*D] f32."""
+    T = Q.shape[0]
+    KV, rep, D = cfg.n_kv_heads, cfg.kv_repeats, cfg.head_dim
+    qh = Q.reshape(T, KV, rep, D).to(torch.float32)
+    scores = torch.einsum("tkrd,skd->tkrs", qh,
+                          k_cache.to(torch.float32)) / math.sqrt(D)
+    live = _live_slots(slots, mask_from, k_cache.shape[0], cfg, Q.device)
+    scores = torch.where(live[:, None, None, :], scores,
+                         torch.full_like(scores, -math.inf))
+    probs = torch.softmax(scores, dim=-1)
+    probs = torch.where(torch.isnan(probs), torch.zeros_like(probs), probs)
+    out = torch.einsum("tkrs,skd->tkrd", probs, v_cache.to(torch.float32))
+    return out.reshape(T, cfg.n_heads * D)
 
 
 def _q16_floor(f: float) -> int:
@@ -244,18 +318,40 @@ def proj_efforts(effort, cfg: ModelConfig) -> dict:
 
 
 def _ffn(layer: LayerWeights, l: int, x, pe: dict, cfg: ModelConfig,
-         impl: str):
+         impl: str, mv=bucket_matvec):
+    """Dense gated FFN of layer l on x [dim] (mv = bucket_matvec) or on
+    rows X [T, dim] (mv = bucket_matmul)."""
     if cfg.n_experts != 1:
         raise NotImplementedError("the MoE FFN is not ported yet")
     hid = cfg.hidden_dim
     if layer.w13 is not None:
-        x13 = bucket_matvec(layer.w13, x, pe["w13"], l, impl)
-        x1, x3 = x13[:hid], x13[hid:]
+        x13 = mv(layer.w13, x, pe["w13"], l, impl)
+        x1, x3 = x13[..., :hid], x13[..., hid:]
     else:
-        x1 = bucket_matvec(layer.w1, x, pe["w1"], l, impl)
-        x3 = bucket_matvec(layer.w3, x, pe["w3"], l, impl)
+        x1 = mv(layer.w1, x, pe["w1"], l, impl)
+        x3 = mv(layer.w3, x, pe["w3"], l, impl)
     x2 = torch.nn.functional.silu(x1) * x3
-    return bucket_matvec(layer.w2, x2, pe["w2"], l, impl)
+    return mv(layer.w2, x2, pe["w2"], l, impl)
+
+
+def _ffn_seq(layer: LayerWeights, l: int, X, pe: dict, cfg: ModelConfig,
+             impl: str):
+    """Batched FFN for prefill and batched decode: X [T, dim] (dense
+    models only; the MoE FFN raises as _ffn does)."""
+    return _ffn(layer, l, X, pe, cfg, impl, mv=bucket_matmul)
+
+
+def _qkv(lw: LayerWeights, l: int, x, pe: dict, cfg: ModelConfig,
+         impl: str, mv=bucket_matvec):
+    """q, k, v of layer l for x [..., dim], through the fused projection
+    when the weights have one."""
+    q_out, kv_out = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+    if lw.wqkv is not None:
+        qkv = mv(lw.wqkv, x, pe["wqkv"], l, impl)
+        return (qkv[..., :q_out], qkv[..., q_out:q_out + kv_out],
+                qkv[..., q_out + kv_out:])
+    return (mv(lw.wq, x, pe["wq"], l, impl), mv(lw.wk, x, pe["wk"], l, impl),
+            mv(lw.wv, x, pe["wv"], l, impl))
 
 
 def forward_layers(w: ModelWeights, cfg: ModelConfig, h, pos: int, k_cache,
@@ -265,19 +361,11 @@ def forward_layers(w: ModelWeights, cfg: ModelConfig, h, pos: int, k_cache,
     writing this position's K/V rows into the caches in place. Returns h."""
     KV, D = cfg.n_kv_heads, cfg.head_dim
     pe = proj_efforts(effort, cfg)
-    q_out, kv_out = cfg.n_heads * D, KV * D
     lw = w.layers
     cos, sin = rope_angles(pos - rope_offset, D, cfg.rope_theta, h.device)
     for l in range(cfg.n_layers):
         h_norm = rms_norm(h, lw.attn_norm[l], cfg.norm_eps)
-        if lw.wqkv is not None:
-            qkv = bucket_matvec(lw.wqkv, h_norm, pe["wqkv"], l, impl)
-            q, k, v = (qkv[:q_out], qkv[q_out:q_out + kv_out],
-                       qkv[q_out + kv_out:])
-        else:
-            q = bucket_matvec(lw.wq, h_norm, pe["wq"], l, impl)
-            k = bucket_matvec(lw.wk, h_norm, pe["wk"], l, impl)
-            v = bucket_matvec(lw.wv, h_norm, pe["wv"], l, impl)
+        q, k, v = _qkv(lw, l, h_norm, pe, cfg, impl)
         q = rope_apply(q.reshape(cfg.n_heads, D), cos, sin).reshape(-1)
         k = rope_apply(k.reshape(KV, D), cos, sin)
         k_cache[l, pos] = k.to(k_cache.dtype)
@@ -287,6 +375,106 @@ def forward_layers(w: ModelWeights, cfg: ModelConfig, h, pos: int, k_cache,
         f_norm = rms_norm(h, lw.ffn_norm[l], cfg.norm_eps)
         h = h + _ffn(lw, l, f_norm, pe, cfg, impl)
     return h
+
+
+def forward_seq(w: ModelWeights, cfg: ModelConfig, token_ids: torch.Tensor,
+                k_cache, v_cache, start_slot: int = 0, rope_offset: int = 0,
+                mask_from: int = 0, effort=1.0, impl: str = "auto",
+                attn_impl: str = "auto") -> torch.Tensor:
+    """Prefill: T tokens of one sequence through all layers in one pass.
+
+    token_ids: [T] int device tensor occupying cache slots start_slot ..
+    start_slot+T-1; rope_offset/mask_from as in forward_token (left-padded
+    prompts). The caches [L, S, KV, D] (or views of them) are written in
+    place. effort: a python float or an f32 tensor (each projection is one
+    bucket_matmul: K2 on the kernel route). attn_impl: "flash" (K3, its
+    plain version on CPU tensors), "plain" (K3's plain version on any
+    device), "xla" (materialized f32 scores, _attention_seq) or "auto"
+    (flash on the card, where K3 raises for heads it does not take; xla
+    on the CPU). Returns logits [T, vocab] f32 through the bf16 head."""
+    T = token_ids.shape[0]
+    dev = w.device
+    if attn_impl == "auto":
+        attn_impl = "flash" if dev.type == "cuda" else "xla"
+    if attn_impl not in ("flash", "plain", "xla"):
+        raise ValueError(f"attn_impl {attn_impl!r}")
+    KV, D, H = cfg.n_kv_heads, cfg.head_dim, cfg.n_heads
+    X = w.tok_embeddings.index_select(0, token_ids.long()).to(torch.float32)
+    slots = start_slot + torch.arange(T, device=dev)
+    cos, sin = rope_angles(slots - rope_offset, D, cfg.rope_theta, dev)
+    cos, sin = cos[:, None], sin[:, None]
+    pe = proj_efforts(effort, cfg)
+    lw = w.layers
+    for l in range(cfg.n_layers):
+        Xn = rms_norm(X, lw.attn_norm[l], cfg.norm_eps)
+        Q, K, V = _qkv(lw, l, Xn, pe, cfg, impl, mv=bucket_matmul)
+        Q = rope_apply(Q.reshape(T, H, D), cos, sin).reshape(T, H * D)
+        K = rope_apply(K.reshape(T, KV, D), cos, sin)
+        k_cache[l, start_slot:start_slot + T] = K.to(k_cache.dtype)
+        v_cache[l, start_slot:start_slot + T] = V.reshape(T, KV, D).to(
+            v_cache.dtype)
+        if attn_impl == "xla":
+            attn = _attention_seq(Q, k_cache[l], v_cache[l], slots,
+                                  mask_from, cfg)
+        else:
+            attn = flash_attention_seq(Q, k_cache[l], v_cache[l],
+                                       start_slot, mask_from, H, D,
+                                       window=active_window(cfg),
+                                       plain=attn_impl == "plain")
+        X = X + bucket_matmul(lw.wo, attn, pe["wo"], l, impl)
+        Fn = rms_norm(X, lw.ffn_norm[l], cfg.norm_eps)
+        X = X + _ffn_seq(lw, l, Fn, pe, cfg, impl)
+    X = rms_norm(X, w.norm, cfg.norm_eps)
+    return mm_f32(X.to(torch.bfloat16), w.output)
+
+
+def make_batch_kv_cache(cfg: ModelConfig, batch_size: int, device,
+                        dtype=torch.bfloat16):
+    """The batch KV cache: [L, B, S, KV, D] per side."""
+    shape = (cfg.n_layers, batch_size, cfg.max_seq_len, cfg.n_kv_heads,
+             cfg.head_dim)
+    return (torch.zeros(shape, dtype=dtype, device=device),
+            torch.zeros(shape, dtype=dtype, device=device))
+
+
+def forward_token_batch(w: ModelWeights, cfg: ModelConfig,
+                        toks: torch.Tensor, pos: torch.Tensor, k_cache,
+                        v_cache, efforts: torch.Tensor,
+                        offs: Optional[torch.Tensor] = None,
+                        impl: str = "auto") -> torch.Tensor:
+    """Batched decode step: B slots advance together.
+
+    toks/pos/offs: [B] int device tensors (token, cache slot, left-pad
+    offset of each slot); efforts: [B] f32 device tensor, one effort per
+    slot, floored per projection by cfg.effort_floors. Caches
+    [L, B, S, KV, D] are written in place at each slot's pos. Every
+    projection is one bucket_matmul over the B slots (the JAX package's
+    _mv_batch): K2 on the kernel route, the slots' own efforts inside one
+    launch. Returns logits [B, vocab] f32."""
+    B = toks.shape[0]
+    dev = w.device
+    KV, D, H = cfg.n_kv_heads, cfg.head_dim, cfg.n_heads
+    offs = torch.zeros_like(pos) if offs is None else offs
+    pe = proj_efforts(efforts.to(torch.float32), cfg)
+    X = w.tok_embeddings.index_select(0, toks.long()).to(torch.float32)
+    cos, sin = rope_angles(pos - offs, D, cfg.rope_theta, dev)
+    cos, sin = cos[:, None], sin[:, None]
+    live = _live_slots(pos, offs, k_cache.shape[2], cfg, dev)     # [B, S]
+    bidx, pidx = torch.arange(B, device=dev), pos.long()
+    lw = w.layers
+    for l in range(cfg.n_layers):
+        Xn = rms_norm(X, lw.attn_norm[l], cfg.norm_eps)
+        Q, K, V = _qkv(lw, l, Xn, pe, cfg, impl, mv=bucket_matmul)
+        Q = rope_apply(Q.reshape(B, H, D), cos, sin).reshape(B, H * D)
+        K = rope_apply(K.reshape(B, KV, D), cos, sin)
+        k_cache[l, bidx, pidx] = K.to(k_cache.dtype)
+        v_cache[l, bidx, pidx] = V.reshape(B, KV, D).to(v_cache.dtype)
+        attn = _attn_core(Q, k_cache[l].to(torch.float32),
+                          v_cache[l].to(torch.float32), live, cfg)
+        X = X + bucket_matmul(lw.wo, attn, pe["wo"], l, impl)
+        Fn = rms_norm(X, lw.ffn_norm[l], cfg.norm_eps)
+        X = X + _ffn_seq(lw, l, Fn, pe, cfg, impl)
+    return head_logits_batch(w, rms_norm(X, w.norm, cfg.norm_eps))
 
 
 def embed(w: ModelWeights, token_id) -> torch.Tensor:

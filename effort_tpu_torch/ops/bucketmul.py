@@ -1,7 +1,9 @@
 """bucketMul: effort-truncated vector-matrix multiply (public API and the
-plain reference path).
+plain reference path), and its batched form for prefill and batched
+decode (bucket_matmul, whose kernel route is K2,
+kernels/fused_stream.mxu_matvec_batch).
 
-Three execution paths, selected by `impl`:
+Four execution paths, selected by `impl`:
   - "dense":     effort >= 1 fast path, a bf16 matvec on the dense copy.
   - "reference": the exact bucketMul semantics as plain tensor ops (the
                  counterpart of the JAX package's "jnp" path): reads all
@@ -19,7 +21,11 @@ from __future__ import annotations
 
 import torch
 
-from effort_tpu_torch.kernels.fused_stream import mxu_matvec, mxu_matvec_ref
+from effort_tpu_torch.kernels.fused_stream import (mxu_matvec,
+                                                   mxu_matvec_batch,
+                                                   mxu_matvec_batch_ref,
+                                                   mxu_matvec_ref,
+                                                   slot_efforts)
 from effort_tpu_torch.ops.effort import (compute_cutoff, compute_cutoff_exact,
                                          row_rank_counts)
 from effort_tpu_torch.ops.layouts import BucketedMatrix, strided_sample
@@ -39,12 +45,13 @@ def dense_matvec(v: torch.Tensor, wt: torch.Tensor) -> torch.Tensor:
 
 def _add_outliers(bm: BucketedMatrix, y: torch.Tensor, vp: torch.Tensor,
                   expert: int) -> torch.Tensor:
-    """y[col] += w * v[row] for the exact int4 outlier table."""
+    """y[..., col] += w * v[..., row] for the exact int4 outlier table
+    (leading axes are slots)."""
     if bm.outlier_vals is None:
         return y
     oi = bm.outlier_idx[expert].long()
-    return y.index_add(0, oi[:, 1],
-                       bm.outlier_vals[expert] * vp[oi[:, 0]])
+    return y.index_add(-1, oi[:, 1],
+                       bm.outlier_vals[expert] * vp[..., oi[:, 0]])
 
 
 def bucket_matvec_ref(bm: BucketedMatrix, v: torch.Tensor, effort,
@@ -117,5 +124,49 @@ def bucket_matvec(bm: BucketedMatrix, v: torch.Tensor, effort,
         y = fn(bm, v, effort, expert)
         if bm.outlier_vals is not None:
             y = _add_outliers(bm, y, bm.permute_v(v, expert), expert)
+        return y
+    raise ValueError(f"impl {impl!r}")
+
+
+def bucket_matmul(bm: BucketedMatrix, V: torch.Tensor, effort,
+                  expert: int = 0, impl: str = "auto") -> torch.Tensor:
+    """Batched effort-truncated matmul: V [T, in] -> f32 [T, out_dim].
+
+    effort: a python float, an f32 tensor (scalar, or [T]: one effort per
+    row, as a batched decode step gives its slots).
+    The routes are those of bucket_matvec: "auto" takes the dense copy for
+    a python-float effort >= 0.999 when one is present and the kernel
+    otherwise; "kernel" is K2 on CUDA tensors and its plain version on CPU
+    tensors (no padding of T: the kernel takes any T); "plain" is K2's
+    plain version on any device; "reference" is the per-row bucketMul
+    semantics (every weight read); "dense" the bf16 matmul on the dense
+    copy."""
+    if impl == "auto":
+        if (isinstance(effort, (int, float)) and effort >= 0.999
+                and bm.dense is not None):
+            impl = "dense"
+        else:
+            impl = "kernel"
+    if impl == "dense":
+        if bm.dense is None:
+            raise ValueError("dense path needs weights built with "
+                             "keep_dense")
+        return mm_f32(bm.permute_v(V, expert).to(torch.bfloat16),
+                      bm.dense[expert])
+    if impl == "reference":
+        effs = ([effort] * V.shape[0] if isinstance(effort, (int, float))
+                else slot_efforts(effort, V.shape[0], V.device))
+        return torch.stack([
+            bucket_matvec_ref(bm, V[t], effs[t], expert, exact_cutoff=False)
+            for t in range(V.shape[0])])
+    if impl in ("kernel", "plain"):
+        if bm.bucket_size != 1:
+            raise NotImplementedError(
+                "the rank-prefix kernel (bucket_size >= 2) is not ported "
+                "yet; use impl='reference'")
+        fn = mxu_matvec_batch if impl == "kernel" else mxu_matvec_batch_ref
+        y = fn(bm, V, effort, expert)
+        if bm.outlier_vals is not None:
+            y = _add_outliers(bm, y, bm.permute_v(V, expert), expert)
         return y
     raise ValueError(f"impl {impl!r}")

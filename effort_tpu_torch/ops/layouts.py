@@ -109,13 +109,15 @@ class BucketedMatrix:
         return self.vals.dtype == torch.uint8
 
     def permute_v(self, v: torch.Tensor, expert: int) -> torch.Tensor:
-        """Apply the runtime input permutation. Under truncated loading of a
-        baked (importance-sorted) layout in_dim < len(v): the dropped tail
-        is the least important rows, which the matvec ignores."""
+        """Apply the runtime input permutation to v [..., in] (leading axes
+        are slots). Under truncated loading of a baked (importance-sorted)
+        layout in_dim < in: the dropped tail is the least important rows,
+        which the matvec ignores."""
         if self.seg_order is None:
-            return v[:self.in_dim] if v.shape[0] > self.in_dim else v
-        seg = self.perm_segment
-        return v.reshape(-1, seg)[self.seg_order[expert].long()].reshape(-1)
+            return v[..., :self.in_dim] if v.shape[-1] > self.in_dim else v
+        lead = v.shape[:-1]
+        return v.reshape(*lead, -1, self.perm_segment)[
+            ..., self.seg_order[expert].long(), :].reshape(*lead, -1)
 
     def dim_order_full(self, expert: int = 0) -> Optional[torch.Tensor]:
         """Full row permutation derived from seg_order."""
@@ -248,10 +250,11 @@ def strided_sample_len(in_dim: int, n_probes: int) -> int:
 
 def strided_sample(v: torch.Tensor, in_dim: int,
                    n_probes: int) -> torch.Tensor:
-    """v[probe_dims] as a strided slice (matches probe_sample_indices)."""
+    """v[..., probe_dims] as a strided slice (matches
+    probe_sample_indices)."""
     stride = max(1, -(-in_dim // n_probes))
     n = in_dim // stride
-    return v[:n * stride:stride]
+    return v[..., :n * stride:stride]
 
 
 def pack_positions(pos: torch.Tensor, bucket_size: int) -> torch.Tensor:

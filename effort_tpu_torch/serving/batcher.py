@@ -1,0 +1,224 @@
+"""Continuous batching: slot-based batched decode with per-request effort.
+
+  - B decode slots share one [L, B, S, KV, D] bf16 KV cache; each slot has
+    its own cache position, left-pad offset, effort and end-of-sequence
+    state;
+  - a new request is admitted into a free slot between decode steps: its
+    prompt runs through one forward_seq pass (K2 per projection, K3 for
+    attention) that writes only its slot's cache, then the slot joins the
+    next batched decode step, so requests do not wait for each other;
+  - one batched decode step (forward_token_batch) advances every slot:
+    each projection is one K2 launch over the B slots, each slot selecting
+    at its own effort. Slots without a request run at effort 0.
+
+ContinuousBatcher is the scheduler loop the HTTP server drives.
+
+Not ported yet: the int8 batch KV cache (kv_dtype="int8") and speculative
+batching (spec_k > 0); BatchEngine raises NotImplementedError for them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Sequence
+
+import torch
+
+from effort_tpu_torch.config import ModelConfig
+from effort_tpu_torch.models.transformer import (ModelWeights, forward_seq,
+                                                 forward_token_batch,
+                                                 make_batch_kv_cache,
+                                                 resolve_device)
+
+
+@dataclasses.dataclass
+class SlotState:
+    request_id: int = -1
+    prompt_len: int = 0
+    offset: int = 0          # left-pad offset inside the padded prompt
+    generated: List[int] = dataclasses.field(default_factory=list)
+    n_new: int = 0
+    done: bool = True
+
+
+class BatchEngine:
+    """Batched decode over B slots of one shared KV cache.
+
+    impl routes the decode step's projections and prefill_impl the
+    admission pass's (ops/bucketmul.py). The default "auto" takes K2 on
+    the card and its plain version on the CPU, so the batched step reaches
+    the kernel; the JAX package's BatchEngine defaults to its "jnp" route,
+    which is the port's "reference" (every weight read). device: the card
+    unless named; weights are moved there."""
+
+    def __init__(self, weights: ModelWeights, cfg: ModelConfig,
+                 batch_size: int = 4, pad_to: int = 32, eos_id: int = 2,
+                 impl: str = "auto", prefill_impl: str = "auto",
+                 kv_dtype: str = "bf16", spec_k: int = 0, device=None):
+        if kv_dtype != "bf16":
+            raise NotImplementedError(f"kv_dtype={kv_dtype!r}: the int8 "
+                                      f"batch KV cache is not ported yet")
+        if spec_k:
+            raise NotImplementedError("spec_k: speculative batching is not "
+                                      "ported yet")
+        self.device = resolve_device(device)
+        self.w = weights.to(self.device)
+        self.cfg = cfg
+        self.B = batch_size
+        self.pad_to = pad_to
+        self.eos_id = eos_id
+        self.impl = impl
+        self.prefill_impl = prefill_impl
+        self.k_cache, self.v_cache = make_batch_kv_cache(cfg, batch_size,
+                                                         self.device)
+        # per-slot state on the device, and the positions on the host too
+        # (the end-of-sequence test reads them every step)
+        z = torch.zeros(batch_size, dtype=torch.int32, device=self.device)
+        self.tokens, self.pos, self.offs = z, z.clone(), z.clone()
+        self.efforts = torch.ones(batch_size, dtype=torch.float32,
+                                  device=self.device)
+        self.pos_host = [0] * batch_size
+        self.slots = [SlotState() for _ in range(batch_size)]
+
+    # ---------------- slot management ----------------
+
+    def free_slots(self) -> List[int]:
+        return [b for b, s in enumerate(self.slots) if s.done]
+
+    def active(self) -> List[int]:
+        return [b for b, s in enumerate(self.slots) if not s.done]
+
+    def admit(self, b: int, request_id: int, prompt_ids: Sequence[int],
+              n_new: int, effort: float = 1.0) -> None:
+        """Prefill the prompt into slot b's cache; the slot joins the next
+        decode step. The effort rides in as an f32 device tensor, so the
+        pass takes K2 at every effort, 1.0 included."""
+        P = max(self.pad_to,
+                -(-len(prompt_ids) // self.pad_to) * self.pad_to)
+        if P + n_new > self.cfg.max_seq_len:
+            raise ValueError(f"{P} + {n_new} positions exceed max_seq_len "
+                             f"{self.cfg.max_seq_len}")
+        offset = P - len(prompt_ids)
+        ids_lp = torch.tensor([0] * offset + list(prompt_ids),
+                              dtype=torch.int32, device=self.device)
+        eff = torch.tensor(float(effort), dtype=torch.float32,
+                           device=self.device)
+        logits = forward_seq(self.w, self.cfg, ids_lp, self.k_cache[:, b],
+                             self.v_cache[:, b], start_slot=0,
+                             rope_offset=offset, mask_from=offset,
+                             effort=eff, impl=self.prefill_impl)
+        first = int(torch.argmax(logits[-1]))
+        st = self.slots[b]
+        st.request_id = request_id
+        st.prompt_len = len(prompt_ids)
+        st.offset = offset
+        st.n_new = n_new
+        st.generated = [first]
+        st.done = (n_new <= 1) or (first == self.eos_id)
+        self.tokens[b] = first
+        self.pos[b] = P
+        self.offs[b] = offset
+        self.efforts[b] = float(effort)
+        self.pos_host[b] = P
+
+    def step(self) -> List[int]:
+        """One batched decode step; returns the slots that finished."""
+        act = self.active()
+        if not act:
+            return []
+        live = torch.tensor([not s.done for s in self.slots],
+                            device=self.device)
+        # slots without a request decode at effort 0: near-zero weight reads
+        logits = forward_token_batch(
+            self.w, self.cfg, self.tokens, self.pos, self.k_cache,
+            self.v_cache, torch.where(live, self.efforts, 0.0),
+            offs=self.offs, impl=self.impl)
+        preds = torch.argmax(logits, dim=-1).to(torch.int32)
+        self.tokens = torch.where(live, preds, self.tokens)
+        preds_host = preds.tolist()
+        finished = []
+        last = self.cfg.max_seq_len - 1
+        for b in act:
+            st = self.slots[b]
+            tok = preds_host[b]
+            st.generated.append(tok)
+            if (tok == self.eos_id or len(st.generated) >= st.n_new
+                    or self.pos_host[b] + 1 >= last):
+                st.done = True
+                finished.append(b)
+        # idle slots advance harmlessly: their stale cache rows are
+        # rewritten by any later occupant before they are read
+        self.pos = torch.clamp(self.pos + 1, max=last)
+        self.pos_host = [min(p + 1, last) for p in self.pos_host]
+        return finished
+
+    def result(self, b: int) -> List[int]:
+        gen = self.slots[b].generated
+        if self.eos_id in gen:
+            gen = gen[:gen.index(self.eos_id) + 1]
+        return gen
+
+
+class ContinuousBatcher:
+    """Synchronous scheduler over a BatchEngine: admit-when-free,
+    step-while-active. The HTTP server drives it from a worker thread."""
+
+    def __init__(self, engine: BatchEngine):
+        self.eng = engine
+        self.pending: List[tuple] = []      # (request_id, ids, n_new,
+        #                                      effort, callback, on_token)
+        self._next_id = 0
+        self._callbacks: Dict[int, object] = {}
+        self._on_token: Dict[int, object] = {}
+
+    def submit(self, prompt_ids: Sequence[int], n_new: int,
+               effort: float, callback, on_token=None) -> int:
+        """on_token(token_id): called as each token lands (streaming);
+        callback(token_ids) still fires once with the full result."""
+        rid = self._next_id
+        self._next_id += 1
+        self.pending.append((rid, list(prompt_ids), n_new, effort,
+                             callback, on_token))
+        return rid
+
+    def has_work(self) -> bool:
+        return bool(self.pending) or bool(self.eng.active())
+
+    def tick(self) -> None:
+        """Admit pending requests into free slots, then one decode step."""
+        free = self.eng.free_slots()
+        while self.pending and free:
+            rid, ids, n_new, effort, cb, on_tok = self.pending.pop(0)
+            b = free.pop(0)
+            self._callbacks[rid] = cb
+            if on_tok is not None:
+                self._on_token[rid] = on_tok
+            self.eng.admit(b, rid, ids, n_new, effort)
+            self._emit_from(b, 0)          # prefill produced a first token
+            if self.eng.slots[b].done:     # finished at prefill (n_new<=1)
+                self._finish(b)
+        act = self.eng.active()
+        pre = {b: len(self.eng.slots[b].generated) for b in act}
+        finished = self.eng.step()
+        for b in act:
+            self._emit_from(b, pre[b])
+        for b in finished:
+            self._finish(b)
+
+    def _emit_from(self, b: int, start: int) -> None:
+        st = self.eng.slots[b]
+        on_tok = self._on_token.get(st.request_id)
+        if on_tok is not None:
+            for tok in st.generated[start:]:
+                on_tok(tok)
+
+    def _finish(self, b: int) -> None:
+        st = self.eng.slots[b]
+        self._on_token.pop(st.request_id, None)
+        cb = self._callbacks.pop(st.request_id, None)
+        if cb is not None:
+            cb(self.eng.result(b))
+
+    def run_until_drained(self) -> None:
+        while self.has_work():
+            self.tick()

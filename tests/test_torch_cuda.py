@@ -44,6 +44,189 @@ def test_mxu_matvec_cuda_kernel_matches_plain(dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bf16", "int8", "int4"])
+def test_mxu_matvec_batch_cuda_kernel_matches_plain(dtype):
+    """K2 against its plain version on the card, T in {3, 20} slots with
+    mixed efforts (one slot at 0): the same stream length C, cos >= 0.9999
+    per non-zero row, exact zeros where the plain version has them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(1)
+    wt = torch.randn((2048, 3072), generator=g, device="cuda") * 0.02
+    bm = bucketize(wt, BucketConfig(bucket_size=1, chunk_rows=256,
+                                    dtype=dtype))
+    launches = LAUNCHES["mxu_matvec_batch"]
+    for T in (3, 20):
+        eff = torch.tensor([(0.1, 0.5, 1.0)[t % 3] for t in range(T - 1)]
+                           + [0.0], device="cuda")
+        for tau in (0.97, 1.0):
+            V = torch.randn((T, 2048), generator=g, device="cuda")
+            y, C = port_fs.mxu_matvec_batch(bm, V, eff, 0, tau=tau,
+                                            return_len=True)
+            yr, Cr = port_fs.mxu_matvec_batch_ref(bm, V, eff, 0, tau=tau,
+                                                  return_len=True)
+            torch.cuda.synchronize()
+            assert int(C) == int(Cr), (T, tau)
+            for a, b in zip(y, yr):
+                if not bool(b.any()):
+                    assert not bool(a.any())
+                    continue
+                c = torch.nn.functional.cosine_similarity(
+                    a.double(), b.double(), dim=0)
+                assert float(c) >= 0.9999, (T, tau, float(c))
+    assert LAUNCHES["mxu_matvec_batch"] == launches + 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("start,mask_from,window", [(0, 5, 0), (40, 0, 0),
+                                                    (40, 0, 16)])
+def test_flash_attention_cuda_kernel_matches_plain(start, mask_from,
+                                                   window):
+    """K3 against its plain version on the card (H 8, KV 2, D 64, 24
+    queries over a 96-slot cache): allclose at 1e-4, the queries before
+    mask_from exactly 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from effort_tpu_torch.kernels.flash_attention import flash_attention_seq
+    g = torch.Generator(device="cuda")
+    g.manual_seed(2)
+    T, S, H, KV, D = 24, 96, 8, 2, 64
+    q = torch.randn((T, H * D), generator=g, device="cuda")
+    kc = torch.randn((S, KV, D), generator=g, device="cuda").bfloat16()
+    vc = torch.randn((S, KV, D), generator=g, device="cuda").bfloat16()
+    launches = LAUNCHES["flash_attention"]
+    y = flash_attention_seq(q, kc, vc, start, mask_from, H, D,
+                            window=window)
+    yr = flash_attention_seq(q, kc, vc, start, mask_from, H, D,
+                             window=window, plain=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, yr, rtol=1e-4, atol=1e-4)
+    dead = max(0, mask_from - start)
+    assert not bool(y[:dead].any())
+    # the public entry in JAX's layout: Q [KV, rep, T, D], K/V [KV, S, D]
+    from effort_tpu_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_ref)
+    Q = q.reshape(T, KV, H // KV, D).permute(1, 2, 0, 3)
+    K, V = kc.permute(1, 0, 2), vc.permute(1, 0, 2)
+    torch.testing.assert_close(
+        flash_attention(Q, K, V, start, mask_from, window),
+        flash_attention_ref(Q, K, V, start, mask_from, window),
+        rtol=1e-4, atol=1e-4)
+    assert LAUNCHES["flash_attention"] == launches + 2
+
+
+@pytest.mark.cuda
+def test_forward_seq_kernel_route_matches_plain_route():
+    """One batched forward_seq over a left-padded prompt on a small random
+    model at tau = 1: the kernel route (K2, K3) against the plain route
+    (both plain versions), logits cos >= 0.999 at every real position; K2
+    runs 4 times and K3 once per layer."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import dataclasses
+    from effort_tpu_torch.config import tiny_test_model
+    from effort_tpu_torch.models import transformer as tf
+    cfg = dataclasses.replace(tiny_test_model(), head_dim=128, n_heads=4,
+                              n_kv_heads=2, dim=512, hidden_dim=1024)
+    w = tf.init_random_weights(cfg, BucketConfig(bucket_size=1,
+                                                 chunk_rows=128,
+                                                 dtype="int8"),
+                               calibrate=True, fuse=True, device="cuda")
+    ids = torch.tensor([0] * 5 + list(range(3, 14)), device="cuda")
+    saved = port_fs._TAU
+    port_fs._TAU = 1.0
+    try:
+        out = {}
+        before = dict(LAUNCHES)
+        for impl, attn in (("kernel", "flash"), ("plain", "plain")):
+            kc, vc = tf.make_kv_cache(cfg, "cuda")
+            out[impl] = tf.forward_seq(w, cfg, ids, kc, vc, rope_offset=5,
+                                       mask_from=5,
+                                       effort=torch.tensor(0.5,
+                                                           device="cuda"),
+                                       impl=impl, attn_impl=attn)[5:]
+        torch.cuda.synchronize()
+    finally:
+        port_fs._TAU = saved
+    for a, b in zip(out["kernel"], out["plain"]):
+        c = torch.nn.functional.cosine_similarity(a.double(), b.double(),
+                                                  dim=0)
+        assert float(c) >= 0.999
+    assert LAUNCHES["mxu_matvec_batch"] - before["mxu_matvec_batch"] == \
+        4 * cfg.n_layers
+    assert LAUNCHES["flash_attention"] - before["flash_attention"] == \
+        cfg.n_layers
+
+
+@pytest.mark.cuda
+def test_kernel_wrappers_raise_on_what_they_do_not_take():
+    """On CUDA tensors the K2 and K3 wrappers launch or raise: a V of the
+    wrong width, a rank-prefix container, a 16.16 int32 effort (K1's
+    form), an f32 cache and a head wider than 128 are refused before any
+    launch, and nothing is counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from effort_tpu_torch.kernels.flash_attention import flash_attention_seq
+    g = torch.Generator(device="cuda")
+    g.manual_seed(3)
+    wt = torch.randn((512, 512), generator=g, device="cuda") * 0.02
+    bm = bucketize(wt, BucketConfig(bucket_size=1, chunk_rows=128,
+                                    dtype="int8"))
+    bm4 = bucketize(wt, BucketConfig(bucket_size=4, chunk_rows=16))
+    before = dict(LAUNCHES)
+    with pytest.raises(ValueError):
+        port_fs.mxu_matvec_batch(bm, torch.randn((4, 256), device="cuda"),
+                                 0.5)
+    with pytest.raises(ValueError):
+        port_fs.mxu_matvec_batch(bm4, torch.randn((4, 512), device="cuda"),
+                                 0.5)
+    with pytest.raises(TypeError):
+        port_fs.mxu_matvec_batch(bm, torch.randn((4, 512), device="cuda"),
+                                 torch.full((4,), 32768, dtype=torch.int32,
+                                            device="cuda"))
+    q = torch.randn((8, 4 * 64), device="cuda")
+    kc = torch.randn((32, 2, 64), device="cuda")
+    with pytest.raises(ValueError):
+        flash_attention_seq(q, kc, kc, 0, 0, 4, 64)
+    kw = torch.randn((32, 2, 256), device="cuda").bfloat16()
+    with pytest.raises(ValueError):
+        flash_attention_seq(torch.randn((8, 4 * 256), device="cuda"), kw, kw,
+                            0, 0, 4, 256)
+    assert LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_forward_seq_auto_attention_is_k3_on_the_card():
+    """forward_seq's "auto" attention on the card is K3 for any heads: a
+    128-wide head launches it once a layer, and a 256-wide head, which K3
+    does not take, raises rather than running the plain attention."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import dataclasses
+    from effort_tpu_torch.config import tiny_test_model
+    from effort_tpu_torch.models import transformer as tf
+    ids = torch.tensor([0] * 3 + list(range(3, 8)), device="cuda")
+    for D, raises in ((128, False), (256, True)):
+        cfg = dataclasses.replace(tiny_test_model(), head_dim=D, n_heads=2,
+                                  n_kv_heads=1, dim=2 * D, hidden_dim=4 * D)
+        w = tf.init_random_weights(cfg, BucketConfig(bucket_size=1,
+                                                     chunk_rows=128,
+                                                     dtype="int8"),
+                                   keep_dense=True, device="cuda")
+        kc, vc = tf.make_kv_cache(cfg, "cuda")
+        before = LAUNCHES["flash_attention"]
+        if raises:
+            with pytest.raises(ValueError):
+                tf.forward_seq(w, cfg, ids, kc, vc, rope_offset=3,
+                               mask_from=3, effort=1.0, impl="dense")
+        else:
+            tf.forward_seq(w, cfg, ids, kc, vc, rope_offset=3, mask_from=3,
+                           effort=1.0, impl="dense")
+            assert LAUNCHES["flash_attention"] - before == cfg.n_layers
+
+
+@pytest.mark.cuda
 def test_cuda_timers():
     """gpu_ms and chain_time return positive device times, and a chain
     twice as long takes longer."""

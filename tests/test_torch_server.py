@@ -1,0 +1,145 @@
+"""The port's HTTP server end to end on the CPU, on the tiny model with the
+row-prefix layout (bucket_size=1): the five cases of tests/test_server.py,
+each server on a free port (port=0), plus the single-flight answer to
+options that are not ported yet.
+"""
+
+import asyncio
+import json
+import urllib.error
+import urllib.request
+
+import pytest
+import torch
+
+from effort_tpu_torch.config import BucketConfig, tiny_test_model
+from effort_tpu_torch.models.generate import Engine
+from effort_tpu_torch.models.transformer import init_random_weights
+from effort_tpu_torch.serving.server import EffortServer, make_batch_server
+
+torch.set_num_threads(2)
+
+
+@pytest.fixture(scope="module")
+def weights():
+    cfg = tiny_test_model(max_seq_len=64)
+    return cfg, init_random_weights(
+        cfg, BucketConfig(bucket_size=1, chunk_rows=128, dtype="int8"),
+        calibrate=True, fuse=True, device="cpu")
+
+
+def _fetch(port, path, payload=None):
+    """(status, content type, body text); an HTTP error's status too."""
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}",
+        data=None if payload is None else json.dumps(payload).encode(),
+        headers={"content-type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, r.headers.get("content-type"), r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, None, e.read().decode()
+
+
+def _get(port, path):
+    st, _, body = _fetch(port, path)
+    return st, json.loads(body)
+
+
+def _run(srv, client):
+    """Start srv, run client(port) in a worker thread, stop srv."""
+    async def run():
+        await srv.start()
+        try:
+            return await asyncio.get_running_loop().run_in_executor(
+                None, client, srv.port)
+        finally:
+            await srv.stop()
+    return asyncio.run(run())
+
+
+def _batch_server(weights):
+    cfg, w = weights
+    return make_batch_server(w, cfg, batch_size=2, pad_to=8, port=0,
+                             device="cpu")
+
+
+def test_server_endpoints(weights):
+    cfg, w = weights
+    srv = EffortServer(Engine(w, cfg, pad_to=8, device="cpu"), port=0)
+
+    def client(port):
+        st, body = _get(port, "/health")
+        assert st == 200 and body["status"] == "ok"
+        st, body = _get(port, "/q?query=hello&effort=60&numtokens=4")
+        assert st == 200
+        assert "reply" in body and body["effort"] == 0.6
+        st, body = _get(port, "/q?tokids=1,5,9&effort=100")
+        assert st == 200 and len(body["predictions"]) == 3
+        st, body = _get(port, "/stats")
+        assert body["requests"] >= 3
+        # sampling is not ported: the engine raises, the server answers 500
+        st, body = _get(port, "/q?query=hi&numtokens=2&temperature=0.9")
+        assert st == 500 and "not ported yet" in body["error"]
+    _run(srv, client)
+
+
+def test_batch_server_concurrent_requests(weights):
+    from concurrent.futures import ThreadPoolExecutor
+
+    def client(port):
+        # three concurrent generations through 2 slots
+        with ThreadPoolExecutor(3) as pool:
+            results = list(pool.map(
+                lambda i: _get(port, f"/q?query=h{i}&effort=100"
+                                     f"&numtokens=4"), range(3)))
+        for st, body in results:
+            assert st == 200
+            assert 1 <= len(body["token_ids"]) <= 4
+        # the eval path still works in batch mode
+        st, body = _get(port, "/q?tokids=1,5,9&effort=100")
+        assert st == 200 and len(body["predictions"]) == 3
+    _run(_batch_server(weights), client)
+
+
+def test_batch_server_streaming(weights):
+    """stream=1 in batching mode: one SSE data event per token, then an
+    event: done carrying the full result."""
+    def client(port):
+        st, ctype, body = _fetch(
+            port, "/q?query=hi&effort=100&numtokens=5&stream=1")
+        assert st == 200 and ctype == "text/event-stream"
+        events = [e for e in body.split("\n\n") if e.strip()]
+        data = [json.loads(e.split("data: ", 1)[1])
+                for e in events if e.startswith("data: ")]
+        done = [e for e in events if e.startswith("event: done")]
+        assert len(done) == 1
+        final = json.loads(done[0].split("data: ", 1)[1])
+        assert [d["token"] for d in data] == final["token_ids"]
+        assert len(data) >= 2          # actually streamed per token
+    _run(_batch_server(weights), client)
+
+
+def test_batch_server_rejects_sampling_params(weights):
+    def client(port):
+        st, _, _ = _fetch(port, "/q?query=hi&numtokens=2&temperature=0.9")
+        assert st == 400
+    _run(_batch_server(weights), client)
+
+
+def test_openai_completions_endpoint(weights):
+    def client(port):
+        st, _, body = _fetch(port, "/v1/completions",
+                             {"prompt": "hello", "max_tokens": 4,
+                              "effort": 0.5})
+        assert st == 200
+        obj = json.loads(body)
+        assert obj["object"] == "text_completion"
+        assert obj["choices"][0]["finish_reason"] == "length"
+        st, _, body = _fetch(port, "/v1/completions",
+                             {"prompt": "hello", "max_tokens": 4,
+                              "stream": True})
+        assert st == 200
+        assert body.strip().endswith("data: [DONE]")
+        assert body.count('"text_completion"') >= 4
+    _run(_batch_server(weights), client)
