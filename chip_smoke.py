@@ -36,7 +36,8 @@ Phases, one JSON line each (a failure raises and exits non-zero):
   teacher   logits of the kernel route against the route through K1's
             plain version over one reply's tokens at tau = 1, both reading
             the same history: cos >= 0.999 at every step at depth 4;
-            depth 32, and the reference route, are printed only
+            depth 32 (over the first 13 steps), and the reference route,
+            are printed only
   prefill   the same model, Engine(prefill=True): the four prompts at
             efforts 0.25, 0.5 and 1.0; time to first token and decode ms
             per token; per call K3 must run 32 times, K2 4 * 32 times
@@ -62,6 +63,31 @@ Phases, one JSON line each (a failure raises and exits non-zero):
             single-stream K1 route at depth 4, tau = 1 (cos >= 0.999 per
             slot), and make_batch_server on 127.0.0.1 answering four
             concurrent /q, one stream=1 and one /v1/completions
+  kernels_rank
+            K4 (fused_matvec, csrc/fused_matvec.cu) and K5 (stream_matvec,
+            csrc/stream_matvec.cu) against their plain versions at the four
+            shapes x {bf16, int8, int4} x efforts {0.1, 0.25, 0.5} x tau
+            {0.97, 1.0}, rank-prefix buckets B = 4, G = 16: equal C_k per
+            rank, cos >= 0.9999, max|dy| <= 1e-2 max|y_ref| (and whether
+            the two are equal bit for bit, which the plain versions' order
+            of sums allows); K5 on K4's own selection equals K4 to 1e-5;
+            K6 (gather_matvec_dma, csrc/gather_dma.cu) and K7
+            (gather_bucket_matvec, csrc/gather_mul.cu) likewise at {bf16,
+            int8} x the efforts, K6 against K7 to 1e-5; times beside the
+            bound and the dense bf16 torch.mm GEMV
+  rank_decode
+            the row-prefix model freed, Mistral-7B width and depth with int8
+            rank-prefix buckets (B = 4, G = 16), fused projections, int8 LM
+            head, no dense copies: Engine.generate on the four prompts at
+            efforts 0.25, 0.5 and 1.0 through "auto" (K4 only, 4 * 32
+            launches a step), a few tokens through "stream" (K5 only) and
+            "gather" (K6 only) at 8-slot padding; device time by kernel
+            over one request;
+            every layer's K4 call against its plain version on the same
+            inputs at depth 32 (cos >= 0.9999, equal C_k); the kernel route
+            against the plain route at tau = 1, depth 4, over a prompt and
+            8 reply tokens (cos >= 0.999); and
+            make_server (single flight) answering /q on this model
 Then the `kernels` summary line, the card's nvidia-smi line, and last
 {"ok": true, "device": {...}}. The full per-point table is written to
 chiprun_out/chip_smoke.json. float32 matmuls run in full f32 (TF32 off).
@@ -80,7 +106,8 @@ import torch
 
 from effort_tpu_torch.config import BucketConfig, mistral_7b
 from effort_tpu_torch.kernels import LAUNCHES, _build, reset_launches
-from effort_tpu_torch.kernels import fused_stream
+from effort_tpu_torch.kernels import (fused_stream, gather_dma, gather_mul,
+                                      prefix_stream)
 from effort_tpu_torch.kernels.flash_attention import flash_attention_seq
 from effort_tpu_torch.models import transformer
 from effort_tpu_torch.models.generate import Engine
@@ -95,9 +122,9 @@ from effort_tpu_torch.models.transformer import (embed, forward_layers,
 from effort_tpu_torch.ops.bucketize import (bucketize, calib_row_order,
                                             pick_chunk_rows)
 from effort_tpu_torch.ops.bucketmul import dense_matvec
-from effort_tpu_torch.ops.effort import effort_q16
+from effort_tpu_torch.ops.effort import effort_q16, select_blocks
 from effort_tpu_torch.serving.batcher import BatchEngine, ContinuousBatcher
-from effort_tpu_torch.serving.server import make_batch_server
+from effort_tpu_torch.serving.server import make_batch_server, make_server
 from effort_tpu_torch.utils.timing import gpu_ms
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
@@ -108,6 +135,10 @@ DTYPES = ("bf16", "int8", "int4")
 EFFORTS = (0.1, 0.25, 0.5, 1.0)
 TAUS = (0.97, 1.0)
 RUNS = 20
+PLAIN_RUNS = 3                     # K4-K7's plain versions, timed only
+# the teacher phase's printed depth-32 witness runs over the first steps
+# only (a 5-token prompt and 8 reply tokens), to keep the run's time
+DEEP_TEACHER_STEPS = 13
 BATCH_TS = (4, 64)                 # batched decode slots, prefill tokens
 ATTN_CASES = (
     dict(name="prefill32", T=32, start_slot=0, mask_from=27, window=0),
@@ -122,6 +153,12 @@ SUMMARY = ("int8", 0.25, 0.97)
 # one prefill call at T = 64
 SUMMARY_BATCH = ("int8", 64, 0.97)
 SUMMARY_ATTN = "prefill64"
+# rank-prefix buckets of the K4-K7 points and the rank_decode model
+RANK_BUCKETS = dict(bucket_size=4, chunk_rows=16)
+RANK_EFFORTS = (0.1, 0.25, 0.5)
+# K4's and K5's summary: one decode layer's four launches (int8, effort
+# 0.25, default tau); K6's and K7's: the same at effort 0.25
+SUMMARY_RANK = ("int8", 0.25, 0.97)
 PROMPT_LENS = (5, 17, 32, 64)
 N_NEW = 32
 OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
@@ -476,17 +513,22 @@ KERNEL_PARTS = {"k1_select": "namespace)::select_kernel",
                 "k2_select": "namespace)::select_batch_kernel",
                 "k2_stream": "namespace)::stream_batch_kernel",
                 "k2_reduce": "namespace)::reduce_batch_kernel",
-                "k3": "namespace)::flash_kernel"}
+                "k3": "namespace)::flash_kernel",
+                "k4_select": "namespace)::fused_select_kernel",
+                "k4_k5_stream": "rank_prefix::stream_kernel",
+                "k4_k5_split_sum": "rank_prefix::reduce_splits",
+                "k6_k7_gather": "block_gather::gather_kernel"}
 
 
 def device_profile(fn) -> dict:
-    """Where the time of fn() goes: device time by kernel (torch.profiler)
-    against the wall time of fn() run again without the profiler; the
-    card's busy share is their ratio."""
+    """Where the time of fn() goes: device time by kernel (torch.profiler,
+    device activity only, summed over the raw trace events: host events
+    and the profiler's own event tree cost the run tens of seconds a pass
+    and add nothing to these sums) against the wall time of fn() run again
+    without the profiler; the card's busy share is their ratio."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     torch.cuda.synchronize()
@@ -494,11 +536,12 @@ def device_profile(fn) -> dict:
     fn()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    # kernels only: an operator's row repeats the time of its kernels
-    kernels = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
-                      for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA
-                      and e.self_device_time_total > 0),
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0:
+            ms, n = by_name.get(e.name(), (0.0, 0))
+            by_name[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
+    kernels = sorted(((k, ms, n) for k, (ms, n) in by_name.items()),
                      key=lambda k: -k[1])
     device_ms = sum(k[1] for k in kernels)
     parts = {part: sum(k[1] for k in kernels if sub in k[0])
@@ -547,12 +590,13 @@ def phase_teacher(cfg, w, tokens) -> list:
     try:
         for depth in (4, 32):
             cfg_d = dataclasses.replace(cfg, n_layers=depth)
+            steps = tokens if depth == 4 else tokens[:DEEP_TEACHER_STEPS]
             for effort in (0.25, 0.5):
                 eq = effort_q16(effort, "cuda")
                 kv = make_kv_cache(cfg_d, "cuda")
                 c = {k: [] for k in ("plain", "plain_int8", "reference")}
                 agree, finite = 0, True
-                for pos, tok in enumerate(tokens):
+                for pos, tok in enumerate(steps):
                     h = {impl: h_final(cfg_d, tok, pos,
                                        tuple(x.clone() for x in kv),
                                        eq, impl)
@@ -568,7 +612,7 @@ def phase_teacher(cfg, w, tokens) -> list:
                     c["reference"].append(cos(exact["kernel"],
                                               exact["reference"]))
                     agree += int(lk.argmax() == lp.argmax())
-                n = len(tokens)
+                n = len(steps)
                 r = dict(depth=depth, effort=effort, steps=n,
                          min_cos_plain=min(c["plain"]),
                          mean_cos_plain=sum(c["plain"]) / n,
@@ -934,6 +978,371 @@ def serve_http(cfg, w) -> dict:
         raise AssertionError(f"batch server: {r}")
     return r
 
+def rank_bytes(bm, tiles: int, tgb: int, selection: bool) -> int:
+    """Bytes K4 or K5 must move: values and packed positions of the live
+    tiles, y written once, and K4's v, probes, stats and scales (selection)
+    or K5's u [K, in] f32."""
+    vrow = bm.vals.shape[2] * bm.vals.element_size()
+    streamed = tiles * tgb * bm.chunk_rows * (vrow + bm.pos.shape[2])
+    K = bm.n_ranks
+    if selection:
+        inputs = (bm.in_dim * 4 * (1 + K * (1 + (bm.scales is not None)))
+                  + bm.probes.shape[1] * 4)
+    else:
+        inputs = K * bm.in_dim * 4
+    return streamed + inputs + bm.out_dim * 4
+
+
+def gather_bytes(bm, n_ids: int, pos_row_bytes: int) -> int:
+    """Bytes K6 or K7 must move for n_ids real blocks: their values and
+    positions, their ids, u [K, in] f32, y written once."""
+    vrow = bm.vals.shape[2] * bm.vals.element_size()
+    return (n_ids * bm.chunk_rows * (vrow + pos_row_bytes) + n_ids * 4
+            + bm.n_ranks * bm.in_dim * 4 + bm.out_dim * 4)
+
+
+def held(what: str, y, yr, extra: dict, c_min: float = 0.9999) -> dict:
+    """cos and max|dy| of a kernel against its plain version (and whether
+    the two are equal bit for bit, as K4-K7 and theirs add in one order);
+    raises past cos c_min or max|dy| > 1e-2 max|y_ref|."""
+    err = float((y - yr).abs().max())
+    scale = float(yr.abs().max())
+    p = dict(extra, cos=cos(y, yr), max_abs_err=err, max_abs_ref=scale,
+             bitwise_equal=bool(torch.equal(y, yr)))
+    if not p["cos"] >= c_min or not err <= 1e-2 * scale:
+        raise AssertionError(f"{what} disagrees with its plain version: {p}")
+    return p
+
+
+def timed(p: dict, flush, fn, plain, args: list, nbytes: int,
+          lib_ms: float) -> dict:
+    """ms (median over the fresh args, L2 flushed), plain_ms (over the
+    first PLAIN_RUNS of them: the plain versions add row by row, in the
+    kernels' order), the bytes bound and the library time."""
+    p["ms"] = median([gpu_ms(fn, a, flush) for a in args])
+    p["plain_ms"] = median([gpu_ms(plain, a, flush)
+                            for a in args[:PLAIN_RUNS]])
+    p["bytes"] = nbytes
+    p["bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+    p["library_ms"] = lib_ms
+    return p
+
+
+def phase_kernels_rank(flush: torch.Tensor) -> dict:
+    """K4 and K5 at the four fused projections x {bf16, int8, int4} x
+    RANK_EFFORTS x TAUS; K6 and K7 at {bf16, int8} x RANK_EFFORTS; each
+    against its plain version on the same selection, K5 against K4 and K7
+    against K6."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(2468)
+    out = {k: [] for k in ("k4", "k5", "k6", "k7")}
+    for name, (i, o) in SHAPES.items():
+        rms = torch.exp(torch.randn(i, generator=g, device="cuda") * 1.2)
+        pi = calib_row_order(rms)
+        wt = torch.randn((i, o), generator=g, device="cuda") * 0.02
+        dense = wt[pi.long()].to(torch.bfloat16)
+        vs = [rms[pi.long()] * torch.randn(i, generator=g, device="cuda")
+              for _ in range(RUNS)]
+        lib_ms = median([gpu_ms(lambda a: torch.mm(a, dense),
+                                (v.to(torch.bfloat16)[None],), flush)
+                         for v in vs])
+        del dense
+        for dtype in DTYPES:
+            bm = bucketize(wt, BucketConfig(dtype=dtype, **RANK_BUCKETS),
+                           in_perm=pi)
+            tgb = bucketmul._tile_blocks(bm)
+            base = dict(shape=name, in_dim=i, out_dim=o, dtype=dtype,
+                        n_chunks=bm.n_chunks, tile_blocks=tgb)
+            for effort in RANK_EFFORTS:
+                eq = effort_q16(effort, "cuda")
+                for tau in TAUS:
+                    pt = dict(base, effort=effort, tau=tau)
+                    y, C, sel = fused_stream.fused_matvec(
+                        bm, vs[0], eq, 0, tgb, tau, return_selection=True)
+                    yr, Cr, _ = fused_stream.fused_matvec_ref(
+                        bm, vs[0], eq, 0, tgb, tau, return_selection=True)
+                    y5 = prefix_stream.stream_matvec(bm, sel, tgb)
+                    torch.cuda.synchronize()
+                    C, Cr = C.tolist(), Cr.tolist()
+                    tiles = int(sel.cum_tiles[-1])
+                    p4 = held("K4", y, yr, dict(pt, C=C, C_plain=Cr,
+                                                 tiles=tiles))
+                    p4["k5_on_k4_selection_max_abs_diff"] = float(
+                        (y5 - y).abs().max())
+                    if C != Cr or not p4[
+                            "k5_on_k4_selection_max_abs_diff"] <= 1e-5:
+                        raise AssertionError(f"K4 (C_k, or K5 on its "
+                                             f"selection): {p4}")
+                    out["k4"].append(timed(
+                        p4, flush,
+                        lambda v: fused_stream.fused_matvec(bm, v, eq, 0,
+                                                            tgb, tau),
+                        lambda v: fused_stream.fused_matvec_ref(
+                            bm, v, eq, 0, tgb, tau),
+                        [(v,) for v in vs],
+                        rank_bytes(bm, tiles, tgb, True), lib_ms))
+                    emit({"phase": "kernels_rank", "kernel": "K4", **p4})
+                    sels = [prefix_stream.select_stream(bm, v, eq, 0, tgb,
+                                                        tau=tau)
+                            for v in vs]
+                    y5 = prefix_stream.stream_matvec(bm, sels[0], tgb)
+                    y5r = prefix_stream.stream_matvec_ref(bm, sels[0], tgb)
+                    tiles5 = (sels[0].cum_tiles[1:]
+                              - sels[0].cum_tiles[:-1]).tolist()
+                    p5 = held("K5", y5, y5r, dict(pt, tiles_per_rank=tiles5))
+                    out["k5"].append(timed(
+                        p5, flush,
+                        lambda s: prefix_stream.stream_matvec(bm, s, tgb),
+                        lambda s: prefix_stream.stream_matvec_ref(bm, s,
+                                                                  tgb),
+                        [(s,) for s in sels],
+                        rank_bytes(bm, sum(tiles5), tgb, False), lib_ms))
+                    emit({"phase": "kernels_rank", "kernel": "K5", **p5})
+                if dtype == "int4":
+                    continue
+                gather_points(bm, base, effort, vs, flush, lib_ms, out)
+            del bm
+        del wt, vs
+        torch.cuda.empty_cache()
+    return out
+
+
+def gather_points(bm, base, effort, vs, flush, lib_ms, out) -> None:
+    """K6 and K7 at one effort: the gather route's capacity, one selection
+    per fresh input, each kernel against its plain version, K7 against
+    K6."""
+    cap = bucketmul.gather_capacity(bm, effort)
+    pos7 = gather_mul.unpacked_positions(bm)
+    sels = [select_blocks(bm, v, effort, 0, cap) for v in vs]
+    y6 = gather_dma.gather_matvec_dma(bm, sels[0])
+    y6r = gather_dma.gather_matvec_dma_ref(bm, sels[0])
+    y7 = gather_mul.gather_bucket_matvec(bm, sels[0], pos7)
+    y7r = gather_mul.gather_bucket_matvec_ref(bm, sels[0], pos7)
+    torch.cuda.synchronize()
+    n_blocks = int(sels[0].n_blocks)
+    real = min(n_blocks, cap)           # the bound counts no pad block
+    pt = dict(base, effort=effort, max_blocks=cap, n_blocks=n_blocks,
+              blocks=bm.blocks_per_expert)
+    p6 = held("K6", y6, y6r, dict(pt))
+    p7 = held("K7", y7, y7r, dict(pt))
+    p7["k7_vs_k6_max_abs_diff"] = float((y7 - y6).abs().max())
+    if not 1 <= n_blocks <= bm.blocks_per_expert \
+            or not p7["k7_vs_k6_max_abs_diff"] <= 1e-5:
+        raise AssertionError(f"K6/K7 selection or agreement: {p7}")
+    out["k6"].append(timed(
+        p6, flush, lambda s: gather_dma.gather_matvec_dma(bm, s),
+        lambda s: gather_dma.gather_matvec_dma_ref(bm, s),
+        [(s,) for s in sels], gather_bytes(bm, real, bm.pos.shape[2]),
+        lib_ms))
+    emit({"phase": "kernels_rank", "kernel": "K6", **p6})
+    out["k7"].append(timed(
+        p7, flush, lambda s: gather_mul.gather_bucket_matvec(bm, s, pos7),
+        lambda s: gather_mul.gather_bucket_matvec_ref(bm, s, pos7),
+        [(s,) for s in sels], gather_bytes(bm, real, pos7.shape[2]), lib_ms))
+    emit({"phase": "kernels_rank", "kernel": "K7", **p7})
+
+
+def build_rank_model():
+    """Mistral-7B width and depth, int8 rank-prefix buckets (B = 4, G =
+    16), fused wqkv and w13, int8 LM head, no dense copies (so effort 1.0
+    runs K4 at full coverage); random calibrated weights from seed 0."""
+    cfg = mistral_7b(n_layers=32, max_seq_len=512)
+    bcfg = BucketConfig(dtype="int8", **RANK_BUCKETS)
+    t0 = time.perf_counter()
+    w = quantize_head(init_random_weights(cfg, bcfg, seed=0, calibrate=True,
+                                          fuse=True, device="cuda"))
+    torch.cuda.synchronize()
+    emit({"phase": "rank_model_setup", "seconds": time.perf_counter() - t0,
+          "weights_gib": torch.cuda.memory_allocated() / 2**30})
+    return cfg, w
+
+
+RANK_ROUTES = {"auto": "fused_matvec", "stream": "stream_matvec",
+               "gather": "gather_matvec_dma"}
+
+
+def only(name: str, steps: int, L: int) -> dict:
+    """The launch counts of a decode path that runs kernel `name` alone: 4
+    projections a layer a step, every other kernel 0."""
+    return {k: (4 * L * steps if k == name else 0) for k in LAUNCHES}
+
+
+def phase_rank_decode(cfg, w, prompts) -> dict:
+    """Single-stream decode on the rank-prefix model: the four prompts at
+    efforts 0.25, 0.5 and 1.0 through "auto" (K4), one prompt of a few
+    tokens through "stream" (K5) and "gather" (K6), each with exact launch
+    counts; then one request under the profiler."""
+    L, out = cfg.n_layers, {"decode": [], "routes": []}
+    eng = Engine(w, cfg, eos_id=-1)
+    eng.generate(prompts[0], n_new=2, effort=0.25)       # warm-up
+    steps = sum(padded(n, eng.pad_to) + N_NEW - 1 for n in PROMPT_LENS)
+    for effort in (0.25, 0.5, 1.0):
+        torch.cuda.synchronize()
+        reset_launches()                # the path's run starts here ...
+        t0 = time.perf_counter()
+        reps = [eng.generate(p, n_new=N_NEW, effort=effort) for p in prompts]
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(LAUNCHES)       # ... and is read here
+        r = dict(effort=effort, requests=len(prompts), steps=steps, ms=ms,
+                 ms_per_token=ms / steps, launches=launches,
+                 first_tokens=reps[0].token_ids[:8])
+        out["decode"].append(r)
+        emit({"phase": "rank_decode", **r})
+        check_replies([x.token_ids for x in reps], cfg, N_NEW,
+                      f"rank decode, effort {effort}")
+        check_launches(launches, only("fused_matvec", steps, L),
+                       f"rank decode at effort {effort}")
+    out["replies"] = reps
+    n_new, pad = 4, 8
+    for impl in ("stream", "gather"):
+        e = Engine(w, cfg, impl=impl, eos_id=-1, pad_to=pad)
+        e.generate(prompts[0], n_new=2, effort=0.25)     # warm-up
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        rep = e.generate(prompts[0], n_new=n_new, effort=0.25)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(LAUNCHES)
+        st = padded(len(prompts[0]), pad) + n_new - 1
+        r = dict(impl=impl, effort=0.25, steps=st, ms_per_token=ms / st,
+                 launches=launches, tokens=rep.token_ids)
+        out["routes"].append(r)
+        emit({"phase": "rank_decode_route", **r})
+        check_replies([rep.token_ids], cfg, n_new, f"rank decode, {impl}")
+        check_launches(launches, only(RANK_ROUTES[impl], st, L),
+                       f"rank decode through {impl}")
+    out["profile"] = device_profile(lambda: eng.generate(
+        prompts[0], n_new=8, effort=0.25))
+    emit({"phase": "rank_profile", "steps": padded(len(prompts[0])) + 7,
+          **out["profile"]})
+    return out
+
+
+def phase_rank_same_input(cfg, w, prompt) -> list:
+    """At depth 32, every K4 call of a few decode steps run through its
+    plain version too, on the very inputs it was given: per layer the
+    least cosine and whether every C_k matched (required: >= 0.9999 and
+    all equal)."""
+    k4 = bucketmul.fused_matvec
+    rows = []
+    for effort in (0.25, 0.5):
+        cs, eq_c = [], []
+
+        def both(bm, v, effort, expert=0, tile_blocks=8, tau=None):
+            y, C, _ = k4(bm, v, effort, expert, tile_blocks, tau,
+                         return_selection=True)
+            yr, Cr, _ = fused_stream.fused_matvec_ref(
+                bm, v, effort, expert, tile_blocks, tau,
+                return_selection=True)
+            cs.append(torch.nn.functional.cosine_similarity(
+                y.double(), yr.double(), dim=0))
+            eq_c.append((C == Cr).all())
+            return y
+        bucketmul.fused_matvec = both
+        try:
+            kv = make_kv_cache(cfg, "cuda")
+            eq = effort_q16(effort, "cuda")
+            for pos, tok in enumerate(prompt):
+                forward_token(w, cfg, tok, pos, *kv, effort=eq, impl="kernel")
+        finally:
+            bucketmul.fused_matvec = k4
+        L = cfg.n_layers
+        n = len(prompt)
+        if len(cs) != 4 * L * n:
+            raise AssertionError(f"{len(cs)} K4 calls in {n} steps of {L} "
+                                 f"layers")
+        per_layer = torch.stack(cs).reshape(n, L, 4).amin(dim=(0, 2))
+        c_ok = torch.stack(eq_c).reshape(n, L, 4).all(dim=2).all(dim=0)
+        r = dict(depth=L, effort=effort, steps=n, calls=len(cs),
+                 k4_min_cos=per_layer.tolist(),
+                 k4_c_equal=c_ok.tolist(),
+                 min_cos=float(per_layer.min()), required=True)
+        rows.append(r)
+        emit({"phase": "rank_same_input", **r})
+        if not (r["min_cos"] >= 0.9999 and all(r["k4_c_equal"])):
+            raise AssertionError(f"rank same-input check: {r}")
+    return rows
+
+
+def phase_rank_teacher(cfg, w, tokens) -> list:
+    """At depth 4 and tau = 1, the kernel route (K4) against the plain
+    route over the same tokens, both reading the kernel route's history:
+    cos >= 0.999 of the exact-head logits at every step."""
+    saved = fused_stream._TAU
+    fused_stream._TAU = 1.0
+    cfg4 = dataclasses.replace(cfg, n_layers=4)
+    rows = []
+    try:
+        for effort in (0.25, 0.5):
+            eq = effort_q16(effort, "cuda")
+            kv = make_kv_cache(cfg4, "cuda")
+            cs = []
+            for pos, tok in enumerate(tokens):
+                hp = forward_layers(w, cfg4, embed(w, tok), pos,
+                                    *(x.clone() for x in kv), effort=eq,
+                                    impl="plain")
+                hk = forward_layers(w, cfg4, embed(w, tok), pos, *kv,
+                                    effort=eq, impl="kernel")
+                cs.append(cos(dense_matvec(rms_norm(hk, w.norm,
+                                                    cfg.norm_eps), w.output),
+                              dense_matvec(rms_norm(hp, w.norm,
+                                                    cfg.norm_eps), w.output)))
+            r = dict(depth=4, effort=effort, steps=len(tokens),
+                     min_cos=min(cs), mean_cos=sum(cs) / len(cs))
+            rows.append(r)
+            emit({"phase": "rank_teacher", **r})
+            if not r["min_cos"] >= 0.999:
+                raise AssertionError(f"rank kernel route vs plain: {r}")
+    finally:
+        fused_stream._TAU = saved
+    return rows
+
+
+def rank_http(cfg, w) -> dict:
+    """make_server (single flight) on the rank-prefix model at 127.0.0.1
+    (a free port), in this process: three /q requests of 8 tokens at
+    efforts 25, 50 and 100, each answered 200 with 8 tokens, K4 launched 4 *
+    32 times a step behind the server and no other kernel."""
+    import asyncio
+    import urllib.request
+    n, queries = 8, ("hello", "rank prefix", "effort")
+    eng = Engine(w, cfg, eos_id=-1)
+
+    def fetch(port, q, effort):
+        url = (f"http://127.0.0.1:{port}/q?query={q.replace(' ', '+')}"
+               f"&effort={effort}&numtokens={n}")
+        with urllib.request.urlopen(url, timeout=300) as resp:
+            return resp.status, json.loads(resp.read().decode())
+
+    async def run():
+        srv = make_server(eng, port=0)
+        await srv.start()
+        loop = asyncio.get_running_loop()
+        try:
+            return [await loop.run_in_executor(None, fetch, srv.port, q, e)
+                    for q, e in zip(queries, (25, 50, 100))]
+        finally:
+            await srv.stop()
+
+    torch.cuda.synchronize()
+    reset_launches()
+    got = asyncio.run(run())
+    launches = dict(LAUNCHES)
+    # the server's prompt: id 1, then one id a character
+    steps = sum(padded(1 + len(q)) + n - 1 for q in queries)
+    toks = [json.loads(body["reply"]) for _, body in got]
+    r = dict(status=[st for st, _ in got], tokens=toks, launches=launches,
+             ok=all(st == 200 and len(t) == n for (st, _), t in zip(got,
+                                                                  toks)))
+    emit({"phase": "rank_http", **r})
+    if not r["ok"]:
+        raise AssertionError(f"rank-prefix server: {r}")
+    check_launches(launches, only("fused_matvec", steps, cfg.n_layers),
+                   "the server on the rank-prefix model")
+    return r
+
 
 def summary_row(name: str, source: str, replaces: str, points: list,
                 launches: int, pick) -> dict:
@@ -961,22 +1370,52 @@ def main() -> int:
     t_start = time.perf_counter()
     name, smi = phase_device()
     phase_build()
-    out = {"device": name, "nvidia_smi": smi}
+    out = {"device": name, "nvidia_smi": smi, "phase_seconds": {}}
+
+    def run(key, fn, *args):
+        """fn(*args) into out[key], its wall seconds into phase_seconds."""
+        t0 = time.perf_counter()
+        out[key] = fn(*args)
+        out["phase_seconds"][key] = time.perf_counter() - t0
+        return out[key]
+
     flush = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")
-    out["points"] = phase_kernels(flush)
-    out["points_batch"] = phase_kernels_batch(flush)
-    out["attention"] = phase_attention(flush)
+    run("points", phase_kernels, flush)
+    run("points_batch", phase_kernels_batch, flush)
+    run("attention", phase_attention, flush)
+    run("points_rank", phase_kernels_rank, flush)
     del flush
     torch.cuda.empty_cache()
     model = build_model()
-    out["generate"], replies = phase_generate(*model)
-    out["profile"] = phase_profile(model[2], model[3][0])
-    out["teacher"] = phase_teacher(
-        *model[:2], model[3][0] + replies[0.25][0].token_ids)
-    out["prefill"] = phase_prefill(*model)
-    out["prefill_teacher"] = phase_prefill_teacher(*model)
-    out["serve"] = phase_serve(*model)
+    replies = run("generate", phase_generate, *model)[1]
+    out["generate"] = out["generate"][0]
+    run("profile", phase_profile, model[2], model[3][0])
+    run("teacher", phase_teacher, *model[:2],
+        model[3][0] + replies[0.25][0].token_ids)
+    run("prefill", phase_prefill, *model)
+    run("prefill_teacher", phase_prefill_teacher, *model)
+    run("serve", phase_serve, *model)
+    prompts = model[3]
+    del model, replies
+    torch.cuda.empty_cache()
 
+    cfg, w = build_rank_model()
+    rank = run("rank_decode", phase_rank_decode, cfg, w, prompts)
+    reply = rank.pop("replies")[0].token_ids
+    run("rank_same_input", phase_rank_same_input, cfg, w, prompts[0][:2])
+    run("rank_teacher", phase_rank_teacher, cfg, w, prompts[0] + reply[:8])
+    run("rank_http", rank_http, cfg, w)
+    del w
+    torch.cuda.empty_cache()
+    emit({"phase": "phase_seconds", **out["phase_seconds"]})
+
+    rank_launches = {k: sum(r["launches"][k]
+                            for r in rank["decode"] + rank["routes"])
+                     + out["rank_http"]["launches"][k]
+                     for k in ("fused_matvec", "stream_matvec",
+                               "gather_matvec_dma", "gather_bucket_matvec")}
+    summary_rank = lambda p: (p["dtype"], p["effort"],   # noqa: E731
+                              p.get("tau", 0.97)) == SUMMARY_RANK
     out["kernels"] = kernels = [
         summary_row(
             "mxu_matvec", "effort_tpu_torch/csrc/mxu_matvec.cu",
@@ -995,7 +1434,27 @@ def main() -> int:
             "effort_tpu/kernels/flash_attention.py:36", out["attention"],
             sum(r["launches"]["flash_attention"]
                 for r in out["prefill"] + out["serve"]),
-            lambda p: p["case"] == SUMMARY_ATTN)]
+            lambda p: p["case"] == SUMMARY_ATTN),
+        summary_row(
+            "fused_matvec", "effort_tpu_torch/csrc/fused_matvec.cu",
+            "effort_tpu/kernels/fused_stream.py:145",
+            out["points_rank"]["k4"], rank_launches["fused_matvec"],
+            summary_rank),
+        summary_row(
+            "stream_matvec", "effort_tpu_torch/csrc/stream_matvec.cu",
+            "effort_tpu/kernels/prefix_stream.py:91",
+            out["points_rank"]["k5"], rank_launches["stream_matvec"],
+            summary_rank),
+        summary_row(
+            "gather_matvec_dma", "effort_tpu_torch/csrc/gather_dma.cu",
+            "effort_tpu/kernels/gather_dma.py:34",
+            out["points_rank"]["k6"], rank_launches["gather_matvec_dma"],
+            summary_rank),
+        summary_row(
+            "gather_bucket_matvec", "effort_tpu_torch/csrc/gather_mul.cu",
+            "effort_tpu/kernels/gather_mul.py:36",
+            out["points_rank"]["k7"], rank_launches["gather_bucket_matvec"],
+            summary_rank)]
     out["seconds"] = time.perf_counter() - t_start
     OUT_DIR.mkdir(exist_ok=True)
     with open(OUT_DIR / "chip_smoke.json", "w") as f:

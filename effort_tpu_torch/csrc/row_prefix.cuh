@@ -1,5 +1,7 @@
 // Device code shared by the row-prefix effort kernels for Hopper, sm_90a:
 // mxu_matvec.cu (one vector, K1) and mxu_matvec_batch.cu (T slots, K2).
+// The rank-prefix selection (rank_prefix.cuh, K4) takes its cutoff search
+// from here too (find_cutoff).
 //
 // select_rows() is one block's whole selection for one vector (the TPU
 // kernels' prologue, effort_tpu/kernels/fused_stream.py:_kernel_mxu and
@@ -100,18 +102,15 @@ __device__ __forceinline__ void search_level(const float* s_scores, int P,
   __syncthreads();  // s_t and s_cnt are rewritten next
 }
 
-// The selection of one vector v [nc*G] by one block of kSelThreads
-// threads: writes u [nc*G] bf16, *c_out (the streamed chunk count C) and
-// *cutoff_out.
-__device__ __forceinline__ void select_rows(
+// The cutoff of one vector at effort eff, found by one block of
+// kSelThreads threads (every thread returns it): the two-level search over
+// scores = |v[::stride][:P] * probes|. Shared by the row-prefix selection
+// below and the rank-prefix one (rank_prefix.cuh).
+__device__ __forceinline__ float find_cutoff(
     const float* __restrict__ v, int P, int stride,
-    const float* __restrict__ probes, const float* __restrict__ stats,
-    const float* __restrict__ scales, float eff,
-    const float* __restrict__ tables, int G, int nc, float tau,
-    __nv_bfloat16* __restrict__ u, int32_t* __restrict__ c_out,
-    float* __restrict__ cutoff_out) {
+    const float* __restrict__ probes, float eff,
+    const float* __restrict__ tables) {
   __shared__ float s_scores[kMaxP];
-  __shared__ double s_seg[kMaxSegs];
   __shared__ float s_wmax[kSelWarps];
   __shared__ float s_t[kNL];
   __shared__ int s_cnt[kNL];
@@ -146,6 +145,22 @@ __device__ __forceinline__ void select_rows(
   __syncthreads();
   float cutoff, unused;
   search_level(s_scores, P, s_t, s_cnt, kq, lo, hi, &cutoff, &unused);
+  return cutoff;
+}
+
+// The selection of one vector v [nc*G] by one block of kSelThreads
+// threads: writes u [nc*G] bf16, *c_out (the streamed chunk count C) and
+// *cutoff_out.
+__device__ __forceinline__ void select_rows(
+    const float* __restrict__ v, int P, int stride,
+    const float* __restrict__ probes, const float* __restrict__ stats,
+    const float* __restrict__ scales, float eff,
+    const float* __restrict__ tables, int G, int nc, float tau,
+    __nv_bfloat16* __restrict__ u, int32_t* __restrict__ c_out,
+    float* __restrict__ cutoff_out) {
+  __shared__ double s_seg[kMaxSegs];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const float cutoff = find_cutoff(v, P, stride, probes, eff, tables);
 
   // selection, u, and the selected mass of every segment: one warp per
   // segment, four rows a lane in flight. Masses add in f64, where a sum of

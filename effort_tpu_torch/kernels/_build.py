@@ -92,3 +92,31 @@ def load(name: str) -> ctypes.CDLL:
             build_all()
         _LIBS[name] = ctypes.CDLL(str(path))
     return _LIBS[name]
+
+
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "l": ctypes.c_longlong,
+           "f": ctypes.c_float}
+_FNS: dict = {}
+
+
+def kernel_fn(name: str, fn: str, sig: str):
+    """The C entry `fn` of csrc/<name>.cu as a Python callable: its
+    arguments typed by `sig` (p = pointer, stream included, i = int, l =
+    long long, f = float), the CUDA error code it returns raised as
+    RuntimeError."""
+    if (name, fn) not in _FNS:
+        lib = load(name)
+        f = getattr(lib, fn)
+        f.argtypes = [_CTYPES[c] for c in sig]
+        f.restype = ctypes.c_int
+        lib.effort_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.effort_cuda_error_string.restype = ctypes.c_char_p
+
+        def call(*args):
+            err = f(*args)
+            if err:
+                raise RuntimeError(f"{fn} launch failed: "
+                                   + lib.effort_cuda_error_string(err)
+                                   .decode())
+        _FNS[(name, fn)] = call
+    return _FNS[(name, fn)]

@@ -18,7 +18,6 @@ the card both hand the kernel their tensors in place, through strides.
 
 from __future__ import annotations
 
-import ctypes
 import math
 
 import torch
@@ -58,21 +57,6 @@ def flash_attention_ref(Q: torch.Tensor, K: torch.Tensor, V: torch.Tensor,
     return out / torch.clamp(l, min=1e-30)
 
 
-def _lib():
-    lib = _build.load("flash_attention")
-    if not getattr(lib, "_effort_typed", False):
-        p, i, f, ll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
-                       ctypes.c_longlong)
-        lib.effort_flash_attention.argtypes = [
-            p, ll, ll, ll, p, ll, ll, p, ll, ll, p, ll, ll, ll,
-            i, i, i, i, i, i, i, i, i, f, i, p]
-        lib.effort_flash_attention.restype = i
-        lib.effort_cuda_error_string.argtypes = [i]
-        lib.effort_cuda_error_string.restype = ctypes.c_char_p
-        lib._effort_typed = True
-    return lib
-
-
 def _launch(q, q_strides, k, k_strides, v, v_strides, out, o_strides,
             KV: int, rep: int, T: int, S: int, D: int, start_slot: int,
             mask_from: int, window: int, pv_f32: bool) -> None:
@@ -99,15 +83,12 @@ def _launch(q, q_strides, k, k_strides, v, v_strides, out, o_strides,
                          f"outside the kernel's limits")
     if min(start_slot, mask_from, window) < 0:
         raise ValueError("flash_attention: negative slot argument")
-    lib = _lib()
-    err = lib.effort_flash_attention(
+    _build.kernel_fn("flash_attention", "effort_flash_attention",
+                     "plllpllpllplll" + "i" * 9 + "fip")(
         q.data_ptr(), *q_strides, k.data_ptr(), *k_strides, v.data_ptr(),
         *v_strides, out.data_ptr(), *o_strides, KV, rep, T, S, D,
         int(start_slot), int(mask_from), int(window), int(bool(pv_f32)),
         float(D) ** -0.5, dev.index, torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        raise RuntimeError("flash_attention launch failed: "
-                           + lib.effort_cuda_error_string(err).decode())
     LAUNCHES["flash_attention"] += 1
 
 

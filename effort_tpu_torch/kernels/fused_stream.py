@@ -1,5 +1,7 @@
-"""Row-prefix effort matvec and matmul (bucket_size = 1): the CUDA kernels'
-wrappers and their plain PyTorch versions.
+"""Effort matvecs with the selection inside the kernel: the row-prefix
+matvec and matmul (bucket_size = 1, K1 and K2) and the rank-prefix matvec
+(bucket_size >= 2, K4); the CUDA kernels' wrappers and their plain PyTorch
+versions.
 
   - mxu_matvec (K1) replaces effort_tpu/kernels/fused_stream.py:mxu_matvec
     -> _kernel_mxu, in csrc/mxu_matvec.cu. The kernel selects input rows
@@ -13,17 +15,33 @@ wrappers and their plain PyTorch versions.
     _kernel_mxu_batch, in csrc/mxu_matvec_batch.cu: the same for T slots
     (prefill tokens or batched decode slots), each with its own f32 effort
     and selection; the streamed prefix is the longest slot's.
+  - fused_matvec (K4) replaces fused_stream.py:fused_matvec -> _kernel, in
+    csrc/fused_matvec.cu (+ csrc/rank_prefix.cuh): one block selects (K1's
+    cutoff search on the 16.16 effort, rank counts, u in f32, each rank's
+    coverage length C_k in tiles of TGB chunks), then the per-rank prefix
+    stream that K5 shares (kernels/prefix_stream.py) scatters by packed
+    position into y[j*B + p]. Bound by the streamed bytes. The TPU kernel
+    takes a static effort; this one reads the 16.16 device tensor at run
+    time, as K1 does.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
+from typing import Optional
 
 import numpy as np
 import torch
 
 from effort_tpu_torch.kernels import LAUNCHES, _build
+from effort_tpu_torch.kernels.prefix_stream import (_KIND, StreamSelection,
+                                                    body_limits,
+                                                    check_instance,
+                                                    coverage_lengths,
+                                                    launch_shape, row_values,
+                                                    stream_product_ref,
+                                                    tile_offsets)
 from effort_tpu_torch.ops.effort import effort_q16
 from effort_tpu_torch.ops.layouts import (BucketedMatrix, strided_sample,
                                           strided_sample_len)
@@ -35,12 +53,13 @@ _RATIO = 0.62
 _TAU = float(os.environ.get("EFFORT_TPU_TAU", "0.97"))
 _MAX_PROBES = 4096
 _MAX_CHUNKS = 1024
-_KIND = {torch.bfloat16: 0, torch.int8: 1, torch.uint8: 2}
 # enough blocks in flight for 132 SMs: at least two per SM
 _MIN_BLOCKS = 264
 
 LAUNCHES["mxu_matvec"] = 0
 LAUNCHES["mxu_matvec_batch"] = 0
+LAUNCHES["fused_matvec"] = 0
+_MAX_MASSES = 24576       # K * nc f64 masses in K4's selection block
 _TABLES: dict = {}
 # partial sums of the batched stream, [splits, T, width] f32, stay under
 # this many bytes (fewer, longer row splits past it)
@@ -85,20 +104,6 @@ def _vec_cutoff(scores, kq, m, tables):
     return cutoff
 
 
-def _weights_as_float(bm: BucketedMatrix, expert: int) -> torch.Tensor:
-    """Instance `expert` of vals as f32 [in_dim, OB], integer codes
-    undequantized (the scales ride in u)."""
-    nc, G = bm.n_chunks, bm.chunk_rows
-    blocks = bm.vals[expert * nc:(expert + 1) * nc]
-    if bm.vals_packed:
-        lo = (blocks & 15).to(torch.float32) - 8.0
-        hi = (blocks >> 4).to(torch.float32) - 8.0
-        w = torch.cat([lo, hi], dim=-1)[..., :bm.n_buckets]
-    else:
-        w = blocks.to(torch.float32)
-    return w.reshape(nc * G, bm.n_buckets)
-
-
 def _select_ref(bm: BucketedMatrix, vp: torch.Tensor, eff: torch.Tensor,
                 expert: int, tau: float):
     """The kernels' selection, batched over the leading axes of vp
@@ -121,11 +126,8 @@ def _select_ref(bm: BucketedMatrix, vp: torch.Tensor, eff: torch.Tensor,
     u = torch.where(sel, vp, torch.zeros_like(vp))
     if bm.scales is not None:
         u = u * bm.scales[expert, :, 0]
-    mass = torch.where(sel, x, torch.zeros_like(x)).to(torch.float64)
-    cum = torch.cumsum(mass.reshape(*x.shape[:-1], nc, G).sum(-1),
-                       -1).to(torch.float32)
-    tot = torch.amax(cum, dim=-1, keepdim=True)
-    C = torch.clamp((cum < tau * tot).sum(-1) + 1, max=nc).to(torch.int32)
+    mass = torch.where(sel, x, torch.zeros_like(x))
+    C = coverage_lengths(mass.reshape(*x.shape[:-1], nc, G), tau)
     return u.to(torch.bfloat16), C
 
 
@@ -135,7 +137,9 @@ def _prefix_product(bm: BucketedMatrix, u: torch.Tensor, C: torch.Tensor,
     rows = torch.arange(bm.in_dim, device=u.device) < C * bm.chunk_rows
     u_pre = torch.where(rows, u.to(torch.float32),
                         torch.zeros((), device=u.device))
-    return u_pre @ _weights_as_float(bm, expert)
+    first = expert * bm.in_dim
+    return u_pre @ row_values(bm, torch.arange(first, first + bm.in_dim,
+                                               device=u.device))
 
 
 def _need_row_prefix(bm: BucketedMatrix):
@@ -191,26 +195,12 @@ def mxu_matvec_batch_ref(bm: BucketedMatrix, V: torch.Tensor, efforts,
     return (y, C.reshape(1)) if return_len else y
 
 
-def _lib(name: str = "mxu_matvec"):
-    lib = _build.load(name)
-    if not getattr(lib, "_effort_typed", False):
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        if name == "mxu_matvec":
-            lib.effort_mxu_matvec.argtypes = [
-                p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, f, i, i,
-                p, p, p, p, p, i, p]
-            lib.effort_mxu_matvec.restype = i
-        else:
-            lib.effort_mxu_matvec_batch.argtypes = [
-                p, i, p, p, p, p, p, p, i, i, i, i, i, i, i, i, f, i, i,
-                p, p, p, p, p, p, i, p]
-            lib.effort_mxu_matvec_batch.restype = i
-            lib.effort_mxu_batch_slot_tile.argtypes = [i]
-            lib.effort_mxu_batch_slot_tile.restype = i
-        lib.effort_cuda_error_string.argtypes = [i]
-        lib.effort_cuda_error_string.restype = ctypes.c_char_p
-        lib._effort_typed = True
-    return lib
+def _batch_slot_tile(kind: int) -> int:
+    """Slots a block of K2's stream covers for a value kind (its C entry
+    effort_mxu_batch_slot_tile)."""
+    f = _build.load("mxu_matvec_batch").effort_mxu_batch_slot_tile
+    f.argtypes, f.restype = [ctypes.c_int], ctypes.c_int
+    return f(kind)
 
 
 def _rows_per_block(tiles: int, in_dim: int) -> int:
@@ -302,8 +292,8 @@ def mxu_matvec(bm: BucketedMatrix, v: torch.Tensor, effort,
     vals_ptr = bm.vals.data_ptr() + expert * in_dim * row_bytes
     scales_ptr = (bm.scales.data_ptr() + expert * in_dim * 4
                   if bm.scales is not None else None)
-    lib = _lib()
-    err = lib.effort_mxu_matvec(
+    _build.kernel_fn("mxu_matvec", "effort_mxu_matvec",
+                     "pppppppiiiiiiiifiipppppip")(
         vp.data_ptr(), bm.probes.data_ptr() + expert * P * 4,
         bm.stats.data_ptr() + expert * in_dim * 4, scales_ptr,
         eq.data_ptr(), tables.data_ptr(), vals_ptr,
@@ -312,9 +302,6 @@ def mxu_matvec(bm: BucketedMatrix, v: torch.Tensor, effort,
         u.data_ptr(), c_len.data_ptr(), cutoff.data_ptr(),
         partial.data_ptr(), y.data_ptr(), dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        raise RuntimeError("mxu_matvec launch failed: "
-                           + lib.effort_cuda_error_string(err).decode())
     LAUNCHES["mxu_matvec"] += 1
     return (y, c_len) if return_len else y
 
@@ -365,8 +352,7 @@ def mxu_matvec_batch(bm: BucketedMatrix, V: torch.Tensor, efforts,
     row_bytes = bm.vals.shape[2] * bm.vals.element_size()
     width = bm.vals.shape[2] * (2 if bm.vals_packed else 1)
     kind = _KIND[bm.vals.dtype]
-    lib = _lib("mxu_matvec_batch")
-    ts = lib.effort_mxu_batch_slot_tile(kind)
+    ts = _batch_slot_tile(kind)
     rb = _batch_rows_per_block(-(-T // ts) * -(-row_bytes // 2048), in_dim,
                                T, width)
 
@@ -380,7 +366,8 @@ def mxu_matvec_batch(bm: BucketedMatrix, V: torch.Tensor, efforts,
     vals_ptr = bm.vals.data_ptr() + expert * in_dim * row_bytes
     scales_ptr = (bm.scales.data_ptr() + expert * in_dim * 4
                   if bm.scales is not None else None)
-    err = lib.effort_mxu_matvec_batch(
+    _build.kernel_fn("mxu_matvec_batch", "effort_mxu_matvec_batch",
+                     "pippppppiiiiiiiifiippppppip")(
         Vp.data_ptr(), T, bm.probes.data_ptr() + expert * P * 4,
         bm.stats.data_ptr() + expert * in_dim * 4, scales_ptr,
         eff.data_ptr(), tables.data_ptr(), vals_ptr, kind, in_dim,
@@ -388,8 +375,151 @@ def mxu_matvec_batch(bm: BucketedMatrix, V: torch.Tensor, efforts,
         u.data_ptr(), c_slot.data_ptr(), cutoff.data_ptr(),
         c_len.data_ptr(), partial.data_ptr(), y.data_ptr(), dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        raise RuntimeError("mxu_matvec_batch launch failed: "
-                           + lib.effort_cuda_error_string(err).decode())
     LAUNCHES["mxu_matvec_batch"] += 1
     return (y, c_len) if return_len else y
+
+
+# ---- K4: the rank-prefix matvec (bucket_size >= 2) -------------------------
+
+def _select_ranks_ref(bm: BucketedMatrix, vp: torch.Tensor,
+                      eff: torch.Tensor, expert: int, tau: float):
+    """K4's selection: (u [K, in] f32, C [K] int32) with K1's cutoff search
+    and table, n_i = #{k: stats[i, k] |v_i| > cutoff}, u[k, i] = v_i [k <
+    n_i] scale[i, k], and C_k from rank k's selected masses (f64 sums)."""
+    K, G, nc = bm.n_ranks, bm.chunk_rows, bm.n_chunks
+    dev = vp.device
+    vs = strided_sample(vp, bm.in_dim, bm.probes.shape[1])
+    P = vs.shape[-1]
+    scores = torch.abs(vs * bm.probes[expert].to(torch.float32))
+    kq = torch.clamp(torch.round(P * eff), 1.0, float(P))
+    m = torch.amax(scores) + 1e-30
+    cutoff = _vec_cutoff(scores, kq, m, thresh_tables(dev))
+    x = bm.stats[expert] * torch.abs(vp)[:, None]            # [in, K]
+    n = (x > cutoff).sum(dim=1)
+    sel = torch.arange(K, device=dev)[None, :] < n[:, None]
+    zero = torch.zeros((), device=dev)
+    u = torch.where(sel, vp[:, None], zero)
+    if bm.scales is not None:
+        u = u * bm.scales[expert]
+    C = coverage_lengths(torch.where(sel, x, zero).T.reshape(K, nc, G), tau)
+    return u.T.contiguous(), C
+
+
+def fused_matvec_ref(bm: BucketedMatrix, v: torch.Tensor, effort,
+                     expert: int = 0, tile_blocks: int = 8,
+                     tau: float = None, return_selection: bool = False):
+    """Plain PyTorch version of K4: its selection (_select_ranks_ref) at the
+    16.16 effort, then the stream's function (prefix_stream.
+    stream_product_ref). Returns y [OB*B] f32, or (y, C [K] int32, the
+    selection as a StreamSelection)."""
+    tau = _TAU if tau is None else tau
+    K, nc = bm.n_ranks, bm.n_chunks
+    vp = bm.permute_v(v, expert).to(torch.float32)
+    eff = effort_q16(effort, vp.device).to(torch.float32)[0] \
+        * (1.0 / 65536.0)
+    u, C = _select_ranks_ref(bm, vp, eff, expert, tau)
+    base = (expert * K + torch.arange(K, dtype=torch.int32,
+                                      device=vp.device)) * nc
+    cum = tile_offsets(C, tile_blocks)
+    y = stream_product_ref(bm, u, cum, base, tile_blocks)
+    if return_selection:
+        return y, C, StreamSelection(cum, base,
+                                     u.reshape(K, nc, bm.chunk_rows))
+    return y
+
+
+def fused_limits(bm: BucketedMatrix, tile_blocks: int) -> Optional[str]:
+    """Why K4 cannot take this container, or None: the stream's limits
+    (prefix_stream.body_limits) and those of its one-block selection."""
+    E, K, nc = bm.n_experts, bm.n_ranks, bm.n_chunks
+    why = body_limits(bm, tile_blocks * bm.chunk_rows)
+    if why:
+        return why
+    if nc % tile_blocks:
+        return f"{nc} chunks not a multiple of {tile_blocks}"
+    P = strided_sample_len(bm.in_dim, bm.probes.shape[1])
+    if not 1 <= P <= _MAX_PROBES or tuple(bm.probes.shape) != (E, P) \
+            or K * nc > _MAX_MASSES:
+        return (f"probes {tuple(bm.probes.shape)} / {K} ranks of {nc} "
+                f"chunks outside the selection's limits")
+    for name in ("stats", "scales", "probes"):
+        t = getattr(bm, name)
+        if t is None:
+            if name == "scales" and bm.vals.dtype == torch.bfloat16:
+                continue
+            return f"{name} missing"
+        if t.dtype != torch.float32 or not t.is_contiguous() or (
+                name != "probes" and tuple(t.shape) != (E, bm.in_dim, K)):
+            return f"{name}: want contiguous f32 [{E}, {bm.in_dim}, {K}]"
+    if bm.scales is not None and bm.vals.dtype == torch.bfloat16:
+        return "bf16 values take no scales"
+    return None
+
+
+def supports_fused(bm: BucketedMatrix, tile_blocks: int = 8) -> bool:
+    """Whether K4 takes this rank-prefix container (its real limits, where
+    the JAX package's check is Mosaic's 128-lane rule)."""
+    return bm.bucket_size >= 2 and fused_limits(bm, tile_blocks) is None
+
+
+def fused_matvec(bm: BucketedMatrix, v: torch.Tensor, effort,
+                 expert: int = 0, tile_blocks: int = 8, tau: float = None,
+                 return_selection: bool = False):
+    """Effort matvec with the selection in the kernel: y [OB*B] f32.
+    bucket_size == 1 goes to mxu_matvec (K1), as in the JAX package.
+
+    effort: a float, an f32 tensor or a 16.16 int32 tensor (effort_q16),
+    read by the kernel at run time. return_selection returns (y, C, sel):
+    C [K] int32, each rank's coverage length in chunks, and the selection
+    (cum_tiles, base_blocks, u) as a prefix_stream.StreamSelection, which
+    K5 takes; all on the device.
+
+    CPU tensors run the plain version (fused_matvec_ref); CUDA tensors
+    launch the kernel, on the current stream without synchronising, or
+    raise."""
+    if bm.bucket_size == 1:
+        return mxu_matvec(bm, v, effort, expert, tau)
+    if not v.is_cuda:
+        return fused_matvec_ref(bm, v, effort, expert, tile_blocks, tau,
+                                return_selection)
+    tau = _TAU if tau is None else tau
+    why = fused_limits(bm, tile_blocks)
+    if why:
+        raise ValueError(why)
+    check_instance(bm, expert, v, bm.stats, bm.probes)
+    dev = v.device
+    vp = bm.permute_v(v, expert).to(torch.float32).contiguous()
+    if vp.shape != (bm.in_dim,):
+        raise ValueError(f"v {tuple(v.shape)} vs in_dim {bm.in_dim}")
+    eq = effort_q16(effort, dev)
+    if eq.device != dev:
+        raise ValueError(f"effort on {eq.device}, v on {dev}")
+    K, G, nc, in_dim = bm.n_ranks, bm.chunk_rows, bm.n_chunks, bm.in_dim
+    P = bm.probes.shape[1]
+    prow = bm.pos.shape[2]
+    vrow = bm.vals.shape[2] * bm.vals.element_size()
+    threads, col_blocks, splits = launch_shape(bm, K * nc // tile_blocks,
+                                               prow)
+    u = torch.empty((K, nc, G), dtype=torch.float32, device=dev)
+    C = torch.empty(K, dtype=torch.int32, device=dev)
+    cum = torch.empty(K + 1, dtype=torch.int32, device=dev)
+    base = torch.empty(K, dtype=torch.int32, device=dev)
+    cutoff = torch.empty(1, dtype=torch.float32, device=dev)
+    partial = torch.empty((splits, bm.out_dim), dtype=torch.float32,
+                          device=dev)
+    y = torch.empty(bm.out_dim, dtype=torch.float32, device=dev)
+    row = expert * in_dim * K * 4
+    _build.kernel_fn("fused_matvec", "effort_fused_matvec",
+                     "pppppppiipiiiiiiiiiifippppppiiipip")(
+        vp.data_ptr(), bm.probes.data_ptr() + expert * P * 4,
+        bm.stats.data_ptr() + row,
+        bm.scales.data_ptr() + row if bm.scales is not None else None,
+        eq.data_ptr(), thresh_tables(dev).data_ptr(), bm.vals.data_ptr(),
+        _KIND[bm.vals.dtype], vrow, bm.pos.data_ptr(), prow, vrow,
+        bm.bucket_size, G, nc, K, tile_blocks, bm.n_buckets, P,
+        max(1, -(-in_dim // P)), float(tau), expert, u.data_ptr(),
+        C.data_ptr(), cum.data_ptr(), base.data_ptr(), cutoff.data_ptr(),
+        partial.data_ptr(), splits, col_blocks, threads, y.data_ptr(),
+        dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    LAUNCHES["fused_matvec"] += 1
+    return (y, C, StreamSelection(cum, base, u)) if return_selection else y

@@ -5,8 +5,10 @@ The decode loop runs on the device end to end: the token ids, the
 predictions and the end-of-sequence flag live in device tensors, and
 nothing is read back until the loop ends, so the host never waits for the
 card inside it. Effort is converted once per call into the kernels' 16.16
-fixed-point device tensor for the decode steps (K1), and into an f32
-device tensor for the prefill pass (K2 takes f32 efforts, as on the TPU).
+fixed-point device tensor for the decode steps (K1, or K4 and K5 on a
+rank-prefix model), and into an f32 device tensor for the prefill pass (K2
+takes f32 efforts, as on the TPU); the gather route (K6) takes the python
+float, from which it sizes its block list.
 
 Sampling, presence/frequency penalties, logprobs and speculative decode
 are not ported yet: Engine.generate raises NotImplementedError when asked
@@ -108,8 +110,9 @@ class Engine:
     """Holds the weights and runs greedy generation on one device.
 
     impl: "auto" (dense copy at effort >= 0.999 when present, the kernel
-    otherwise), "kernel", "plain", "reference" or "dense"
-    (ops/bucketmul.py). prefill=True runs the prompt through forward_seq
+    otherwise), "kernel", "plain", "reference" or "dense", and on a
+    rank-prefix model "stream" (K5) or "gather" (K6) (ops/bucketmul.py).
+    prefill=True runs the prompt through forward_seq
     in one pass (projections routed by prefill_impl; attention by K3 on
     the card, by materialized scores on the CPU) before the decode
     steps.
@@ -135,8 +138,9 @@ class Engine:
 
     def _effort_arg(self, effort: float):
         """For the decode steps: a python float where the dense fast path
-        may take it, else the 16.16 device tensor, made once per call."""
-        if self._dense(effort, self.impl):
+        may take it, or the gather route, which sizes its block list from
+        it; else the 16.16 device tensor, made once per call."""
+        if self._dense(effort, self.impl) or self.impl == "gather":
             return float(effort)
         return effort_q16(float(effort), self.device)
 

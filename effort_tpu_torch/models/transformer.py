@@ -1,11 +1,14 @@
 """Transformer forward passes (Mistral family) with the effort knob, and
 random-weight synthesis.
 
-  - forward_token: one decode step of one sequence (K1 per projection).
+  - forward_token: one decode step of one sequence (K1 per projection; on
+    a rank-prefix model K4, or K5 / K6 by impl).
   - forward_seq: prefill, T tokens of one sequence in one pass (K2 per
-    projection, K3 for attention).
+    projection, K3 for attention; a rank-prefix model's projections take
+    the per-row reference semantics, as the JAX package's take "jnp").
   - forward_token_batch: one decode step of B slots, each with its own
-    position, left-pad offset and effort (K2 per projection).
+    position, left-pad offset and effort (K2 per projection, or the
+    reference on a rank-prefix model).
 
   - Bucketized projection weights of all layers are packed into single
     BucketedMatrix containers (instance axis = layer); the kernel indexes an

@@ -389,3 +389,63 @@ def make_batch_server(weights, cfg, tokenizer=None, batch_size: int = 4,
                  device=be.device)  # eval (tokids) path
     return EffortServer(eng, tokenizer=tokenizer,
                         batcher=ContinuousBatcher(be), **kw)
+
+
+def parse_args(argv=None):
+    import argparse
+    p = argparse.ArgumentParser(description="effort-tpu HTTP server on the "
+                                            "PyTorch port")
+    p.add_argument("--port", type=int, default=8089)
+    p.add_argument("--ckpt")
+    p.add_argument("--tokenizer")
+    p.add_argument("--synthetic", action="store_true",
+                   help="a random tiny model (the default without --ckpt)")
+    p.add_argument("--batch", type=int, default=0,
+                   help="continuous-batching slots (0 = single-flight)")
+    p.add_argument("--kv-dtype", default="bf16", choices=["bf16", "int8"],
+                   help="batch KV cache dtype (int8 = half the memory)")
+    p.add_argument("--spec-k", type=int, default=0,
+                   help="speculative batching: drafted tokens per slot "
+                        "per step (0 = off)")
+    p.add_argument("--device", default=None,
+                   help="torch device (default: the card)")
+    return p.parse_args(argv)
+
+
+def build_server(args) -> EffortServer:
+    """The server main() runs, from its parsed arguments: the synthetic
+    tiny model with BucketConfig(bucket_size=4, chunk_rows=8), as the JAX
+    package's, single-flight or with --batch slots. Options whose modules
+    are not ported raise NotImplementedError naming the ROADMAP item that
+    ports them."""
+    if args.ckpt or args.tokenizer:
+        raise NotImplementedError(
+            "--ckpt/--tokenizer: the checkpoint loader and tokenizer are not "
+            "ported yet (ROADMAP.md, modules to port, item 5: checkpoints)")
+    if args.kv_dtype != "bf16" or args.spec_k:
+        raise NotImplementedError(
+            "--kv-dtype int8/--spec-k: the int8 KV cache and speculative "
+            "decode are not ported yet (ROADMAP.md, modules to port, item "
+            "2: batched decode and serving)")
+    from effort_tpu_torch.config import BucketConfig, tiny_test_model
+    from effort_tpu_torch.models.generate import Engine
+    from effort_tpu_torch.models.transformer import init_random_weights
+    cfg = tiny_test_model()
+    w = init_random_weights(cfg, BucketConfig(bucket_size=4, chunk_rows=8),
+                            device=args.device)
+    if args.batch > 0:
+        return make_batch_server(w, cfg, batch_size=args.batch,
+                                 port=args.port, device=args.device)
+    return EffortServer(Engine(w, cfg, device=args.device), port=args.port)
+
+
+def main(argv=None):
+    srv = build_server(parse_args(argv))
+    print(f"effort-tpu server on :{srv.port}"
+          + (f" (continuous batching x{srv.batcher.eng.B})"
+             if srv.batcher is not None else ""))
+    asyncio.run(srv.serve_forever())
+
+
+if __name__ == "__main__":
+    main()

@@ -133,7 +133,9 @@ import effort_tpu_torch
 for m in pkgutil.walk_packages(effort_tpu_torch.__path__, "effort_tpu_torch."):
     importlib.import_module(m.name)
 for name in ("kernels.fused_stream", "kernels.flash_attention",
-             "models.generate", "serving.batcher", "serving.server"):
+             "kernels.prefix_stream", "kernels.gather_dma",
+             "kernels.gather_mul", "models.generate", "serving.batcher",
+             "serving.server"):
     importlib.import_module("effort_tpu_torch." + name)
 spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1])
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
@@ -147,8 +149,9 @@ print(len([m for m in sys.modules if m.startswith("effort_tpu_torch")]))
 
 def test_port_imports_no_jax():
     """Importing the port (every submodule, the kernels, the prefill and
-    serving modules by name) and chip_smoke.py leaves jax and every
-    effort_tpu module out of sys.modules."""
+    serving modules by name, the rank-prefix and gather kernels too) and
+    chip_smoke.py leaves jax and every effort_tpu module out of
+    sys.modules."""
     r = subprocess.run(
         [sys.executable, "-c", _ISOLATION,
          os.path.join(REPO, "chip_smoke.py")],

@@ -245,3 +245,165 @@ def test_cuda_timers():
         return run
     args = [(v,) for v in timing.fresh_vectors((8, 2048), 8)]
     assert timing.chain_time(make_chain, 4, 16, args) > 0
+
+
+def _rank_container(dtype, seed, in_dim=1024, out_dim=2048, B=4, G=16,
+                    percent_load=1.0):
+    """A rank-prefix container on the card with a calibrated row order,
+    and a matching input (rows scaled by their rms)."""
+    from effort_tpu_torch.ops.bucketize import calib_row_order
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    rms = torch.exp(torch.randn(in_dim, generator=g, device="cuda") * 1.2)
+    pi = calib_row_order(rms)
+    wt = torch.randn((in_dim, out_dim), generator=g, device="cuda") * 0.02
+    bm = bucketize(wt, BucketConfig(bucket_size=B, chunk_rows=G, dtype=dtype,
+                                    percent_load=percent_load), in_perm=pi)
+    v = rms[pi.long()] * torch.randn(in_dim, generator=g, device="cuda")
+    return bm, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bf16", "int8", "int4"])
+def test_rank_prefix_stream_cuda_kernels_match_plain(dtype):
+    """K4 and K5 against their plain versions on the card (B = 4, G = 16;
+    B = 2 and 8; K < B; G = 8, 24 and 64 once each): equal C_k per rank and
+    the same y bit for bit (the plain versions add in the kernels' order,
+    each sum rounded on its own); K5 on K4's own selection gives K4's
+    y."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from effort_tpu_torch.kernels import prefix_stream as ps
+    before = dict(LAUNCHES)
+    n = 0
+    for B, pl, G, in_dim in ((4, 1.0, 16, 1024), (2, 1.0, 16, 1024),
+                             (8, 1.0, 16, 1024), (4, 0.5, 16, 1024),
+                             (4, 1.0, 8, 1024), (4, 1.0, 24, 1536),
+                             (4, 1.0, 64, 1024)):
+        bm, v = _rank_container(dtype, B + G, in_dim=in_dim, B=B, G=G,
+                                percent_load=pl)
+        for e in (0.1, 0.5, 1.0):
+            for tau in (0.97, 1.0):
+                y, C, sel = port_fs.fused_matvec(bm, v, e, 0, tau=tau,
+                                                 return_selection=True)
+                yr, Cr, _ = port_fs.fused_matvec_ref(
+                    bm, v, e, 0, tau=tau, return_selection=True)
+                y5 = ps.stream_matvec(bm, sel, 8)
+                y5r = ps.stream_matvec_ref(bm, sel, 8)
+                torch.cuda.synchronize()
+                assert C.tolist() == Cr.tolist(), (B, pl, G, e, tau)
+                torch.testing.assert_close(y, yr, rtol=0, atol=0)
+                torch.testing.assert_close(y5, y5r, rtol=0, atol=0)
+                torch.testing.assert_close(y5, y, rtol=0, atol=0)
+                n += 1
+    assert LAUNCHES["fused_matvec"] - before["fused_matvec"] == n
+    assert LAUNCHES["stream_matvec"] - before["stream_matvec"] == n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bf16", "int8"])
+def test_block_gather_cuda_kernels_match_plain(dtype):
+    """K6 and K7 against their plain versions on the card, at a capacity
+    that holds every needed block and at one that drops some: the same y
+    bit for bit, and K6 and K7 agree exactly."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from effort_tpu_torch.kernels import gather_dma, gather_mul
+    from effort_tpu_torch.ops.effort import select_blocks
+    bm, v = _rank_container(dtype, 7)
+    pos = gather_mul.unpacked_positions(bm)
+    before = dict(LAUNCHES)
+    for e, cap in ((0.1, 64), (0.5, 256), (0.5, 48), (1.0, 256)):
+        sel = select_blocks(bm, v, e, 0, cap)
+        y6 = gather_dma.gather_matvec_dma(bm, sel)
+        y7 = gather_mul.gather_bucket_matvec(bm, sel, pos)
+        y6r = gather_dma.gather_matvec_dma_ref(bm, sel)
+        y7r = gather_mul.gather_bucket_matvec_ref(bm, sel, pos)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(y6, y6r, rtol=0, atol=0)
+        torch.testing.assert_close(y7, y7r, rtol=0, atol=0)
+        torch.testing.assert_close(y7, y6, rtol=0, atol=0)
+    assert LAUNCHES["gather_matvec_dma"] - before["gather_matvec_dma"] == 4
+    assert LAUNCHES["gather_bucket_matvec"] - \
+        before["gather_bucket_matvec"] == 4
+
+
+@pytest.mark.cuda
+def test_rank_prefix_wrappers_raise_on_what_they_do_not_take():
+    """On CUDA tensors K4-K7 launch or raise: a row-prefix container (K5-K7;
+    K4 hands it to K1), an input of the wrong width, int4 values (K6, K7)
+    and weights on another device are refused before any launch, and
+    nothing is counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from effort_tpu_torch.kernels import gather_dma, gather_mul
+    from effort_tpu_torch.kernels import prefix_stream as ps
+    from effort_tpu_torch.ops.effort import select_blocks
+    bm, v = _rank_container("int8", 3, in_dim=512, out_dim=512)
+    bm4, _ = _rank_container("int4", 3, in_dim=512, out_dim=512)
+    wt = torch.randn((512, 512), device="cuda") * 0.02
+    bm1 = bucketize(wt, BucketConfig(bucket_size=1, chunk_rows=128,
+                                     dtype="int8"))
+    sel = ps.select_stream(bm, v, 0.5, 0)
+    blocks = select_blocks(bm, v, 0.5, 0, 64)
+    blocks4 = select_blocks(bm4, v, 0.5, 0, 64)
+    sel_cpu = ps.StreamSelection(*(t.cpu() for t in sel))
+    before = dict(LAUNCHES)
+    with pytest.raises(ValueError):
+        port_fs.fused_matvec(bm, torch.randn(256, device="cuda"), 0.5)
+    with pytest.raises(ValueError):
+        port_fs.fused_matvec(bm.to("cpu"), v, 0.5)
+    for call in (lambda: ps.stream_matvec(bm1, sel),
+                 lambda: ps.stream_matvec(bm.to("cpu"), sel),
+                 lambda: ps.stream_matvec(bm, ps.StreamSelection(
+                     sel.cum_tiles, sel.base_blocks, sel.u_scaled[:, :4])),
+                 lambda: gather_dma.gather_matvec_dma(bm4, blocks4),
+                 lambda: gather_mul.gather_bucket_matvec(bm4, blocks4),
+                 lambda: gather_dma.gather_matvec_dma(bm1, blocks),
+                 lambda: gather_dma.gather_matvec_dma(bm.to("cpu"), blocks)):
+        with pytest.raises(ValueError):
+            call()
+    assert LAUNCHES == before
+    # the CPU selection runs the plain version and counts nothing
+    ps.stream_matvec(bm.to("cpu"), sel_cpu)
+    assert LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_rank_prefix_engine_routes_on_the_card():
+    """A small rank-prefix model decodes on the card through "auto" (K4
+    only: 4 launches a layer a step with fused projections), "stream" (K5
+    only) and "gather" (K6 only); the kernel route matches the plain route
+    at tau = 1 (logits cos >= 0.999)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import dataclasses
+    from effort_tpu_torch.config import tiny_test_model
+    from effort_tpu_torch.models import transformer as tf
+    from effort_tpu_torch.models.generate import Engine
+    cfg = dataclasses.replace(tiny_test_model(), dim=512, hidden_dim=1024)
+    w = tf.init_random_weights(cfg, BucketConfig(bucket_size=4, chunk_rows=16,
+                                                 dtype="int8"),
+                               calibrate=True, fuse=True, device="cuda")
+    prompt = [1, 5, 9, 13]
+    for impl, name in (("auto", "fused_matvec"), ("stream", "stream_matvec"),
+                       ("gather", "gather_matvec_dma")):
+        eng = Engine(w, cfg, impl=impl, pad_to=8, eos_id=-1)
+        before = dict(LAUNCHES)
+        rep = eng.generate(prompt, n_new=4, effort=0.5)
+        torch.cuda.synchronize()
+        assert len(rep.token_ids) == 4
+        got = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+        steps = 8 + 4 - 1
+        assert got[name] == 4 * cfg.n_layers * steps, (impl, got)
+        assert sum(got.values()) == got[name], (impl, got)
+    saved = port_fs._TAU
+    port_fs._TAU = 1.0
+    try:
+        out = {impl: Engine(w, cfg, impl=impl, pad_to=8).position_logits(
+            prompt, effort=0.5) for impl in ("kernel", "plain")}
+    finally:
+        port_fs._TAU = saved
+    for a, b in zip(out["kernel"], out["plain"]):
+        c = a @ b / ((a @ a) ** 0.5 * (b @ b) ** 0.5)
+        assert c >= 0.999
