@@ -14,11 +14,14 @@ Phases, one JSON line each (a failure raises and exits non-zero):
   kernels_batch
             K2 (mxu_matvec_batch, csrc/mxu_matvec_batch.cu) likewise at
             the four shapes x {bf16, int8, int4} x T in {4, 64} slots x
-            tau {0.97, 1.0}, per-slot efforts 0.1/0.25/0.5/1.0 repeated
-            with the last slot at 0: equal C, cos >= 0.9999 per slot,
-            max|dy| <= 1e-2 max|y_ref|; times beside the bound (bytes, or
-            bf16 operations where they weigh more) and a dense bf16
-            torch.mm [T, in] @ [in, out]
+            tau {0.97, 1.0}, and int8 at tau 0.97 with T in {16, 256}
+            (where the bound turns from bytes to operations), per-slot
+            efforts 0.1/0.25/0.5/1.0 repeated with the last slot at 0:
+            equal C, cos >= 0.9999 per slot, max|dy| <= 1e-2 max|y_ref|;
+            times beside the bound (bytes, or bf16 operations where they
+            weigh more) and a dense bf16 torch.mm [T, in] @ [in, out];
+            at int8, tau 0.97 the device time of one call by kernel
+            (selection, stream, split sum)
   attention K3 (flash_attention, csrc/flash_attention.cu) against its plain
             version at Mistral-7B's heads (32 query, 8 KV, 128 wide) over
             a 512-slot cache: left-padded prompts of 32 and 64 queries, 64
@@ -139,7 +142,11 @@ PLAIN_RUNS = 3                     # K4-K7's plain versions, timed only
 # the teacher phase's printed depth-32 witness runs over the first steps
 # only (a 5-token prompt and 8 reply tokens), to keep the run's time
 DEEP_TEACHER_STEPS = 13
-BATCH_TS = (4, 64)                 # batched decode slots, prefill tokens
+# K2's points: (T, value kinds, taus); T = 4 batched decode slots, 64
+# prefill tokens, 16 and 256 either side of where the bound turns from
+# bytes to operations
+BATCH_CASES = ((4, DTYPES, TAUS), (64, DTYPES, TAUS), (16, ("int8",), (0.97,)),
+               (256, ("int8",), (0.97,)))
 ATTN_CASES = (
     dict(name="prefill32", T=32, start_slot=0, mask_from=27, window=0),
     dict(name="prefill64", T=64, start_slot=0, mask_from=47, window=0),
@@ -149,9 +156,12 @@ ATTN_CASES = (
 # the summary line's times: one layer's four launches of the generate
 # phase's layout (int8) at effort 0.25 and the default tau
 SUMMARY = ("int8", 0.25, 0.97)
-# K2's: one prefill layer's four launches (int8, T = 64, default tau); K3's:
-# one prefill call at T = 64
+# K2's: one prefill layer's four launches (int8, T = 64, default tau), and
+# beside it one batched decode step's (T = 4, the "_t4" keys); K3's: one
+# prefill call at T = 64
 SUMMARY_BATCH = ("int8", 64, 0.97)
+SUMMARY_BATCH_T4 = ("int8", 4, 0.97)
+PROFILE_CALLS = 5
 SUMMARY_ATTN = "prefill64"
 # rank-prefix buckets of the K4-K7 points and the rank_decode model
 RANK_BUCKETS = dict(bucket_size=4, chunk_rows=16)
@@ -302,9 +312,8 @@ def rows_agree(y: torch.Tensor, yr: torch.Tensor) -> float:
 
 
 def phase_kernels_batch(flush: torch.Tensor) -> list:
-    """K2 against its plain version: the four fused projections x {bf16,
-    int8, int4} x T in {4 (batched decode), 64 (prefill)} x tau {0.97, 1},
-    with mixed per-slot efforts."""
+    """K2 against its plain version at BATCH_CASES over the four fused
+    projections, with mixed per-slot efforts."""
     g = torch.Generator(device="cuda")
     g.manual_seed(4321)
     points = []
@@ -313,20 +322,23 @@ def phase_kernels_batch(flush: torch.Tensor) -> list:
         pi = calib_row_order(rms)
         wt = torch.randn((i, o), generator=g, device="cuda") * 0.02
         dense = wt[pi.long()].to(torch.bfloat16)
+        Ts = [case[0] for case in BATCH_CASES]
         Vs = {T: [rms[pi.long()] * torch.randn((T, i), generator=g,
                                                device="cuda")
-                  for _ in range(RUNS)] for T in BATCH_TS}
+                  for _ in range(RUNS)] for T in Ts}
         lib_ms = {T: median([gpu_ms(lambda a: torch.mm(a, dense),
                                     (V.to(torch.bfloat16),), flush)
-                             for V in Vs[T]]) for T in BATCH_TS}
+                             for V in Vs[T]]) for T in Ts}
         del dense
         for dtype in DTYPES:
             bc = BucketConfig(bucket_size=1, chunk_rows=128, dtype=dtype)
             bc = dataclasses.replace(bc, chunk_rows=pick_chunk_rows(bc, i, o))
             bm = bucketize(wt, bc, in_perm=pi)
-            for T in BATCH_TS:
+            for T, dtypes, taus in BATCH_CASES:
+                if dtype not in dtypes:
+                    continue
                 eff = batch_efforts(T)
-                for tau in TAUS:
+                for tau in taus:
                     V = Vs[T][0]
                     y, C = fused_stream.mxu_matvec_batch(
                         bm, V, eff, 0, tau=tau, return_len=True)
@@ -361,6 +373,17 @@ def phase_kernels_batch(flush: torch.Tensor) -> list:
                     p["bound_by"] = ("bytes" if bytes_ms >= flops_ms
                                      else "operations")
                     p["library_ms"] = lib_ms[T]
+                    if (dtype, tau) == (SUMMARY_BATCH[0], SUMMARY_BATCH[2]):
+                        # where a call's device time goes (selection,
+                        # stream, split sum): the mean over PROFILE_CALLS
+                        # calls, as one short call's trace can come back
+                        # empty
+                        prof = device_profile(lambda: [
+                            fused_stream.mxu_matvec_batch(bm, v, eff, 0,
+                                                          tau=tau)
+                            for v in Vs[T][:PROFILE_CALLS]])["kernel_ms"]
+                        p["parts_ms"] = {k: ms / PROFILE_CALLS
+                                         for k, ms in prof.items()}
                     points.append(p)
                     emit({"phase": "kernels_batch", **p})
             del bm
@@ -511,7 +534,7 @@ KERNEL_PARTS = {"k1_select": "namespace)::select_kernel",
                 "k1_stream": "namespace)::stream_kernel",
                 "k1_reduce": "namespace)::reduce_kernel",
                 "k2_select": "namespace)::select_batch_kernel",
-                "k2_stream": "namespace)::stream_batch_kernel",
+                "k2_stream": "namespace)::mma_stream_kernel",
                 "k2_reduce": "namespace)::reduce_batch_kernel",
                 "k3": "namespace)::flash_kernel",
                 "k4_select": "namespace)::fused_select_kernel",
@@ -1361,6 +1384,28 @@ def summary_row(name: str, source: str, replaces: str, points: list,
             "library_ms": sum(p["library_ms"] for p in rows)}
 
 
+def k2_row(points: list, launches: int) -> dict:
+    """K2's entry: the T = 64 summary, and the T = 4 one under "_t4"
+    keys."""
+    row = summary_row(
+        "mxu_matvec_batch", "effort_tpu_torch/csrc/mxu_matvec_batch.cu",
+        "effort_tpu/kernels/fused_stream.py:391", points, launches,
+        lambda p: (p["dtype"], p["T"], p["tau"]) == SUMMARY_BATCH)
+    t4 = summary_row(
+        "", "", "", points, 0,
+        lambda p: (p["dtype"], p["T"], p["tau"]) == SUMMARY_BATCH_T4)
+    row.update({f"{k}_t4": t4[k] for k in ("ms", "plain_ms", "bound_ms",
+                                            "bound_by", "library_ms")})
+    for key, T in (("parts_ms", SUMMARY_BATCH[1]),
+                   ("parts_ms_t4", SUMMARY_BATCH_T4[1])):
+        parts = [p["parts_ms"] for p in points
+                 if (p["dtype"], p["T"], p["tau"]) == (SUMMARY_BATCH[0], T,
+                                                       SUMMARY_BATCH[2])]
+        row[key] = {k: sum(q.get(k, 0.0) for q in parts)
+                    for k in ("k2_select", "k2_stream", "k2_reduce")}
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this "
@@ -1423,12 +1468,9 @@ def main() -> int:
             sum(r["launches"]["mxu_matvec"]
                 for r in out["generate"] + out["prefill"]),
             lambda p: (p["dtype"], p["effort"], p["tau"]) == SUMMARY),
-        summary_row(
-            "mxu_matvec_batch", "effort_tpu_torch/csrc/mxu_matvec_batch.cu",
-            "effort_tpu/kernels/fused_stream.py:391", out["points_batch"],
-            sum(r["launches"]["mxu_matvec_batch"]
-                for r in out["prefill"] + out["serve"]),
-            lambda p: (p["dtype"], p["T"], p["tau"]) == SUMMARY_BATCH),
+        k2_row(out["points_batch"],
+               sum(r["launches"]["mxu_matvec_batch"]
+                   for r in out["prefill"] + out["serve"])),
         summary_row(
             "flash_attention", "effort_tpu_torch/csrc/flash_attention.cu",
             "effort_tpu/kernels/flash_attention.py:36", out["attention"],

@@ -14,7 +14,9 @@ versions.
   - mxu_matvec_batch (K2) replaces fused_stream.py:mxu_matvec_batch ->
     _kernel_mxu_batch, in csrc/mxu_matvec_batch.cu: the same for T slots
     (prefill tokens or batched decode slots), each with its own f32 effort
-    and selection; the streamed prefix is the longest slot's.
+    and selection; the streamed prefix is the longest slot's, and its
+    product runs on the tensor cores (wgmma, bf16 in, f32 out) with the
+    launch shape from k2_plan.
   - fused_matvec (K4) replaces fused_stream.py:fused_matvec -> _kernel, in
     csrc/fused_matvec.cu (+ csrc/rank_prefix.cuh): one block selects (K1's
     cutoff search on the 16.16 effort, rank counts, u in f32, each rank's
@@ -29,7 +31,7 @@ from __future__ import annotations
 
 import ctypes
 import os
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -61,9 +63,11 @@ LAUNCHES["mxu_matvec_batch"] = 0
 LAUNCHES["fused_matvec"] = 0
 _MAX_MASSES = 24576       # K * nc f64 masses in K4's selection block
 _TABLES: dict = {}
-# partial sums of the batched stream, [splits, T, width] f32, stay under
-# this many bytes (fewer, longer row splits past it)
-_MAX_PARTIAL_BYTES = 32 * 2**20
+# K2's stream (csrc/mxu_matvec_batch.cu): row bytes of a block's 256
+# output columns by value kind, and rows of a ring stage
+_K2_BLOCK_BYTES = {0: 512, 1: 256, 2: 128}
+_K2_TILE_ROWS = 64
+_K2_PER_SM: dict = {}
 
 
 def thresh_tables(device) -> torch.Tensor:
@@ -195,12 +199,71 @@ def mxu_matvec_batch_ref(bm: BucketedMatrix, V: torch.Tensor, efforts,
     return (y, C.reshape(1)) if return_len else y
 
 
-def _batch_slot_tile(kind: int) -> int:
-    """Slots a block of K2's stream covers for a value kind (its C entry
-    effort_mxu_batch_slot_tile)."""
-    f = _build.load("mxu_matvec_batch").effort_mxu_batch_slot_tile
-    f.argtypes, f.restype = [ctypes.c_int], ctypes.c_int
-    return f(kind)
+class K2Plan(NamedTuple):
+    """K2's launch shape: nn n8 slot tiles a block (8*nn slots), the grid
+    (slot_tiles, col_tiles, splits), and the partial sums' shape [splits,
+    T, width] f32 (None with one split: the blocks write Y)."""
+    nn: int
+    slot_tiles: int
+    col_tiles: int
+    splits: int
+    partial: Optional[tuple]
+
+    @property
+    def blocks(self) -> int:
+        return self.slot_tiles * self.col_tiles * self.splits
+
+
+def _k2_nn(T: int) -> int:
+    """n8 slot tiles a block of K2's stream takes: the fewest of 1, 2, 4, 8
+    that hold T slots, 8 (64 slots) past that."""
+    return next(n for n in (1, 2, 4, 8) if 8 * n >= min(T, 64))
+
+
+def k2_plan(T: int, in_dim: int, row_bytes: int, width: int, kind: int,
+            sms: int, per_sm: int) -> K2Plan:
+    """K2's stream for T slots over [in_dim, row_bytes] values of kind
+    `kind` (prefix_stream._KIND) decoding to `width` columns, on a card of
+    `sms` SMs that hold `per_sm` of its blocks each: one slot tile of up to
+    64 slots (the n8 tiles the slots need), column tiles of
+    _K2_BLOCK_BYTES, and the split of the live rows that streams fastest by
+    a simple model: the values' bytes, inflated while fewer blocks than SMs
+    run or a last wave runs part full, plus the partial sums written and
+    read again (splits x T x width f32); at most one split per stage of
+    in_dim rows."""
+    nn = _k2_nn(T)
+    slot_tiles = -(-T // (8 * nn))
+    col_tiles = -(-row_bytes // _K2_BLOCK_BYTES[kind])
+    base = slot_tiles * col_tiles
+    resident = sms * per_sm
+
+    def cost(s):
+        blocks = base * s
+        idle = (max(1.0, sms / blocks) if blocks <= resident
+                else -(-blocks // resident) * resident / blocks)
+        return in_dim * row_bytes * idle + (8 * s * T * width if s > 1
+                                            else 0)
+    splits = min(range(1, -(-in_dim // _K2_TILE_ROWS) + 1), key=cost)
+    return K2Plan(nn, slot_tiles, col_tiles, splits,
+                  (splits, T, width) if splits > 1 else None)
+
+
+def _k2_per_sm(kind: int, nn: int, dev) -> int:
+    """Blocks of K2's stream one SM holds at once (the built kernel's
+    occupancy), once per (kind, nn, card); raises if the kernel's tiling is
+    not _K2_BLOCK_BYTES and _K2_TILE_ROWS."""
+    key = (kind, nn, dev.index)
+    if key not in _K2_PER_SM:
+        f = _build.load("mxu_matvec_batch").effort_mxu_batch_blocks_per_sm
+        f.argtypes, f.restype = [ctypes.c_int] * 5, ctypes.c_int
+        n = f(kind, nn, _K2_BLOCK_BYTES[kind], _K2_TILE_ROWS, dev.index)
+        if n < 1:
+            raise RuntimeError(
+                "K2's tiling differs from _K2_BLOCK_BYTES / _K2_TILE_ROWS"
+                if n < 0 else f"K2's stream fits no SM (kind {kind}, nn "
+                f"{nn})")
+        _K2_PER_SM[key] = n
+    return _K2_PER_SM[key]
 
 
 def _rows_per_block(tiles: int, in_dim: int) -> int:
@@ -306,19 +369,6 @@ def mxu_matvec(bm: BucketedMatrix, v: torch.Tensor, effort,
     return (y, c_len) if return_len else y
 
 
-def _batch_rows_per_block(tiles: int, in_dim: int, T: int,
-                          width: int) -> int:
-    """Rows per block of the batched stream: K1's rule, then longer row
-    splits while the partial sums [splits, T, width] f32 would pass
-    _MAX_PARTIAL_BYTES (they grow with T: 117 MB at T = 64 over w13's
-    28672 columns in 16 splits)."""
-    rb = _rows_per_block(tiles, in_dim)
-    while rb < in_dim and \
-            -(-in_dim // rb) * T * width * 4 > _MAX_PARTIAL_BYTES:
-        rb *= 2
-    return rb
-
-
 def mxu_matvec_batch(bm: BucketedMatrix, V: torch.Tensor, efforts,
                      expert: int = 0, tau: float = None,
                      return_len: bool = False):
@@ -352,28 +402,30 @@ def mxu_matvec_batch(bm: BucketedMatrix, V: torch.Tensor, efforts,
     row_bytes = bm.vals.shape[2] * bm.vals.element_size()
     width = bm.vals.shape[2] * (2 if bm.vals_packed else 1)
     kind = _KIND[bm.vals.dtype]
-    ts = _batch_slot_tile(kind)
-    rb = _batch_rows_per_block(-(-T // ts) * -(-row_bytes // 2048), in_dim,
-                               T, width)
+    plan = k2_plan(T, in_dim, row_bytes, width, kind,
+                   torch.cuda.get_device_properties(dev).multi_processor_count,
+                   _k2_per_sm(kind, _k2_nn(T), dev))
 
     u = torch.empty((T, in_dim), dtype=torch.bfloat16, device=dev)
     c_slot = torch.empty(T, dtype=torch.int32, device=dev)
     cutoff = torch.empty(T, dtype=torch.float32, device=dev)
     c_len = torch.empty(1, dtype=torch.int32, device=dev)
-    partial = torch.empty((-(-in_dim // rb), T, width), dtype=torch.float32,
-                          device=dev)
+    partial = (torch.empty(plan.partial, dtype=torch.float32, device=dev)
+               if plan.partial else None)
     y = torch.empty((T, bm.n_buckets), dtype=torch.float32, device=dev)
     vals_ptr = bm.vals.data_ptr() + expert * in_dim * row_bytes
     scales_ptr = (bm.scales.data_ptr() + expert * in_dim * 4
                   if bm.scales is not None else None)
     _build.kernel_fn("mxu_matvec_batch", "effort_mxu_matvec_batch",
-                     "pippppppiiiiiiiifiippppppip")(
+                     "pippppppiiiiiiiifiiippppppip")(
         Vp.data_ptr(), T, bm.probes.data_ptr() + expert * P * 4,
         bm.stats.data_ptr() + expert * in_dim * 4, scales_ptr,
         eff.data_ptr(), tables.data_ptr(), vals_ptr, kind, in_dim,
-        row_bytes, bm.n_buckets, G, nc, P, stride, float(tau), rb, width,
-        u.data_ptr(), c_slot.data_ptr(), cutoff.data_ptr(),
-        c_len.data_ptr(), partial.data_ptr(), y.data_ptr(), dev.index,
+        row_bytes, bm.n_buckets, G, nc, P, stride, float(tau), plan.nn,
+        plan.splits, width, u.data_ptr(), c_slot.data_ptr(),
+        cutoff.data_ptr(), c_len.data_ptr(),
+        partial.data_ptr() if partial is not None else None, y.data_ptr(),
+        dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     LAUNCHES["mxu_matvec_batch"] += 1
     return (y, c_len) if return_len else y

@@ -79,6 +79,58 @@ def test_mxu_matvec_batch_cuda_kernel_matches_plain(dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bf16", "int8", "int4"])
+@pytest.mark.parametrize("G", [8, 16])
+def test_mxu_matvec_batch_tensor_core_edges(dtype, G):
+    """K2's tensor-core stream at its edges: T across the n8 and 64-slot
+    tiles (1, 3, 8, 20, 65, 130), chunks of 8 or 16 rows (C*G off the
+    32-row stage), 640 columns (a ragged column tile; int4 decodes 768,
+    past n_buckets). Per call: the plain version's C, cos >= 0.9999 on every
+    non-zero row and max|dy| <= 1e-2 max|y_ref|; a slot at effort 0 with a
+    zero input gives a row of exact zeros; a second call gives the same
+    bits; one launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(5 + G)
+    in_dim, out_dim = 1024, 640
+    wt = torch.randn((in_dim, out_dim), generator=g, device="cuda") * 0.02
+    bm = bucketize(wt, BucketConfig(bucket_size=1, chunk_rows=G,
+                                    dtype=dtype))
+    if dtype == "int4":
+        assert bm.vals.shape[2] * 2 > bm.n_buckets
+    launches = LAUNCHES["mxu_matvec_batch"]
+    Ts = (1, 3, 8, 20, 65, 130)
+    for T in Ts:
+        eff = torch.tensor([(0.1, 0.3, 0.6, 1.0)[t % 4] for t in range(T)],
+                           device="cuda")
+        V = torch.randn((T, in_dim), generator=g, device="cuda")
+        if T > 1:
+            eff[T // 2] = 0.0
+            V[T // 2] = 0.0
+        y, C = port_fs.mxu_matvec_batch(bm, V, eff, 0, tau=0.97,
+                                        return_len=True)
+        y2 = port_fs.mxu_matvec_batch(bm, V, eff, 0, tau=0.97)
+        yr, Cr = port_fs.mxu_matvec_batch_ref(bm, V, eff, 0, tau=0.97,
+                                              return_len=True)
+        torch.cuda.synchronize()
+        assert y.shape == (T, out_dim)
+        assert int(C) == int(Cr), (T, int(C), int(Cr))
+        assert torch.equal(y, y2), T
+        assert float((y - yr).abs().max()) <= 1e-2 * float(yr.abs().max())
+        if T > 1:
+            assert not bool(yr[T // 2].any()) and not bool(y[T // 2].any())
+        for a, b in zip(y, yr):
+            if not bool(b.any()):
+                assert not bool(a.any())
+                continue
+            c = torch.nn.functional.cosine_similarity(
+                a.double(), b.double(), dim=0)
+            assert float(c) >= 0.9999, (T, float(c))
+    assert LAUNCHES["mxu_matvec_batch"] == launches + 2 * len(Ts)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("start,mask_from,window", [(0, 5, 0), (40, 0, 0),
                                                     (40, 0, 16)])
 def test_flash_attention_cuda_kernel_matches_plain(start, mask_from,

@@ -160,3 +160,75 @@ def test_mxu_matvec_batch_forms_of_effort():
     q16 = torch.full((T,), int(0.375 * 65536), dtype=torch.int32)
     with pytest.raises(TypeError):
         port_fs.mxu_matvec_batch(tb, Vt, q16)
+
+
+# ---- K2's launch plan (kernels/fused_stream.k2_plan) -----------------------
+# The index arithmetic below is csrc/mxu_matvec_batch.cu's, written out:
+# which rows split z streams, which columns column tile y writes.
+
+MISTRAL_SHAPES = {"wqkv": (4096, 6144), "wo": (4096, 4096),
+                  "w13": (4096, 28672), "w2": (14336, 4096)}
+SMS = 132               # an H100's SMs
+
+
+def _kernel_rows(splits, CG, KT=port_fs._K2_TILE_ROWS):
+    tiles = -(-CG // KT)
+    per = -(-tiles // splits)
+    return [(z * per * KT, min(z * per * KT + per * KT, CG))
+            for z in range(splits)]
+
+
+def _kernel_cols(kind, row_bytes, y):
+    bmb = port_fs._K2_BLOCK_BYTES[kind]
+    bpt = bmb // 32                          # 4 warps x 8 thread groups
+    cols = []
+    for cb in range(y * bmb, (y + 1) * bmb, bpt):
+        if cb >= row_bytes:
+            break
+        for ll in range(8):
+            if kind == 0:
+                cols.append(cb // 2 + ll)
+            elif kind == 1:
+                cols.append(cb + ll)
+            else:
+                cols.append(cb + ll if ll < 4 else row_bytes + cb + ll - 4)
+    return cols
+
+
+@pytest.mark.parametrize("T", [1, 4, 64, 512])
+@pytest.mark.parametrize("kind", [0, 1, 2])
+@pytest.mark.parametrize("shape", list(MISTRAL_SHAPES))
+def test_k2_plan_covers_every_row_column_and_slot(shape, kind, T):
+    """At the Mistral-7B projections, for 1 to 4 blocks an SM: the slot
+    tiles cover T (the last one ragged at most), the column tiles every
+    decoded column once, the splits every live row once for any C*G, and
+    the partial buffer is exactly what the blocks write. The grid reaches
+    the card: a block for at least 70% of the 132 SMs up to 64 slots, half
+    of them past that (where more splits cost more partial sums than idle
+    SMs do)."""
+    in_dim, out_dim = MISTRAL_SHAPES[shape]
+    row_bytes = {0: 2 * out_dim, 1: out_dim, 2: out_dim // 2}[kind]
+    width = out_dim
+    for per_sm in (1, 2, 4):
+        _check_plan(T, in_dim, row_bytes, width, kind, per_sm)
+
+
+def _check_plan(T, in_dim, row_bytes, width, kind, per_sm):
+    p = port_fs.k2_plan(T, in_dim, row_bytes, width, kind, SMS, per_sm)
+    ns = 8 * p.nn
+    assert p.nn in (1, 2, 4, 8) and ns >= min(T, 64)
+    assert (p.slot_tiles - 1) * ns < T <= p.slot_tiles * ns
+    cols = [c for y in range(p.col_tiles)
+            for c in _kernel_cols(kind, row_bytes, y)]
+    assert sorted(cols) == list(range(width))
+    for CG in (128, 1152, in_dim // 2, in_dim):
+        spans = _kernel_rows(p.splits, CG)
+        rows = [r for r0, r1 in spans for r in range(r0, r1)]
+        assert rows == list(range(CG))
+    written = p.splits * T * len(cols)   # (split, slot < T, column) triples
+    if p.splits > 1:
+        assert p.partial == (p.splits, T, width)
+        assert written == p.partial[0] * p.partial[1] * p.partial[2]
+    else:
+        assert p.partial is None
+    assert p.blocks >= (0.7 if T <= 64 else 0.5) * SMS, p
