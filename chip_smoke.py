@@ -71,13 +71,15 @@ Phases, one JSON line each (a failure raises and exits non-zero):
             csrc/stream_matvec.cu) against their plain versions at the four
             shapes x {bf16, int8, int4} x efforts {0.1, 0.25, 0.5} x tau
             {0.97, 1.0}, rank-prefix buckets B = 4, G = 16: equal C_k per
-            rank, cos >= 0.9999, max|dy| <= 1e-2 max|y_ref| (and whether
-            the two are equal bit for bit, which the plain versions' order
-            of sums allows); K5 on K4's own selection equals K4 to 1e-5;
-            K6 (gather_matvec_dma, csrc/gather_dma.cu) and K7
-            (gather_bucket_matvec, csrc/gather_mul.cu) likewise at {bf16,
-            int8} x the efforts, K6 against K7 to 1e-5; times beside the
-            bound and the dense bf16 torch.mm GEMV
+            rank, cos >= 0.9999, max|dy| <= 1e-2 max|y_ref|, and y equal
+            bit for bit (the plain versions add in the kernels' order); K5
+            on K4's own selection equals K4 to 1e-5; at int8, effort 0.25,
+            tau 0.97 the device time of one K4 call by kernel (selection,
+            stream, split sum); K6 (gather_matvec_dma, csrc/gather_dma.cu)
+            and K7 (gather_bucket_matvec, csrc/gather_mul.cu) likewise at
+            {bf16, int8} x the efforts (their bit equality printed only),
+            K6 against K7 to 1e-5; times beside the bound and the dense
+            bf16 torch.mm GEMV
   rank_decode
             the row-prefix model freed, Mistral-7B width and depth with int8
             rank-prefix buckets (B = 4, G = 16), fused projections, int8 LM
@@ -537,8 +539,8 @@ KERNEL_PARTS = {"k1_select": "namespace)::select_kernel",
                 "k2_stream": "namespace)::mma_stream_kernel",
                 "k2_reduce": "namespace)::reduce_batch_kernel",
                 "k3": "namespace)::flash_kernel",
-                "k4_select": "namespace)::fused_select_kernel",
-                "k4_k5_stream": "rank_prefix::stream_kernel",
+                "k4_select": "namespace)::grid_select_kernel",
+                "k4_k5_stream": "rank_prefix::ring_stream_kernel",
                 "k4_k5_split_sum": "rank_prefix::reduce_splits",
                 "k6_k7_gather": "block_gather::gather_kernel"}
 
@@ -1092,10 +1094,10 @@ def phase_kernels_rank(flush: torch.Tensor) -> dict:
                                                  tiles=tiles))
                     p4["k5_on_k4_selection_max_abs_diff"] = float(
                         (y5 - y).abs().max())
-                    if C != Cr or not p4[
+                    if C != Cr or not p4["bitwise_equal"] or not p4[
                             "k5_on_k4_selection_max_abs_diff"] <= 1e-5:
-                        raise AssertionError(f"K4 (C_k, or K5 on its "
-                                             f"selection): {p4}")
+                        raise AssertionError(f"K4 (C_k, y bit for bit, or "
+                                             f"K5 on its selection): {p4}")
                     out["k4"].append(timed(
                         p4, flush,
                         lambda v: fused_stream.fused_matvec(bm, v, eq, 0,
@@ -1104,6 +1106,16 @@ def phase_kernels_rank(flush: torch.Tensor) -> dict:
                             bm, v, eq, 0, tgb, tau),
                         [(v,) for v in vs],
                         rank_bytes(bm, tiles, tgb, True), lib_ms))
+                    if (dtype, effort, tau) == SUMMARY_RANK:
+                        # where a call's device time goes (selection,
+                        # stream, split sum): the mean over PROFILE_CALLS
+                        # calls
+                        prof = device_profile(lambda: [
+                            fused_stream.fused_matvec(bm, v, eq, 0, tgb,
+                                                      tau)
+                            for v in vs[:PROFILE_CALLS]])["kernel_ms"]
+                        p4["parts_ms"] = {k: ms / PROFILE_CALLS
+                                          for k, ms in prof.items()}
                     emit({"phase": "kernels_rank", "kernel": "K4", **p4})
                     sels = [prefix_stream.select_stream(bm, v, eq, 0, tgb,
                                                         tau=tau)
@@ -1113,6 +1125,8 @@ def phase_kernels_rank(flush: torch.Tensor) -> dict:
                     tiles5 = (sels[0].cum_tiles[1:]
                               - sels[0].cum_tiles[:-1]).tolist()
                     p5 = held("K5", y5, y5r, dict(pt, tiles_per_rank=tiles5))
+                    if not p5["bitwise_equal"]:
+                        raise AssertionError(f"K5 not bit for bit: {p5}")
                     out["k5"].append(timed(
                         p5, flush,
                         lambda s: prefix_stream.stream_matvec(bm, s, tgb),
@@ -1406,6 +1420,21 @@ def k2_row(points: list, launches: int) -> dict:
     return row
 
 
+def k4_row(points: list, launches: int) -> dict:
+    """K4's entry, with where one layer's four calls spend their device
+    time (parts_ms: selection, stream, split sum)."""
+    pick = lambda p: (p["dtype"], p["effort"],   # noqa: E731
+                      p.get("tau", 0.97)) == SUMMARY_RANK
+    row = summary_row(
+        "fused_matvec", "effort_tpu_torch/csrc/fused_matvec.cu",
+        "effort_tpu/kernels/fused_stream.py:145", points, launches, pick)
+    parts = [p["parts_ms"] for p in points if pick(p)]
+    row["parts_ms"] = {k: sum(q.get(k, 0.0) for q in parts)
+                       for k in ("k4_select", "k4_k5_stream",
+                                 "k4_k5_split_sum")}
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this "
@@ -1477,11 +1506,7 @@ def main() -> int:
             sum(r["launches"]["flash_attention"]
                 for r in out["prefill"] + out["serve"]),
             lambda p: p["case"] == SUMMARY_ATTN),
-        summary_row(
-            "fused_matvec", "effort_tpu_torch/csrc/fused_matvec.cu",
-            "effort_tpu/kernels/fused_stream.py:145",
-            out["points_rank"]["k4"], rank_launches["fused_matvec"],
-            summary_rank),
+        k4_row(out["points_rank"]["k4"], rank_launches["fused_matvec"]),
         summary_row(
             "stream_matvec", "effort_tpu_torch/csrc/stream_matvec.cu",
             "effort_tpu/kernels/prefix_stream.py:91",

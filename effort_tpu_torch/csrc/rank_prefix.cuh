@@ -11,24 +11,41 @@
 // of u[k, r] * W_k[r, j] over the rows r and ranks k whose position at
 // (r, j) is p (effort_tpu/kernels/prefix_stream.py:210).
 //
-// select_ranks() is K4's selection by one block, on the 16.16 effort
-// (effort_tpu/kernels/fused_stream.py:_kernel, :157-186):
-//   cutoff  = row_prefix::find_cutoff (the same search and table as K1)
-//   n_i     = #{k < K : stats[i, k] * |v_i| > cutoff}
+// K4's selection (effort_tpu/kernels/fused_stream.py:_kernel, :157-186),
+// on the 16.16 effort, is spread over a grid of blocks of kSelThreads
+// threads, each owning a run of whole chunks (fused_matvec.cu):
+//   cutoff  = row_prefix::find_cutoff (the same search and table as K1),
+//             found by every block on the same probes, so the same bits
+//   n_i     = #{k < K : stats[i, k] * |v_i| > cutoff}          (rank_rows)
 //   u[k, i] = v_i * [k < n_i] * scale[i, k]                 (f32, not bf16)
-//   C_k     = shortest chunk prefix holding tau of rank k's selected mass
-//             (masses add in f64, each prefix rounded to f32 once)
+//   mass    = each (rank, chunk)'s selected mass in f64, summed inside the
+//             owning block and stored with plain stores (no atomics across
+//             blocks, nothing to zero)
+//   C_k     = shortest chunk prefix holding tau of rank k's selected mass,
+//             each prefix rounded to f32 once (rank_scan, run by the last
+//             block to finish)
 //   tiles   = ceil(C_k / TGB) per rank; cum_tiles [K+1], base_blocks [K]
+// The f64 sums are exact, so neither their order nor the split of the
+// chunks over blocks changes a bit of C_k.
 //
-// stream_kernel() is the stream K4 and K5 share: tile t of the flattened
-// per-rank prefixes (TGB chunks of one rank) is streamed whole, rounded-up
-// tail included. accum_rows() is the body K6 and K7 share with it.
+// ring_stream_kernel() is the stream K4 and K5 share. It is bound by the
+// bytes it streams: tile t of the flattened per-rank prefixes (TGB chunks
+// of one rank, rounded-up tail included) is cut into ring stages of
+// kStageRows rows. One lane of a producer warp asks the copy engine (TMA)
+// for each stage as a few 2-D boxes, kStageRows rows of the block's value
+// bytes of each value group and of its position bytes, completing on the
+// stage's mbarrier, and keeps every free stage of a ring in shared memory
+// in flight while four consumer warps compute on the stages that have
+// landed. The tensor maps (vals and pos as [blocks * G, row bytes] bytes)
+// are encoded on the host each call, through the runtime's driver entry
+// point (CUDA 12.5 or later). accum_rows() and write_partial() are the
+// synchronous body K6 and K7 use.
 //
 // Work is split over (column block, split). A lane owns NBT consecutive
 // position bytes and so NBT * (8/bits) columns, B accumulators each, 64 in
-// all; the block's four warps take every fourth row of a tile for the same
-// 32 lanes' columns, and add their sums in warp order at the end; a split
-// walks tiles split, split + S, ... and writes its partial sums;
+// all; the block's four consumer warps take every fourth row of a tile for
+// the same 32 lanes' columns, and add their sums in warp order at the end;
+// a split walks tiles split, split + S, ... and writes its partial sums;
 // reduce_splits adds the live splits in split order. No atomics: a
 // rerun gives the same bits. Every product and sum is rounded on its own
 // (__fmul_rn, __fadd_rn: no fused multiply-add) and the order is fixed, so
@@ -36,6 +53,9 @@
 // bit.
 
 #pragma once
+
+#include <cuda.h>
+#include <cudaTypedefs.h>
 
 #include "row_prefix.cuh"
 
@@ -45,13 +65,12 @@ using row_prefix::kBf16;
 using row_prefix::kInt4;
 using row_prefix::kInt8;
 using row_prefix::kSelThreads;
-using row_prefix::kSelWarps;
 
 constexpr int kMaxRanks = 32;
-constexpr int kMaxTileRows = 2048;   // u rows staged in shared memory
+constexpr int kMaxTileRows = 2048;   // rows of a tile (or gathered block)
 constexpr int kRowWarps = 4;         // warps of a block, one row in 4 each
 constexpr int kThreads = 32 * kRowWarps;
-constexpr int kMaxMasses = 24576;    // K * nc f64 masses (dynamic shared)
+constexpr int kMaxMasses = 24576;    // K * nc f64 masses of K4's selection
 constexpr int kAccs = 64;            // accumulators a thread
 
 // Positions packed bits to a field (layouts.pack_positions).
@@ -209,45 +228,316 @@ __device__ __forceinline__ void write_partial(const float* acc, int prow,
   }
 }
 
-// grid (column blocks, S): split y streams tiles y, y + S, ... < cum[K]
-// and writes partial[y][:]; splits past the last tile exit at once.
+// ---- the ring stream (K4 and K5) ------------------------------------------
+
+constexpr int kStageRows = 32;        // rows of a ring stage (of a box)
+constexpr int kMaxStages = 8;
+constexpr int kRingBudget = 72 * 1024;  // ring bytes: three blocks an SM
+constexpr int kRingThreads = kThreads + 32;  // + the producer warp
+constexpr int kMaxBoxes = 17;         // boxes a stage: 2 per value group + 1
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// The producer's arrival on *bar, which also expects `bytes` more bytes
+// from the copy engine before the phase can complete.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Waits until the phase of parity `parity` of *bar has completed. A phase
+// that has not completed after ~2^34 cycles (seconds) can only be a fault:
+// the kernel traps, and the launch reports an error instead of hanging.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  const long long t0 = clock64();
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+    if (!done && clock64() - t0 > (1ll << 34)) __trap();
+  } while (!done);
+}
+
+// A box of the 2-D row-major byte tensor *map (rows of row_bytes), columns
+// x .. x + box width - 1 of rows y .. y + kStageRows - 1, into shared
+// memory at dst (128-aligned) by the copy engine; columns or rows outside
+// the tensor arrive as zeros. Completion counts the box's bytes against
+// *bar.
+__device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map,
+                                        int x, int y, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+// NB bytes of shared memory at p (aligned to NB) as 32-bit words.
+template <int NB>
+__device__ __forceinline__ void lds_bytes(const uint8_t* p, uint32_t* w) {
+  if constexpr (NB == 8) {
+    const uint2 x = *reinterpret_cast<const uint2*>(p);
+    w[0] = x.x;
+    w[1] = x.y;
+  } else if constexpr (NB == 4) {
+    w[0] = *reinterpret_cast<const uint32_t*>(p);
+  } else {
+    static_assert(NB == 2, "2, 4 or 8 bytes");
+    w[0] = *reinterpret_cast<const unsigned short*>(p);
+  }
+}
+
+// What a block of the ring stream stages: for each value group t (columns
+// t*prow + jb, t < 8/bits) a slab of kStageRows rows x its 32 lanes' value
+// bytes (lane l at l*VB), int4 a second slab for the high-nibble lanes;
+// then a slab of the lanes' position bytes (lane l at l*NBT). Each slab is
+// one copy-engine box.
 template <int KIND, int B>
-__global__ void __launch_bounds__(kThreads) stream_kernel(
-    const uint8_t* __restrict__ vals, int vrow,
-    const uint8_t* __restrict__ pos, int prow, int half,
+struct Ring {
+  using Pos = PackedPos<B>;
+  static constexpr int kPB = Pos::kPerByte;
+  static constexpr int kNBT = Owned<B, Pos>::kNBT;
+  static constexpr int kVB = KIND == kBf16 ? 2 * kNBT : kNBT;
+  static constexpr int kVBox = 32 * kVB;   // bytes a row of a value box
+  static constexpr int kPBox = 32 * kNBT;  // bytes a row of the position box
+  static constexpr int kVSlabs = KIND == kInt4 ? 2 * kPB : kPB;
+  static constexpr int kPSlab = kVSlabs * kStageRows * kVBox;  // its offset
+  static constexpr int kStageBytes = kPSlab + kStageRows * kPBox;
+  static constexpr int kStages =
+      kRingBudget / kStageBytes > kMaxStages
+          ? kMaxStages
+          : (kRingBudget / kStageBytes < 2 ? 2 : kRingBudget / kStageBytes);
+  // the ring also holds the warps' sums at the end; 128 bytes to align it
+  static constexpr int kSmem =
+      128 + (kStages * kStageBytes > kRowWarps * kAccs * 32 * 4
+                 ? kStages * kStageBytes
+                 : kRowWarps * kAccs * 32 * 4);
+};
+
+// The boxes of a stage for column block bx: {x, slab}; the value boxes,
+// then the position box. Value group t's live lanes (columns < OB) take
+// one box at byte x = c (bf16: 2c), c lane 0's first column; int4's
+// high-nibble lanes (columns >= half) one more at x = c - half into slab
+// kPB + t (x < 0 where the group straddles half: those bytes arrive as
+// zeros and belong to low-nibble lanes, which read slab t). Returns the
+// count.
+template <int KIND, int B>
+__device__ int stage_boxes(int bx, int prow, int half, int OB,
+                           int (*box)[2]) {
+  using R = Ring<KIND, B>;
+  constexpr int NBT = R::kNBT;
+  const int jb = bx * 32 * NBT;  // the block's first position byte
+  const int lanes = max(0, min(32, (prow - jb) / NBT));
+  if (lanes == 0) return 0;
+  int n = 0;
+  for (int t = 0; t < R::kPB; ++t) {
+    const int c = t * prow + jb;  // lane 0's first column
+    const int live = max(0, min(lanes, (OB - c) / NBT));
+    const int lo = KIND == kInt4 ? max(0, min(live, (half - c) / NBT)) : live;
+    if (lo > 0) {
+      box[n][0] = KIND == kBf16 ? 2 * c : c;
+      box[n][1] = t;
+      ++n;
+    }
+    if (live > lo) {  // int4 high nibbles
+      box[n][0] = c - half;
+      box[n][1] = R::kPB + t;
+      ++n;
+    }
+  }
+  box[n][0] = jb;
+  box[n][1] = -1;  // the position slab
+  return n + 1;
+}
+
+// grid (column blocks, S), kRingThreads threads, Ring::kSmem dynamic
+// shared bytes: split y streams tiles y, y + S, ... < cum[K] in ring stages
+// of kStageRows rows and writes partial[y][:]; splits past the last tile
+// exit at once. Warps 0-3 consume (warp w takes rows r = w mod 4 of each
+// tile, in order, as accum_rows does); one lane of warp 4 produces,
+// asking the copy engine for a stage's boxes (vmap over the value rows,
+// pmap over the position rows) on the stage's mbarrier.
+template <int KIND, int B>
+__global__ void __launch_bounds__(kRingThreads, 3) ring_stream_kernel(
+    const __grid_constant__ CUtensorMap vmap,
+    const __grid_constant__ CUtensorMap pmap, int prow, int half,
     const int32_t* __restrict__ cum_tiles,
     const int32_t* __restrict__ base_blocks, const float* __restrict__ u,
     int K, int G, int tgb, int in_dim, int OB,
     float* __restrict__ partial) {
-  using Pos = PackedPos<B>;
-  __shared__ float s_u[kMaxTileRows];
+  using R = Ring<KIND, B>;
+  using Pos = typename R::Pos;
+  constexpr int PB = R::kPB, NBT = R::kNBT, VB = R::kVB;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 127) & ~uintptr_t(127));
+  __shared__ __align__(8) uint64_t full[kMaxStages], empty[kMaxStages];
   __shared__ int s_cum[kMaxRanks + 1], s_base[kMaxRanks];
-  if (threadIdx.x <= K) s_cum[threadIdx.x] = cum_tiles[threadIdx.x];
-  if (threadIdx.x < K) s_base[threadIdx.x] = base_blocks[threadIdx.x];
+  __shared__ int s_box[kMaxBoxes][2];
+  __shared__ int s_nbox;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (tid <= K) s_cum[tid] = cum_tiles[tid];
+  if (tid < K) s_base[tid] = base_blocks[tid];
+  if (tid == 0) {
+    for (int s = 0; s < R::kStages; ++s) {
+      mbar_init(&full[s], 1);  // the producer's arrival with its bytes
+      mbar_init(&empty[s], kRowWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    s_nbox = stage_boxes<KIND, B>(blockIdx.x, prow, half, OB, s_box);
+  }
   __syncthreads();
   const int total = s_cum[K];
-  if ((int)blockIdx.y >= total) return;
-  const int jb0 = (blockIdx.x * 32 + (threadIdx.x & 31)) *
-                  Owned<B, Pos>::kNBT;
-  const bool active = jb0 < prow;
+  if ((int)blockIdx.y >= total || s_nbox == 0) return;
   const int rows = tgb * G;
+  const int per_tile = (rows + kStageRows - 1) / kStageRows;
+  const int units = ((total - 1 - (int)blockIdx.y) / (int)gridDim.y + 1) *
+                    per_tile;
+
   float acc[kAccs];
 #pragma unroll
   for (int i = 0; i < kAccs; ++i) acc[i] = 0.f;
-  for (int t = blockIdx.y; t < total; t += gridDim.y) {
-    int k = 0;
-    for (int j = 1; j < K; ++j) k += t >= s_cum[j] ? 1 : 0;
-    const int chunk0 = (t - s_cum[k]) * tgb;
-    const float* ut = u + (size_t)k * in_dim + (size_t)chunk0 * G;
-    __syncthreads();  // the previous tile's u is read
-    for (int i = threadIdx.x; i < rows; i += kThreads) s_u[i] = ut[i];
-    __syncthreads();
-    if (active)
-      accum_rows<KIND, B, Pos>(vals, vrow, pos, prow, half,
-                               (size_t)(s_base[k] + chunk0) * G,
-                               threadIdx.x >> 5, rows, s_u, jb0, OB, acc);
+  if (warp == kRowWarps) {
+    // producer: stage n goes into slot n % kStages once the consumers
+    // have released its previous use
+    if (lane == 0) {
+      const int nbox = s_nbox;
+      const uint32_t bytes =
+          (nbox - 1) * kStageRows * R::kVBox + kStageRows * R::kPBox;
+      for (int n = 0; n < units; ++n) {
+        const int slot = n % R::kStages;
+        const uint32_t use = n / R::kStages;
+        if (use > 0) mbar_wait(&empty[slot], (use - 1) & 1);
+        const int t = blockIdx.y + (n / per_tile) * gridDim.y;
+        int k = 0;
+        for (int j = 1; j < K; ++j) k += t >= s_cum[j] ? 1 : 0;
+        const int row0 = (s_base[k] + (t - s_cum[k]) * tgb) * G +
+                         (n % per_tile) * kStageRows;
+        uint8_t* st = ring + slot * R::kStageBytes;
+        mbar_expect_tx(&full[slot], bytes);
+        for (int i = 0; i < nbox; ++i) {
+          const bool vb = i + 1 < nbox;  // a value box; the last: positions
+          tma_box(st + (vb ? s_box[i][1] * kStageRows * R::kVBox
+                           : R::kPSlab),
+                  vb ? &vmap : &pmap, s_box[i][0], row0, &full[slot]);
+        }
+      }
+    }
+  } else {
+    // consumers: accum_rows' arithmetic, in its order, on the staged bytes
+    const int jb0 = (blockIdx.x * 32 + lane) * NBT;
+    const bool active = jb0 < prow;
+    bool live[PB], hi[PB];
+#pragma unroll
+    for (int t = 0; t < PB; ++t) {
+      const int c0 = t * prow + jb0;
+      live[t] = active && c0 < OB;
+      hi[t] = KIND == kInt4 && c0 >= half;
+    }
+    // u of the warp's rows q = warp + 4m of stage n: lane m holds row m's,
+    // loaded a stage ahead
+    auto u_of = [&](int n) {
+      const int t = blockIdx.y + (n / per_tile) * gridDim.y;
+      const int r0 = (n % per_tile) * kStageRows;
+      int k = 0;
+      for (int j = 1; j < K; ++j) k += t >= s_cum[j] ? 1 : 0;
+      const int q = warp + kRowWarps * lane;
+      return (n < units && lane < kStageRows / kRowWarps &&
+              q < min(kStageRows, rows - r0))
+                 ? u[(size_t)k * in_dim + (size_t)(t - s_cum[k]) * tgb * G +
+                     r0 + q]
+                 : 0.f;
+    };
+    float u_next = u_of(0);
+    for (int n = 0; n < units; ++n) {
+      const int slot = n % R::kStages;
+      const int nr = min(kStageRows, rows - (n % per_tile) * kStageRows);
+      const float um = u_next;
+      u_next = u_of(n + 1);
+      mbar_wait(&full[slot], (n / R::kStages) & 1);
+      const uint8_t* st = ring + slot * R::kStageBytes;
+#pragma unroll 2  // two rows' loads in flight
+      for (int m = 0; m < kStageRows / kRowWarps; ++m) {
+        const int q = warp + kRowWarps * m;
+        if (q >= nr) break;
+        const float uu = __shfl_sync(0xffffffffu, um, m);
+        if (!active) continue;
+        uint32_t pw[(NBT + 3) / 4], vw[PB][(VB + 3) / 4];
+        lds_bytes<NBT>(st + R::kPSlab + q * R::kPBox + lane * NBT, pw);
+#pragma unroll
+        for (int t2 = 0; t2 < PB; ++t2)
+          if (live[t2])
+            lds_bytes<VB>(st + ((hi[t2] ? PB + t2 : t2) * kStageRows + q) *
+                                   R::kVBox + lane * VB,
+                          vw[t2]);
+#pragma unroll
+        for (int t2 = 0; t2 < PB; ++t2) {
+          if (!live[t2]) continue;
+#pragma unroll
+          for (int i = 0; i < NBT; ++i) {
+            const int p = Pos::at(byte_at(pw, i), t2);
+            const float x =
+                __fmul_rn(uu, value_at<KIND>(vw[t2], i, hi[t2]));
+            // x goes to accumulator p; accum_rows adds 0 to the other
+            // B-1, which leaves them as they are (a sum that starts at +0
+            // is never -0), so skipping those adds keeps every bit
+            float* a = acc + (t2 * NBT + i) * B;
+#pragma unroll
+            for (int pp = 0; pp < B; ++pp)
+              if (p == pp) a[pp] = __fadd_rn(a[pp], x);
+          }
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[slot]);
+    }
   }
-  write_partial<B, Pos>(acc, prow, OB, partial + (size_t)blockIdx.y * OB * B);
+  __syncthreads();  // every stage is consumed: the ring is free
+  float* s_acc = reinterpret_cast<float*>(ring);  // [kRowWarps][kAccs][32]
+  if (warp < kRowWarps) {
+#pragma unroll
+    for (int i = 0; i < kAccs; ++i)
+      s_acc[(warp * kAccs + i) * 32 + lane] = acc[i];
+  }
+  __syncthreads();
+  // partial[j*B + p] of the block's columns, the warp sums added in warp
+  // order (write_partial's order)
+  float* out = partial + (size_t)blockIdx.y * OB * B;
+  for (int idx = tid; idx < kAccs * 32; idx += kRingThreads) {
+    const int i = idx >> 5, l = idx & 31;
+    const int jb = (blockIdx.x * 32 + l) * NBT;
+    const int t = i / (NBT * B), c = t * prow + jb + (i / B) % NBT;
+    if (jb >= prow || c >= OB) continue;
+    float s = s_acc[i * 32 + l];
+#pragma unroll
+    for (int w = 1; w < kRowWarps; ++w)
+      s = __fadd_rn(s, s_acc[(w * kAccs + i) * 32 + l]);
+    out[(size_t)c * B + i % B] = s;
+  }
 }
 
 // y[j] = sum over the live splits s < min(S, live[0]) (all S when live is
@@ -265,90 +555,79 @@ __global__ void reduce_splits(const float* __restrict__ partial,
   y[j] = s;
 }
 
-// K4's per-row selection work, R consecutive rows a thread (G % R == 0):
-// n_i, u[k, i], and each row's selected mass x = stats[i, k] * |v_i|
-// added into s_mass[k * nc + chunk] (zeroed by the caller). A thread sums
-// its R rows, a segment of gcd(G / R, 32) lanes (inside one chunk) sums by
-// shuffles, and the segment's sum goes in by an atomic. The f64 sums are
-// exact, so their order does not change a bit.
+// ---- K4's selection, over a grid of blocks --------------------------------
+
+// One block's share of the selection: rows [row0, row0 + nrows) (whole
+// chunks), R consecutive rows a thread (G % R == 0): n_i, u[k, i] (u rows
+// in_dim long), and each row's selected mass x = stats[i, k] * |v_i| added
+// into s_mass[k * (nrows / G) + its chunk in the run] (zeroed by the
+// caller). A thread sums its R rows, a segment of gcd(G / R, 32) lanes
+// (inside one chunk) sums by shuffles, and the segment's sum goes in by a
+// shared-memory atomic. The f64 sums are exact, so their order does not
+// change a bit.
 template <int R>
 __device__ __forceinline__ void rank_rows(
     const float* __restrict__ v, const float* __restrict__ stats,
-    const float* __restrict__ scales, float cutoff, int G, int in_dim, int K,
-    float* __restrict__ u, double* s_mass) {
+    const float* __restrict__ scales, float cutoff, int G, int row0,
+    int nrows, int in_dim, int K, float* __restrict__ u, double* s_mass) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nc = in_dim / G;
+  const int nch = nrows / G;
   int seg = 32;
   while ((G / R) % seg) seg >>= 1;
-  for (int j0 = warp * 32; j0 * R < in_dim; j0 += kSelThreads) {
-    const int i0 = (j0 + lane) * R;  // the thread's first row
-    const bool has = i0 < in_dim;
+  for (int j0 = warp * 32; j0 * R < nrows; j0 += kSelThreads) {
+    const int r = (j0 + lane) * R;  // the thread's first row in the run
+    const bool has = r < nrows;
+    const int i0 = row0 + (has ? r : 0);
     float vi[R], av[R];
     int n[R];
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      vi[r] = has ? v[i0 + r] : 0.f;
-      av[r] = fabsf(vi[r]);
-      n[r] = 0;
+    for (int q = 0; q < R; ++q) {
+      vi[q] = has ? v[i0 + q] : 0.f;
+      av[q] = fabsf(vi[q]);
+      n[q] = 0;
     }
-    const float* st = stats + (size_t)(has ? i0 : 0) * K;
+    const float* st = stats + (size_t)i0 * K;
     for (int k = 0; k < K; ++k)
 #pragma unroll
-      for (int r = 0; r < R; ++r)
-        n[r] += (has && __fmul_rn(st[r * K + k], av[r]) > cutoff) ? 1 : 0;
+      for (int q = 0; q < R; ++q)
+        n[q] += (has && __fmul_rn(st[q * K + k], av[q]) > cutoff) ? 1 : 0;
     for (int k = 0; k < K; ++k) {
       double m = 0.0;
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const bool sel = k < n[r];
+      for (int q = 0; q < R; ++q) {
+        const bool sel = k < n[q];
         if (has) {
           const float ui =
               scales != nullptr
-                  ? __fmul_rn(vi[r], scales[(size_t)(i0 + r) * K + k])
-                  : vi[r];
-          u[(size_t)k * in_dim + i0 + r] = sel ? ui : 0.f;
+                  ? __fmul_rn(vi[q], scales[(size_t)(i0 + q) * K + k])
+                  : vi[q];
+          u[(size_t)k * in_dim + i0 + q] = sel ? ui : 0.f;
         }
-        if (sel) m += (double)__fmul_rn(st[r * K + k], av[r]);
+        if (sel) m += (double)__fmul_rn(st[q * K + k], av[q]);
       }
       for (int o = seg >> 1; o > 0; o >>= 1)
         m += __shfl_xor_sync(0xffffffffu, m, o);
       if (has && (lane & (seg - 1)) == 0)
-        atomicAdd(&s_mass[k * nc + i0 / G], m);
+        atomicAdd(&s_mass[k * nch + r / G], m);
     }
   }
 }
 
-// K4's selection for one vector by one block of kSelThreads threads (see
-// the top of this file). Dynamic shared memory: K * nc doubles.
-__device__ __forceinline__ void select_ranks(
-    const float* __restrict__ v, int P, int stride,
-    const float* __restrict__ probes, const float* __restrict__ stats,
-    const float* __restrict__ scales, float eff,
-    const float* __restrict__ tables, int G, int nc, int K, int tgb,
-    float tau, int expert, float* __restrict__ u,
-    int32_t* __restrict__ c_out, int32_t* __restrict__ cum_tiles,
-    int32_t* __restrict__ base_blocks, float* __restrict__ cutoff_out) {
-  extern __shared__ double s_mass[];  // [K][nc]
+// The selection's end, by one block of kSelThreads threads once every
+// (rank, chunk) mass is in ms [K][nc] (shared memory; the prefixes are
+// written over it). Per rank (one warp each): the inclusive prefix of the
+// chunk masses in f64 (exact, so the same in any order), each rounded to
+// f32 once; C_k = #(prefix < tau * total) + 1, at most nc. Lane l takes
+// the m chunks [l*m, l*m + m): a serial sum, one warp scan of the lane
+// sums, then the lane's prefixes and its count below tau * total. Writes
+// c_out [K], cum_tiles [K+1], base_blocks [K] and cutoff_out [1].
+__device__ __forceinline__ void rank_scan(
+    double* s_mass, int nc, int K, int tgb, float tau, int expert,
+    float cutoff, int32_t* __restrict__ c_out,
+    int32_t* __restrict__ cum_tiles, int32_t* __restrict__ base_blocks,
+    float* __restrict__ cutoff_out) {
   __shared__ int s_len[kMaxRanks];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int in_dim = nc * G;
-  const float cutoff = row_prefix::find_cutoff(v, P, stride, probes, eff,
-                                               tables);
-
-  // rank counts, u, and each (rank, chunk) selected mass
-  for (int i = tid; i < K * nc; i += kSelThreads) s_mass[i] = 0.0;
-  __syncthreads();
-  if (G % 4 == 0)
-    rank_rows<4>(v, stats, scales, cutoff, G, in_dim, K, u, s_mass);
-  else
-    rank_rows<1>(v, stats, scales, cutoff, G, in_dim, K, u, s_mass);
-  __syncthreads();
-
-  // per rank (one warp each): inclusive prefix of the chunk masses in f64
-  // (exact, so the same in any order), each rounded to f32 once; C_k =
-  // #(prefix < tau * total) + 1, at most nc. Lane l takes the m chunks
-  // [l*m, l*m + m): a serial sum, one warp scan of the lane sums, then the
-  // lane's prefixes and its count below tau * total.
   if (warp < K) {
     const int k = warp, m = (nc + 31) / 32;
     double* ms = s_mass + k * nc;
@@ -418,14 +697,55 @@ bool dispatch(int kind, int B, F& f) {
   return false;
 }
 
+// Per library (namespace-scope `static`: a static local of an inline
+// function would be one object across every library of the process, a GNU
+// unique symbol): whether ring_stream_kernel<KIND, B>'s shared-memory
+// limit is raised, by kind, log2(B) and card, and the driver's
+// cuTensorMapEncodeTiled, found through the runtime once.
+static bool ring_smem_set[3][6][64];
+static PFN_cuTensorMapEncodeTiled_v12000 encode_tiled = nullptr;
+
+constexpr int log2_of(int B) {
+  return B == 2 ? 1 : B == 4 ? 2 : B == 8 ? 3 : B == 16 ? 4 : 5;
+}
+
+// *map over nrows rows of row_bytes bytes from base (16-aligned, row_bytes
+// a multiple of 16), boxes of box_bytes x kStageRows. A host-side encoding
+// only: no work on the card, no sync.
+inline cudaError_t encode_rows(CUtensorMap* map, const uint8_t* base,
+                               int row_bytes, int nrows, int box_bytes) {
+  if (encode_tiled == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr)
+      return cudaErrorNotSupported;
+    encode_tiled = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
+  }
+  const cuuint64_t dims[2] = {(cuuint64_t)row_bytes, (cuuint64_t)nrows};
+  const cuuint64_t strides[1] = {(cuuint64_t)row_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)box_bytes, (cuuint32_t)kStageRows};
+  const cuuint32_t steps[2] = {1, 1};
+  return encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
+                      const_cast<uint8_t*>(base), dims, strides, box, steps,
+                      CU_TENSOR_MAP_INTERLEAVE_NONE,
+                      CU_TENSOR_MAP_SWIZZLE_NONE,
+                      CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
+             ? cudaSuccess
+             : cudaErrorInvalidValue;
+}
+
 // The stream's launches on `stream` (K4 after its selection, K5 alone):
-// stream_kernel over grid (column blocks, splits), then the split sum of
-// the splits that held a tile. Returns the CUDA error (0 = none).
+// ring_stream_kernel over grid (column blocks, splits), then the split sum
+// of the splits that held a tile. Returns the CUDA error (0 = none).
 struct StreamLaunch {
   const uint8_t* vals;
   int vrow;
   const uint8_t* pos;
-  int prow, half;
+  int prow, half, nrows;  // nrows: rows of vals and pos, blocks * G
   const int32_t* cum_tiles;
   const int32_t* base_blocks;
   const float* u;
@@ -434,20 +754,42 @@ struct StreamLaunch {
   dim3 grid;
   int threads;
   cudaStream_t stream;
+  int device;
+  cudaError_t error;  // of the tensor maps or the shared-memory limit
 
   template <int KIND, int B>
   void run() {
-    stream_kernel<KIND, B><<<grid, threads, 0, stream>>>(
-        vals, vrow, pos, prow, half, cum_tiles, base_blocks, u, K, G, tgb,
-        in_dim, OB, partial);
+    using R = Ring<KIND, B>;
+    CUtensorMap vmap, pmap;
+    error = encode_rows(&vmap, vals, vrow, nrows, R::kVBox);
+    if (error == cudaSuccess)
+      error = encode_rows(&pmap, pos, prow, nrows, R::kPBox);
+    if (error != cudaSuccess) return;
+    bool& smem_set = ring_smem_set[KIND][log2_of(B)][device];
+    if (!smem_set) {  // the shared-memory limit, raised once a card
+      error = cudaFuncSetAttribute(ring_stream_kernel<KIND, B>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   R::kSmem);
+      if (error != cudaSuccess) return;
+      smem_set = true;
+    }
+    ring_stream_kernel<KIND, B><<<grid, threads, R::kSmem, stream>>>(
+        vmap, pmap, prow, half, cum_tiles, base_blocks, u, K, G, tgb, in_dim,
+        OB, partial);
   }
 };
 
 inline int stream_matvec(int kind, int B, StreamLaunch& launch, float* y) {
-  if (launch.K < 1 || launch.K > kMaxRanks || launch.threads != kThreads ||
-      launch.tgb * launch.G > kMaxTileRows)
+  // the copy engine needs 16-byte aligned rows
+  if (launch.K < 1 || launch.K > kMaxRanks ||
+      launch.threads != kRingThreads || launch.device < 0 ||
+      launch.device >= 64 || (launch.vrow | launch.prow | launch.half) % 16 ||
+      (reinterpret_cast<uintptr_t>(launch.vals) |
+       reinterpret_cast<uintptr_t>(launch.pos)) % 16)
     return (int)cudaErrorInvalidValue;
+  launch.error = cudaSuccess;
   if (!dispatch<true>(kind, B, launch)) return (int)cudaErrorInvalidValue;
+  if (launch.error != cudaSuccess) return (int)launch.error;
   const int out_dim = launch.OB * B;
   reduce_splits<<<(out_dim + 255) / 256, 256, 0, launch.stream>>>(
       launch.partial, out_dim, launch.grid.y, launch.cum_tiles + launch.K,

@@ -10,18 +10,23 @@
 // last live tile exit at once, so there is no host sync.
 //
 // Bound: the streamed bytes (values + packed positions of the live tiles,
-// and u) over 3.35 TB/s. Left for later: a cp.async/TMA ring, and skipping
-// rows whose u is 0 inside a tile.
+// and u) over 3.35 TB/s. The body is rank_prefix.cuh's ring stream, the
+// one K4 runs: one producer lane keeps the stages of a shared-memory ring
+// in flight as 2-D copy-engine boxes (TMA) on an mbarrier a stage, while
+// four warps compute. Left for later: skipping rows whose u is 0 inside a
+// tile.
 
 #include "rank_prefix.cuh"
 
 extern "C" {
 
 // All pointers are device pointers of card `device`; `stream` is the
-// caller's cudaStream_t there. partial is [splits, OB*B] f32 scratch; y
+// caller's cudaStream_t there. vals and pos hold nrows rows of vrow and
+// prow bytes. partial is [splits, OB*B] f32 scratch; y
 // [OB*B] f32. Returns the CUDA error (0 = none).
 int effort_stream_matvec(const void* vals, int kind, int vrow,
-                         const void* pos, int prow, int half, int B,
+                         const void* pos, int prow, int half, int nrows,
+                         int B,
                          const int32_t* cum_tiles,
                          const int32_t* base_blocks, const float* u, int K,
                          int G, int tgb, int in_dim, int OB, float* partial,
@@ -31,9 +36,10 @@ int effort_stream_matvec(const void* vals, int kind, int vrow,
   if (err != cudaSuccess) return (int)err;
   rank_prefix::StreamLaunch launch{
       static_cast<const uint8_t*>(vals), vrow,
-      static_cast<const uint8_t*>(pos), prow, half, cum_tiles, base_blocks,
-      u, K, G, tgb, in_dim, OB, partial, dim3(col_blocks, splits), threads,
-      static_cast<cudaStream_t>(stream)};
+      static_cast<const uint8_t*>(pos), prow, half, nrows, cum_tiles,
+      base_blocks, u, K, G, tgb, in_dim, OB, partial,
+      dim3(col_blocks, splits), threads, static_cast<cudaStream_t>(stream),
+      device, cudaSuccess};
   return rank_prefix::stream_matvec(kind, B, launch, y);
 }
 

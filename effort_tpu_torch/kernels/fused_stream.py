@@ -18,10 +18,12 @@ versions.
     product runs on the tensor cores (wgmma, bf16 in, f32 out) with the
     launch shape from k2_plan.
   - fused_matvec (K4) replaces fused_stream.py:fused_matvec -> _kernel, in
-    csrc/fused_matvec.cu (+ csrc/rank_prefix.cuh): one block selects (K1's
-    cutoff search on the 16.16 effort, rank counts, u in f32, each rank's
-    coverage length C_k in tiles of TGB chunks), then the per-rank prefix
-    stream that K5 shares (kernels/prefix_stream.py) scatters by packed
+    csrc/fused_matvec.cu (+ csrc/rank_prefix.cuh): a grid of blocks, each
+    owning whole chunks, selects (K1's cutoff search on the 16.16 effort,
+    rank counts, u in f32, chunk masses in f64), and the last of them to
+    finish scans each rank's coverage length C_k in tiles of TGB chunks;
+    then the per-rank prefix stream that K5 shares (kernels/prefix_stream,
+    a shared-memory ring filled by the copy engine) scatters by packed
     position into y[j*B + p]. Bound by the streamed bytes. The TPU kernel
     takes a static effort; this one reads the 16.16 device tensor at run
     time, as K1 does.
@@ -41,7 +43,7 @@ from effort_tpu_torch.kernels.prefix_stream import (_KIND, StreamSelection,
                                                     body_limits,
                                                     check_instance,
                                                     coverage_lengths,
-                                                    launch_shape, row_values,
+                                                    row_values, stream_plan,
                                                     stream_product_ref,
                                                     tile_offsets)
 from effort_tpu_torch.ops.effort import effort_q16
@@ -61,7 +63,10 @@ _MIN_BLOCKS = 264
 LAUNCHES["mxu_matvec"] = 0
 LAUNCHES["mxu_matvec_batch"] = 0
 LAUNCHES["fused_matvec"] = 0
-_MAX_MASSES = 24576       # K * nc f64 masses in K4's selection block
+_MAX_MASSES = 24576       # K * nc f64 masses in K4's selection scratch
+# K4's selection scratch a card: _MAX_MASSES f64 masses and the ticket of
+# the last block, zeroed once (the kernel leaves the ticket at 0)
+_K4_SCRATCH: dict = {}
 _TABLES: dict = {}
 # K2's stream (csrc/mxu_matvec_batch.cu): row bytes of a block's 256
 # output columns by value kind, and rows of a ring stage
@@ -482,7 +487,7 @@ def fused_matvec_ref(bm: BucketedMatrix, v: torch.Tensor, effort,
 
 def fused_limits(bm: BucketedMatrix, tile_blocks: int) -> Optional[str]:
     """Why K4 cannot take this container, or None: the stream's limits
-    (prefix_stream.body_limits) and those of its one-block selection."""
+    (prefix_stream.body_limits) and those of its selection."""
     E, K, nc = bm.n_experts, bm.n_ranks, bm.n_chunks
     why = body_limits(bm, tile_blocks * bm.chunk_rows)
     if why:
@@ -550,8 +555,10 @@ def fused_matvec(bm: BucketedMatrix, v: torch.Tensor, effort,
     P = bm.probes.shape[1]
     prow = bm.pos.shape[2]
     vrow = bm.vals.shape[2] * bm.vals.element_size()
-    threads, col_blocks, splits = launch_shape(bm, K * nc // tile_blocks,
-                                               prow)
+    threads, col_blocks, splits = stream_plan(bm, tile_blocks)
+    if dev not in _K4_SCRATCH:
+        _K4_SCRATCH[dev] = torch.zeros(_MAX_MASSES + 1, dtype=torch.float64,
+                                       device=dev)
     u = torch.empty((K, nc, G), dtype=torch.float32, device=dev)
     C = torch.empty(K, dtype=torch.int32, device=dev)
     cum = torch.empty(K + 1, dtype=torch.int32, device=dev)
@@ -562,16 +569,18 @@ def fused_matvec(bm: BucketedMatrix, v: torch.Tensor, effort,
     y = torch.empty(bm.out_dim, dtype=torch.float32, device=dev)
     row = expert * in_dim * K * 4
     _build.kernel_fn("fused_matvec", "effort_fused_matvec",
-                     "pppppppiipiiiiiiiiiifippppppiiipip")(
+                     "pppppppiipiiiiiiiiiiifipppppppiiipip")(
         vp.data_ptr(), bm.probes.data_ptr() + expert * P * 4,
         bm.stats.data_ptr() + row,
         bm.scales.data_ptr() + row if bm.scales is not None else None,
         eq.data_ptr(), thresh_tables(dev).data_ptr(), bm.vals.data_ptr(),
         _KIND[bm.vals.dtype], vrow, bm.pos.data_ptr(), prow, vrow,
-        bm.bucket_size, G, nc, K, tile_blocks, bm.n_buckets, P,
+        bm.vals.shape[0] * G, bm.bucket_size, G, nc, K, tile_blocks,
+        bm.n_buckets, P,
         max(1, -(-in_dim // P)), float(tau), expert, u.data_ptr(),
         C.data_ptr(), cum.data_ptr(), base.data_ptr(), cutoff.data_ptr(),
-        partial.data_ptr(), splits, col_blocks, threads, y.data_ptr(),
-        dev.index, torch.cuda.current_stream(dev).cuda_stream)
+        _K4_SCRATCH[dev].data_ptr(), partial.data_ptr(), splits, col_blocks,
+        threads, y.data_ptr(), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
     LAUNCHES["fused_matvec"] += 1
     return (y, C, StreamSelection(cum, base, u)) if return_selection else y

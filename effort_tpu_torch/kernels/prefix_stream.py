@@ -8,9 +8,11 @@ order puts each rank slab's selected rows at its front, so K5 streams a
 prefix of every rank slab: C_k chunks holding tau of the rank's selected
 mass, rounded up to tiles of TGB chunks, rows in the rounded-up tail
 included. It is bound by the streamed bytes (values + packed positions of
-the live tiles) over the card's memory rate. select_stream is plain tensor
-ops, as in the JAX package: cum_tiles and base_blocks stay on the device,
-and the kernel reads them there (no host sync).
+the live tiles) over the card's memory rate; its body, shared with K4, is
+a shared-memory ring that the copy engine (TMA) fills, one producer lane
+asking for each stage (csrc/rank_prefix.cuh). select_stream is plain
+tensor ops, as in the JAX package: cum_tiles and base_blocks stay on the
+device, and the kernel reads them there (no host sync).
 """
 
 from __future__ import annotations
@@ -30,6 +32,8 @@ _MAX_RANKS = 32
 _MAX_TILE_ROWS = 2048
 _ACCS = 64                  # accumulators a thread (csrc/rank_prefix.cuh)
 _ROW_WARPS = 4              # warps of a block; warp w takes rows r = w mod 4
+_RING_THREADS = 32 * (_ROW_WARPS + 1)   # K4's and K5's: + a producer warp
+_RING_BLOCKS = 396          # K4's and K5's stream: three blocks an SM
 _TARGET_BLOCKS = 264        # two blocks an SM on 132 SMs
 
 
@@ -154,10 +158,8 @@ def stream_product_ref(bm: BucketedMatrix, u: torch.Tensor,
         for j in range(cum[k + 1] - cum[k]):
             firsts.append((base[k] + j * tile_blocks) * G)
             us.append(u[k, j * n_r:(j + 1) * n_r])
-    splits = launch_shape(bm, K * bm.n_chunks // tile_blocks,
-                          bm.pos.shape[2])[2]
     return split_sum(bm, torch.tensor(firsts, device=u.device),
-                     torch.stack(us), splits)
+                     torch.stack(us), stream_plan(bm, tile_blocks)[2])
 
 
 def stream_matvec_ref(bm: BucketedMatrix, sel: StreamSelection,
@@ -233,6 +235,19 @@ def launch_shape(bm: BucketedMatrix, n_work: int, pos_row_bytes: int,
     return 32 * _ROW_WARPS, col_blocks, splits
 
 
+def stream_plan(bm: BucketedMatrix, tile_blocks: int) -> tuple:
+    """(threads, column blocks, splits) of the ring stream K4 and K5 share
+    (csrc/rank_prefix.cuh ring_stream_kernel): four consumer warps and a
+    producer warp a block, launch_shape's column blocks, and as many splits
+    of the K * nc / tile_blocks tiles as put at most _RING_BLOCKS blocks
+    (all resident at once) on the card. The plain versions take the split
+    count from here, so they add the splits as the kernel does."""
+    _, col_blocks, _ = launch_shape(bm, 1, bm.pos.shape[2])  # columns only
+    n_work = bm.n_ranks * bm.n_chunks // tile_blocks
+    splits = max(1, min(n_work, _RING_BLOCKS // col_blocks))
+    return _RING_THREADS, col_blocks, splits
+
+
 def stream_matvec(bm: BucketedMatrix, sel: StreamSelection,
                   tile_blocks: int = 8) -> torch.Tensor:
     """The per-rank prefix stream of a selection: y [OB*B] f32.
@@ -257,16 +272,16 @@ def stream_matvec(bm: BucketedMatrix, sel: StreamSelection,
                              f"contiguous {dt} {shape}")
     dev = sel.u_scaled.device
     prow = bm.pos.shape[2]
-    threads, col_blocks, splits = launch_shape(bm, K * nc // tile_blocks,
-                                               prow)
+    threads, col_blocks, splits = stream_plan(bm, tile_blocks)
     partial = torch.empty((splits, bm.out_dim), dtype=torch.float32,
                           device=dev)
     y = torch.empty(bm.out_dim, dtype=torch.float32, device=dev)
     vrow = bm.vals.shape[2] * bm.vals.element_size()
     _build.kernel_fn("stream_matvec", "effort_stream_matvec",
-                     "piipiiipppiiiiipiiipip")(
+                     "piipiiiipppiiiiipiiipip")(
         bm.vals.data_ptr(), _KIND[bm.vals.dtype], vrow, bm.pos.data_ptr(),
-        prow, vrow, bm.bucket_size, sel.cum_tiles.data_ptr(),
+        prow, vrow, bm.vals.shape[0] * G, bm.bucket_size,
+        sel.cum_tiles.data_ptr(),
         sel.base_blocks.data_ptr(), sel.u_scaled.data_ptr(), K, G,
         tile_blocks, bm.in_dim, bm.n_buckets, partial.data_ptr(), splits,
         col_blocks, threads, y.data_ptr(), dev.index,

@@ -62,12 +62,15 @@ def dense_matvec(v: torch.Tensor, wt: torch.Tensor) -> torch.Tensor:
 def _add_outliers(bm: BucketedMatrix, y: torch.Tensor, vp: torch.Tensor,
                   expert: int) -> torch.Tensor:
     """y[..., col] += w * v[..., row] for the exact int4 outlier table
-    (leading axes are slots)."""
+    (leading axes are slots). An outlier whose row truncate_bucketed
+    dropped (row >= in_dim) adds exactly 0: its index is clamped and its
+    term masked on the device, with no host sync."""
     if bm.outlier_vals is None:
         return y
     oi = bm.outlier_idx[expert].long()
-    return y.index_add(-1, oi[:, 1],
-                       bm.outlier_vals[expert] * vp[..., oi[:, 0]])
+    rows = oi[:, 0]
+    x = bm.outlier_vals[expert] * vp[..., rows.clamp(max=bm.in_dim - 1)]
+    return y.index_add(-1, oi[:, 1], torch.where(rows < bm.in_dim, x, 0.0))
 
 
 def bucket_matvec_ref(bm: BucketedMatrix, v: torch.Tensor, effort,

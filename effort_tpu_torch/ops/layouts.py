@@ -170,10 +170,15 @@ class BucketedMatrix:
             dense = torch.einsum("ikj,ikjp->ijp", vals, one_hot)
         dense = dense.reshape(self.in_dim, self.out_dim)
         if self.outlier_vals is not None:
+            # rows a truncation dropped (>= in_dim) add 0, as JAX's
+            # scatter drops them
             oidx = self.outlier_idx[expert].long()
+            rows = oidx[:, 0]
             flat = dense.reshape(-1).clone()
-            flat.index_add_(0, oidx[:, 0] * self.out_dim + oidx[:, 1],
-                            self.outlier_vals[expert])
+            flat.index_add_(0, rows.clamp(max=self.in_dim - 1) * self.out_dim
+                            + oidx[:, 1],
+                            torch.where(rows < self.in_dim,
+                                        self.outlier_vals[expert], 0.0))
             dense = flat.reshape(self.in_dim, self.out_dim)
         if not permuted_space:
             order = self.dim_order_full(expert)

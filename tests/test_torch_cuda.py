@@ -352,6 +352,87 @@ def test_rank_prefix_stream_cuda_kernels_match_plain(dtype):
     assert LAUNCHES["stream_matvec"] - before["stream_matvec"] == n
 
 
+# (B, percent_load, G, in_dim, out_dim, experts): K = 1, 2, 4, 8 and 16
+# ranks; 201 and 200 chunks, which leave the grid selection's blocks
+# unevenly full (one chunk or two) and, at 201, tiles of one 16-row chunk
+# (a part-full ring stage); 1040 buckets, which leave the stream's last
+# column block part-full; two experts; B = 16 and 32 (two position bytes a
+# lane)
+K4_CASES = ((2, 0.5, 16, 1024, 2048, 1), (2, 1.0, 16, 3216, 2048, 1),
+            (4, 1.0, 16, 3200, 4160, 1), (8, 1.0, 24, 1536, 2048, 2),
+            (16, 0.5, 16, 1024, 4096, 1), (32, 0.25, 16, 1024, 4096, 1),
+            (16, 1.0, 8, 512, 2048, 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bf16", "int8", "int4"])
+def test_fused_matvec_grid_selection_and_ring_match_plain(dtype):
+    """K4 (grid selection, ring stream) against its plain version on the
+    card over K4_CASES at efforts 0, 0.25 and 1: C_k, u, cum_tiles,
+    base_blocks and y equal bit for bit, the last expert of a two-expert
+    container too; at effort 0 on v = 0 every C_k is 1 and y is 0; two
+    calls on one input give the same bits; 40 calls in a row on one
+    stream, reusing the selection's scratch and ticket, each give their
+    plain version's y; K5 on K4's own selection gives K4's y; one launch
+    counted a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from effort_tpu_torch.kernels import prefix_stream as ps
+    from effort_tpu_torch.ops.bucketize import calib_row_order
+    from effort_tpu_torch.ops.bucketmul import _tile_blocks
+    g = torch.Generator(device="cuda")
+    g.manual_seed(11)
+    before = LAUNCHES["fused_matvec"]
+    n = 0
+    for B, pl, G, in_dim, out_dim, E in K4_CASES:
+        rms = torch.exp(torch.randn(in_dim, generator=g, device="cuda") * 1.2)
+        pi = calib_row_order(rms)
+        wt = torch.randn((E, in_dim, out_dim), generator=g,
+                         device="cuda") * 0.02
+        bm = bucketize(wt, BucketConfig(bucket_size=B, chunk_rows=G,
+                                        dtype=dtype, percent_load=pl),
+                       in_perm=torch.stack([pi] * E))
+        assert bm.n_ranks == max(1, round(pl * B))
+        tgb = _tile_blocks(bm)
+        expert = E - 1
+        v = rms[pi.long()] * torch.randn(in_dim, generator=g, device="cuda")
+        for e in (0.0, 0.25, 1.0):
+            y, C, sel = port_fs.fused_matvec(bm, v, e, expert, tgb,
+                                             return_selection=True)
+            y2 = port_fs.fused_matvec(bm, v, e, expert, tgb)
+            yr, Cr, selr = port_fs.fused_matvec_ref(bm, v, e, expert, tgb,
+                                                    return_selection=True)
+            y5 = ps.stream_matvec(bm, sel, tgb)
+            torch.cuda.synchronize()
+            what = (B, pl, G, in_dim, out_dim, E, e)
+            assert C.tolist() == Cr.tolist(), what
+            for a, b in zip(sel, selr):
+                assert torch.equal(a, b), what
+            assert torch.equal(y, yr), what
+            assert torch.equal(y2, y), what
+            assert torch.equal(y5, y), what
+            n += 2
+        # an empty selection (v = 0, effort 0) streams one chunk a rank
+        y, C, _ = port_fs.fused_matvec(bm, torch.zeros_like(v), 0.0, expert,
+                                       tgb, return_selection=True)
+        assert C.tolist() == [1] * bm.n_ranks
+        assert torch.equal(y, torch.zeros_like(y))
+        n += 1
+    # many calls in a row on one stream: the scratch and the ticket are
+    # reused by every call
+    bm, v = _rank_container(dtype, 5)
+    vs = [v * (1 + i / 8) for i in range(8)]
+    effs = (0.1, 0.3, 0.6, 1.0)
+    ys = [port_fs.fused_matvec(bm, vs[i % 8], effs[i % 4], 0)
+          for i in range(40)]
+    n += 40
+    for i in range(8):
+        yr = port_fs.fused_matvec_ref(bm, vs[i % 8], effs[i % 4], 0)
+        assert torch.equal(ys[i], yr), i
+        assert torch.equal(ys[i + 32], ys[i]), i
+    assert LAUNCHES["fused_matvec"] - before == n
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["bf16", "int8"])
 def test_block_gather_cuda_kernels_match_plain(dtype):

@@ -181,3 +181,31 @@ def test_rope_norm_and_head_match_jax(models):
     lt = port_tf.head_logits(tw, torch.from_numpy(h)).numpy()
     np.testing.assert_allclose(lt, lj, rtol=1e-5, atol=1e-6)
     assert int(np.argmax(lt)) == int(np.argmax(lj))
+
+
+def test_truncated_int4_outlier_model_matches_jax():
+    """A row-prefix int4 model with outlier tables loaded at half its rows
+    (outliers on dropped rows) decodes, and gives JAX's greedy tokens and
+    predictions on the reference route; the port's own random weights of
+    that configuration decode too."""
+    jb = JaxBucketConfig(bucket_size=1, chunk_rows=8, dtype="int4",
+                         outlier_frac=0.01)
+    jw = jax_tf.init_random_weights(jax_tiny(), jb, calibrate=True,
+                                    percent_load=0.5)
+    tw = model_weights_from_numpy(jax_weights_to_numpy(jw))
+    assert (tw.layers.w2.outlier_idx[..., 0] >= tw.layers.w2.in_dim).any()
+    cfg = tiny_test_model()
+    rj = JaxEngine(jw, jax_tiny(), impl="jnp", dynamic_effort=True,
+                   pad_to=PAD).generate([1, 5, 7], n_new=4, effort=0.5)
+    rt = Engine(tw, cfg, impl="reference", pad_to=PAD,
+                device="cpu").generate([1, 5, 7], n_new=4, effort=0.5)
+    assert rt.token_ids == rj.token_ids
+    assert rt.predictions == rj.predictions
+    w = port_tf.init_random_weights(
+        cfg, BucketConfig(bucket_size=1, chunk_rows=8, dtype="int4",
+                          outlier_frac=0.01),
+        calibrate=True, percent_load=0.5, device="cpu")
+    r = Engine(w, cfg, impl="reference", device="cpu").generate(
+        [1, 5, 7], 4, 0.5)
+    assert len(r.token_ids) == 4
+    assert all(0 <= t < cfg.vocab_size for t in r.token_ids)

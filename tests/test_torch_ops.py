@@ -2,6 +2,8 @@
 bucketize, position packing, the effort cutoff, the reference matvec and
 the weight-set utilities."""
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -186,3 +188,58 @@ def test_truncate_and_dense_match_jax(B):
         jax_weights.model_weight_bytes(
             tiny_test_model(), JaxBucketConfig(bucket_size=B, dtype="int4"),
             0.5)
+
+
+def test_truncate_int4_outliers_match_jax(monkeypatch):
+    """A row-prefix int4 container with an outlier table, truncated to half
+    its rows: the fields equal JAX's, outliers on dropped rows add 0, and
+    bucket_matvec / bucket_matmul and the dense copy agree with JAX: the
+    reference routes with its "jnp" route, the kernel routes with its
+    "pallas" route (interpret mode)."""
+    import effort_tpu.kernels.fused_stream as jax_fused_stream
+    from effort_tpu.ops.bucketmul import bucket_matmul as jax_bucket_matmul
+    from effort_tpu.ops.bucketmul import bucket_matvec as jax_bucket_matvec
+    from effort_tpu_torch.ops.bucketmul import bucket_matmul
+    monkeypatch.setattr(jax_fused_stream, "_INTERPRET", True)
+    wt = _wt(4, (512, OUT))
+    pi = np.random.default_rng(11).permutation(512).astype(np.int32)
+    jcfg = JaxBucketConfig(bucket_size=1, chunk_rows=8, dtype="int4",
+                           outlier_frac=0.01)
+    jb = jax_bucketize(jnp.asarray(wt), jcfg, in_perm=pi)
+    tb = bucketed_from_numpy(jax_bm_to_numpy(jb))
+    jt = jax_weights.truncate_bucketed(jb, 0.5)
+    tt = port_weights.truncate_bucketed(tb, 0.5)
+    assert tt.in_dim == jt.in_dim == 256
+    assert (tt.outlier_idx[..., 0] >= tt.in_dim).any()   # the case at stake
+    for f in ("vals", "pos", "stats", "scales", "probes", "probe_dims",
+              "outlier_vals", "outlier_idx"):
+        np.testing.assert_array_equal(torch_np(getattr(tt, f)),
+                                      np_of(getattr(jt, f)), err_msg=f)
+    V = np.random.default_rng(12).standard_normal((3, 512)).astype(np.float32)
+    for effort in (0.3, 1.0):
+        for jimpl, impl in (("jnp", "reference"), ("pallas", "kernel")):
+            for v in V:
+                yj = np_of(jax_bucket_matvec(jt, jnp.asarray(v), effort,
+                                             impl=jimpl))
+                yt = bucket_matvec(tt, torch.from_numpy(v), effort,
+                                   impl=impl).numpy()
+                assert cos(yj, yt) > 0.9999, (effort, impl, cos(yj, yt))
+            Yj = np_of(jax_bucket_matmul(jt, jnp.asarray(V), effort,
+                                         impl=jimpl))
+            Yt = bucket_matmul(tt, torch.from_numpy(V), effort,
+                               impl=impl).numpy()
+            for a, b in zip(Yj, Yt):
+                assert cos(a, b) > 0.9999, (effort, impl, cos(a, b))
+    # the reference route adds the outlier terms exactly: dropping the
+    # rows' terms by hand gives the same bits
+    y = bucket_matvec_ref(tt, torch.from_numpy(V[0]), 0.5)
+    keep = tt.outlier_idx[0, :, 0] < tt.in_dim
+    cut = dataclasses.replace(tt, outlier_vals=tt.outlier_vals[:, keep],
+                              outlier_idx=tt.outlier_idx[:, keep])
+    torch.testing.assert_close(
+        bucket_matvec_ref(cut, torch.from_numpy(V[0]), 0.5), y, rtol=0,
+        atol=0)
+    np.testing.assert_allclose(
+        port_weights.attach_dense_bucketed(tt).dense.float().numpy(),
+        np.asarray(jax_weights.attach_dense_bucketed(jt).dense, np.float32),
+        rtol=0, atol=0)

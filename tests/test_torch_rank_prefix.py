@@ -233,3 +233,48 @@ def test_rank_prefix_routes_on_the_cpu():
     torch.testing.assert_close(
         bucket_matvec(b_odd, vt, EFFORT),
         bucket_matvec(b_odd, vt, EFFORT, impl="reference"), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("name,in_dim,out_dim,col_blocks", [
+    ("wqkv", 4096, 6144, 3), ("wo", 4096, 4096, 2), ("w13", 4096, 28672, 14),
+    ("w2", 14336, 4096, 2)])
+def test_stream_plan_at_mistral_widths(name, in_dim, out_dim, col_blocks):
+    """The ring stream's launch shape at the four Mistral-7B projections (B
+    = 4, G = 16, K = 4; the container's widths stood in on a small one): a
+    producer warp beside four consumer warps, column blocks that cover the
+    position row, and splits that keep every block resident (at most
+    _RING_BLOCKS in all) and at most one a tile."""
+    import dataclasses
+    _, tb, _ = containers("int8")
+    B, K = tb.bucket_size, tb.n_ranks
+    prow = -(-(out_dim // B) * 2 // 8 // 128) * 128   # 2-bit positions
+    bm = dataclasses.replace(
+        tb, in_dim=in_dim, out_dim=out_dim,
+        pos=torch.zeros((1, 1, prow), dtype=torch.uint8))
+    threads, cb, splits = port_ps.stream_plan(bm, TGB)
+    n_work = K * (in_dim // G) // TGB
+    assert threads == 32 * 5
+    assert cb == col_blocks
+    assert cb * 32 * port_ps.cols_per_thread(B, True) >= prow
+    assert splits == max(1, min(n_work, port_ps._RING_BLOCKS // cb))
+    assert cb * splits <= port_ps._RING_BLOCKS
+
+
+def test_plain_stream_takes_the_plan(monkeypatch):
+    """The plain stream adds its splits as the kernel does: it takes the
+    split count from stream_plan, so another plan gives another order of
+    sums (and the same value to rounding)."""
+    _, tb, v = containers("int8", seed=5)
+    sel = port_ps.select_stream(tb, torch.from_numpy(v), 0.5, 0, TGB)
+    y = port_ps.stream_matvec_ref(tb, sel, TGB)
+    seen = []
+    plan = port_ps.stream_plan
+
+    def one_split(bm, tile_blocks):
+        seen.append(tile_blocks)
+        return plan(bm, tile_blocks)[:2] + (1,)
+    monkeypatch.setattr(port_ps, "stream_plan", one_split)
+    y1 = port_ps.stream_matvec_ref(tb, sel, TGB)
+    assert seen == [TGB]
+    assert plan(tb, TGB)[2] > 1
+    torch.testing.assert_close(y1, y, rtol=1e-5, atol=1e-6)
