@@ -77,16 +77,18 @@ Phases, one JSON line each (a failure raises and exits non-zero):
             tau 0.97 the device time of one K4 call by kernel (selection,
             stream, split sum); K6 (gather_matvec_dma, csrc/gather_dma.cu)
             and K7 (gather_bucket_matvec, csrc/gather_mul.cu) likewise at
-            {bf16, int8} x the efforts (their bit equality printed only),
-            K6 against K7 to 1e-5; times beside the bound and the dense
-            bf16 torch.mm GEMV
+            {bf16, int8} x the efforts at the gather route's capacity, y
+            bit for bit and K7 equal to K6; times beside the bound and the
+            dense bf16 torch.mm GEMV (K6's and K7's `kernels` entries also
+            give each projection's ms)
   rank_decode
             the row-prefix model freed, Mistral-7B width and depth with int8
             rank-prefix buckets (B = 4, G = 16), fused projections, int8 LM
             head, no dense copies: Engine.generate on the four prompts at
             efforts 0.25, 0.5 and 1.0 through "auto" (K4 only, 4 * 32
             launches a step), a few tokens through "stream" (K5 only) and
-            "gather" (K6 only) at 8-slot padding; device time by kernel
+            "gather" (K6 only) at 8-slot padding, and the "gather" route's
+            device time by kernel over two tokens; device time by kernel
             over one request;
             every layer's K4 call against its plain version on the same
             inputs at depth 32 (cos >= 0.9999, equal C_k); the kernel route
@@ -541,8 +543,8 @@ KERNEL_PARTS = {"k1_select": "namespace)::select_kernel",
                 "k3": "namespace)::flash_kernel",
                 "k4_select": "namespace)::grid_select_kernel",
                 "k4_k5_stream": "rank_prefix::ring_stream_kernel",
-                "k4_k5_split_sum": "rank_prefix::reduce_splits",
-                "k6_k7_gather": "block_gather::gather_kernel"}
+                "split_sum": "rank_prefix::reduce_splits",    # K4-K7's
+                "k6_k7_gather": "block_gather::ring_gather_kernel"}
 
 
 def device_profile(fn) -> dict:
@@ -1146,8 +1148,8 @@ def phase_kernels_rank(flush: torch.Tensor) -> dict:
 
 def gather_points(bm, base, effort, vs, flush, lib_ms, out) -> None:
     """K6 and K7 at one effort: the gather route's capacity, one selection
-    per fresh input, each kernel against its plain version, K7 against
-    K6."""
+    per fresh input, each kernel against its plain version and K7 against
+    K6, all bit for bit."""
     cap = bucketmul.gather_capacity(bm, effort)
     pos7 = gather_mul.unpacked_positions(bm)
     sels = [select_blocks(bm, v, effort, 0, cap) for v in vs]
@@ -1163,9 +1165,10 @@ def gather_points(bm, base, effort, vs, flush, lib_ms, out) -> None:
     p6 = held("K6", y6, y6r, dict(pt))
     p7 = held("K7", y7, y7r, dict(pt))
     p7["k7_vs_k6_max_abs_diff"] = float((y7 - y6).abs().max())
-    if not 1 <= n_blocks <= bm.blocks_per_expert \
-            or not p7["k7_vs_k6_max_abs_diff"] <= 1e-5:
-        raise AssertionError(f"K6/K7 selection or agreement: {p7}")
+    if not 1 <= n_blocks <= bm.blocks_per_expert or not torch.equal(y7, y6) \
+            or not p6["bitwise_equal"] or not p7["bitwise_equal"]:
+        raise AssertionError(f"K6/K7 selection, y bit for bit, or K7 "
+                             f"against K6: {p6} {p7}")
     out["k6"].append(timed(
         p6, flush, lambda s: gather_dma.gather_matvec_dma(bm, s),
         lambda s: gather_dma.gather_matvec_dma_ref(bm, s),
@@ -1250,6 +1253,12 @@ def phase_rank_decode(cfg, w, prompts) -> dict:
         check_replies([rep.token_ids], cfg, n_new, f"rank decode, {impl}")
         check_launches(launches, only(RANK_ROUTES[impl], st, L),
                        f"rank decode through {impl}")
+        if impl == "gather":
+            # K6's share of the route's device time, over two tokens
+            r["profile"] = device_profile(lambda: e.generate(
+                prompts[0], n_new=2, effort=0.25))
+            r["profile"]["steps"] = padded(len(prompts[0]), pad) + 1
+            emit({"phase": "rank_gather_profile", **r["profile"]})
     out["profile"] = device_profile(lambda: eng.generate(
         prompts[0], n_new=8, effort=0.25))
     emit({"phase": "rank_profile", "steps": padded(len(prompts[0])) + 7,
@@ -1420,6 +1429,16 @@ def k2_row(points: list, launches: int) -> dict:
     return row
 
 
+def gather_row(name: str, source: str, replaces: str, points: list,
+               launches: int) -> dict:
+    """K6's or K7's entry, with its ms at each projection of the summary
+    (ms_by_shape: one launch each)."""
+    pick = lambda p: (p["dtype"], p["effort"]) == SUMMARY_RANK[:2]  # noqa
+    row = summary_row(name, source, replaces, points, launches, pick)
+    row["ms_by_shape"] = {p["shape"]: p["ms"] for p in points if pick(p)}
+    return row
+
+
 def k4_row(points: list, launches: int) -> dict:
     """K4's entry, with where one layer's four calls spend their device
     time (parts_ms: selection, stream, split sum)."""
@@ -1431,7 +1450,7 @@ def k4_row(points: list, launches: int) -> dict:
     parts = [p["parts_ms"] for p in points if pick(p)]
     row["parts_ms"] = {k: sum(q.get(k, 0.0) for q in parts)
                        for k in ("k4_select", "k4_k5_stream",
-                                 "k4_k5_split_sum")}
+                                 "split_sum")}
     return row
 
 
@@ -1512,16 +1531,14 @@ def main() -> int:
             "effort_tpu/kernels/prefix_stream.py:91",
             out["points_rank"]["k5"], rank_launches["stream_matvec"],
             summary_rank),
-        summary_row(
+        gather_row(
             "gather_matvec_dma", "effort_tpu_torch/csrc/gather_dma.cu",
             "effort_tpu/kernels/gather_dma.py:34",
-            out["points_rank"]["k6"], rank_launches["gather_matvec_dma"],
-            summary_rank),
-        summary_row(
+            out["points_rank"]["k6"], rank_launches["gather_matvec_dma"]),
+        gather_row(
             "gather_bucket_matvec", "effort_tpu_torch/csrc/gather_mul.cu",
             "effort_tpu/kernels/gather_mul.py:36",
-            out["points_rank"]["k7"], rank_launches["gather_bucket_matvec"],
-            summary_rank)]
+            out["points_rank"]["k7"], rank_launches["gather_bucket_matvec"])]
     out["seconds"] = time.perf_counter() - t_start
     OUT_DIR.mkdir(exist_ok=True)
     with open(OUT_DIR / "chip_smoke.json", "w") as f:

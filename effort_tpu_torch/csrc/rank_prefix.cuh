@@ -38,8 +38,9 @@
 // in flight while four consumer warps compute on the stages that have
 // landed. The tensor maps (vals and pos as [blocks * G, row bytes] bytes)
 // are encoded on the host each call, through the runtime's driver entry
-// point (CUDA 12.5 or later). accum_rows() and write_partial() are the
-// synchronous body K6 and K7 use.
+// point (CUDA 12.5 or later). The ring's parts (Ring's stage layout,
+// stage_boxes, scatter_row, write_sums) also make K6's and K7's gather
+// (block_gather.cuh), whose stages are one gathered block each.
 //
 // Work is split over (column block, split). A lane owns NBT consecutive
 // position bytes and so NBT * (8/bits) columns, B accumulators each, 64 in
@@ -67,7 +68,6 @@ using row_prefix::kInt8;
 using row_prefix::kSelThreads;
 
 constexpr int kMaxRanks = 32;
-constexpr int kMaxTileRows = 2048;   // rows of a tile (or gathered block)
 constexpr int kRowWarps = 4;         // warps of a block, one row in 4 each
 constexpr int kThreads = 32 * kRowWarps;
 constexpr int kMaxMasses = 24576;    // K * nc f64 masses of K4's selection
@@ -99,30 +99,6 @@ struct Owned {
   static constexpr int kNBT = kAccs / (Pos::kPerByte * B);
 };
 
-// NB bytes at p (aligned to min(NB, 16)) as 32-bit words, streamed past L1.
-template <int NB>
-__device__ __forceinline__ void load_bytes(const uint8_t* p, uint32_t* w) {
-  if constexpr (NB >= 16) {
-#pragma unroll
-    for (int i = 0; i < NB / 16; ++i) {
-      const uint4 x = __ldcs(reinterpret_cast<const uint4*>(p) + i);
-      w[4 * i] = x.x;
-      w[4 * i + 1] = x.y;
-      w[4 * i + 2] = x.z;
-      w[4 * i + 3] = x.w;
-    }
-  } else if constexpr (NB == 8) {
-    const uint2 x = __ldcs(reinterpret_cast<const uint2*>(p));
-    w[0] = x.x;
-    w[1] = x.y;
-  } else if constexpr (NB == 4) {
-    w[0] = __ldcs(reinterpret_cast<const unsigned int*>(p));
-  } else {
-    static_assert(NB == 2, "2, 4, 8 or a multiple of 16 bytes");
-    w[0] = __ldcs(reinterpret_cast<const unsigned short*>(p));
-  }
-}
-
 __device__ __forceinline__ uint32_t byte_at(const uint32_t* w, int i) {
   return (w[i >> 2] >> (8 * (i & 3))) & 0xffu;
 }
@@ -141,100 +117,14 @@ __device__ __forceinline__ float value_at(const uint32_t* w, int i, bool hi) {
   }
 }
 
-// acc[(t*NBT + i)*B + p] += u_r * W[r, c] (each rounded, in row order; the
-// other B-1 accumulators add 0) for the rows r = r0, r0 + kRowWarps, ...
-// < nrows from global row row0 on, where c = t*prow + jb0 + i (t < 8/bits,
-// i < NBT) is one of the thread's columns and p its position. s_u holds u
-// of the rows. half: int4 value row bytes (columns >= half are the high
-// nibbles).
-template <int KIND, int B, class Pos>
-__device__ __forceinline__ void accum_rows(
-    const uint8_t* __restrict__ vals, int vrow,
-    const uint8_t* __restrict__ pos, int prow, int half, size_t row0,
-    int r0, int nrows, const float* s_u, int jb0, int OB, float* acc) {
-  constexpr int PB = Pos::kPerByte;
-  constexpr int NBT = Owned<B, Pos>::kNBT;
-  constexpr int VB = KIND == kBf16 ? 2 * NBT : NBT;   // value bytes a group
-  constexpr int PW = (NBT + 3) / 4, VW = (VB + 3) / 4;
-  // rows in flight: up to 8, while their loads take at most 32 registers
-  constexpr int U = PB * VW >= 16 ? 2 : (PB * VW >= 8 ? 4 : 8);
-  int voff[PB];
-  bool live[PB], hi[PB];
-#pragma unroll
-  for (int t = 0; t < PB; ++t) {
-    const int c0 = t * prow + jb0;
-    live[t] = c0 < OB;
-    hi[t] = KIND == kInt4 && c0 >= half;
-    voff[t] = KIND == kBf16 ? 2 * c0 : (hi[t] ? c0 - half : c0);
-  }
-  constexpr int S = kRowWarps;
-  for (int r = r0; r < nrows; r += U * S) {
-    uint32_t pw[U][PW], vw[U][PB][VW];
-    float uu[U];
-#pragma unroll
-    for (int q = 0; q < U; ++q) {
-      const bool in = r + q * S < nrows;
-      const size_t row = row0 + r + q * S;
-      uu[q] = in ? s_u[r + q * S] : 0.f;
-      if (in) load_bytes<NBT>(pos + row * prow + jb0, pw[q]);
-#pragma unroll
-      for (int t = 0; t < PB; ++t)
-        if (in && live[t]) load_bytes<VB>(vals + row * vrow + voff[t],
-                                          vw[q][t]);
-    }
-#pragma unroll
-    for (int q = 0; q < U; ++q) {
-      if (r + q * S >= nrows) break;
-#pragma unroll
-      for (int t = 0; t < PB; ++t) {
-        if (!live[t]) continue;
-#pragma unroll
-        for (int i = 0; i < NBT; ++i) {
-          const int p = Pos::at(byte_at(pw[q], i), t);
-          const float x = __fmul_rn(uu[q], value_at<KIND>(vw[q][t], i,
-                                                           hi[t]));
-          float* a = acc + (t * NBT + i) * B;
-#pragma unroll
-          for (int pp = 0; pp < B; ++pp)
-            a[pp] = __fadd_rn(a[pp], p == pp ? x : 0.f);
-        }
-      }
-    }
-  }
-}
+// ---- the ring (K4's and K5's stream, K6's and K7's gather) ----------------
 
-// partial[j*B + p] of the block's columns: each column's kRowWarps warp
-// sums added in warp order (the warps took rows r = w mod kRowWarps).
-// Every thread of the block calls it.
-template <int B, class Pos>
-__device__ __forceinline__ void write_partial(const float* acc, int prow,
-                                              int OB,
-                                              float* __restrict__ partial) {
-  constexpr int NBT = Owned<B, Pos>::kNBT;
-  __shared__ float s_acc[kRowWarps][kAccs][32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int i = 0; i < kAccs; ++i) s_acc[warp][i][lane] = acc[i];
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < kAccs * 32; idx += kThreads) {
-    const int i = idx >> 5, l = idx & 31;
-    const int jb0 = (blockIdx.x * 32 + l) * NBT;
-    const int t = i / (NBT * B), c = t * prow + jb0 + (i / B) % NBT;
-    if (jb0 >= prow || c >= OB) continue;
-    float s = s_acc[0][i][l];
-#pragma unroll
-    for (int w = 1; w < kRowWarps; ++w) s = __fadd_rn(s, s_acc[w][i][l]);
-    partial[(size_t)c * B + i % B] = s;
-  }
-}
-
-// ---- the ring stream (K4 and K5) ------------------------------------------
-
-constexpr int kStageRows = 32;        // rows of a ring stage (of a box)
+constexpr int kStageRows = 32;        // rows of a stream stage (of a box)
 constexpr int kMaxStages = 8;
 constexpr int kRingBudget = 72 * 1024;  // ring bytes: three blocks an SM
 constexpr int kRingThreads = kThreads + 32;  // + the producer warp
-constexpr int kMaxBoxes = 17;         // boxes a stage: 2 per value group + 1
+constexpr int kMaxBoxBytes = 256;     // the copy engine's widest box row
+constexpr int kMaxBoxes = 17;         // boxes a stage
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -282,10 +172,10 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 }
 
 // A box of the 2-D row-major byte tensor *map (rows of row_bytes), columns
-// x .. x + box width - 1 of rows y .. y + kStageRows - 1, into shared
-// memory at dst (128-aligned) by the copy engine; columns or rows outside
-// the tensor arrive as zeros. Completion counts the box's bytes against
-// *bar.
+// x .. x + box width - 1 of rows y .. y + box rows - 1 (encode_rows), into
+// shared memory at dst (128-aligned) by the copy engine; columns or rows
+// outside the tensor arrive as zeros. Completion counts the box's bytes
+// against *bar.
 __device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map,
                                         int x, int y, uint64_t* bar) {
   asm volatile(
@@ -296,91 +186,250 @@ __device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
-// NB bytes of shared memory at p (aligned to NB) as 32-bit words.
+// NB bytes of shared memory at p (aligned to min(NB, 16)) as 32-bit words.
 template <int NB>
 __device__ __forceinline__ void lds_bytes(const uint8_t* p, uint32_t* w) {
-  if constexpr (NB == 8) {
+  if constexpr (NB >= 16) {
+    static_assert(NB % 16 == 0, "a multiple of 16 bytes");
+#pragma unroll
+    for (int i = 0; i < NB / 16; ++i) {
+      const uint4 x = reinterpret_cast<const uint4*>(p)[i];
+      w[4 * i] = x.x;
+      w[4 * i + 1] = x.y;
+      w[4 * i + 2] = x.z;
+      w[4 * i + 3] = x.w;
+    }
+  } else if constexpr (NB == 8) {
     const uint2 x = *reinterpret_cast<const uint2*>(p);
     w[0] = x.x;
     w[1] = x.y;
   } else if constexpr (NB == 4) {
     w[0] = *reinterpret_cast<const uint32_t*>(p);
   } else {
-    static_assert(NB == 2, "2, 4 or 8 bytes");
+    static_assert(NB == 2, "2, 4, 8 or a multiple of 16 bytes");
     w[0] = *reinterpret_cast<const unsigned short*>(p);
   }
 }
 
-// What a block of the ring stream stages: for each value group t (columns
-// t*prow + jb, t < 8/bits) a slab of kStageRows rows x its 32 lanes' value
-// bytes (lane l at l*VB), int4 a second slab for the high-nibble lanes;
-// then a slab of the lanes' position bytes (lane l at l*NBT). Each slab is
-// one copy-engine box.
-template <int KIND, int B>
+// Bytes a box of rows x bytes takes in a stage: rounded up to 128, where
+// the copy engine's boxes land.
+__host__ __device__ constexpr int part_bytes(int rows, int bytes) {
+  return (rows * bytes + 127) / 128 * 128;
+}
+
+// The stages of stage_bytes that fit the ring budget, 2 to kMaxStages.
+__host__ __device__ constexpr int ring_stages(int stage_bytes) {
+  return kRingBudget / stage_bytes > kMaxStages
+             ? kMaxStages
+             : (kRingBudget / stage_bytes < 2 ? 2
+                                              : kRingBudget / stage_bytes);
+}
+
+// A ring kernel's dynamic shared bytes for a ring of ring_bytes: the ring
+// also holds the consumer warps' sums at the end (write_sums); 128 bytes
+// to align it.
+__host__ __device__ constexpr int ring_smem(int ring_bytes) {
+  return 128 + (ring_bytes > kRowWarps * kAccs * 32 * 4
+                    ? ring_bytes
+                    : kRowWarps * kAccs * 32 * 4);
+}
+
+// What a block of a ring kernel stages, a stage of `rows` rows (the
+// stream's kStageRows, or a gathered block's G): for each value group t
+// (columns t*prow + jb, t < PB) a slab of rows x its 32 lanes' value bytes
+// (lane l at l*VB), int4 a second slab for the high-nibble lanes; then a
+// slab of the lanes' position bytes (lane l at l*NBT). A slab row wider
+// than the copy engine's widest box (kMaxBoxBytes: K7's, one position
+// byte a column) is cut into parts of that width, lane l's bytes in part
+// l*VB / kVPart. Each part of a slab is one box and starts on 128 bytes.
+template <int KIND, int B, class P = PackedPos<B>>
 struct Ring {
-  using Pos = PackedPos<B>;
+  using Pos = P;
   static constexpr int kPB = Pos::kPerByte;
   static constexpr int kNBT = Owned<B, Pos>::kNBT;
   static constexpr int kVB = KIND == kBf16 ? 2 * kNBT : kNBT;
-  static constexpr int kVBox = 32 * kVB;   // bytes a row of a value box
-  static constexpr int kPBox = 32 * kNBT;  // bytes a row of the position box
+  static constexpr int kVBox = 32 * kVB;   // bytes a row of a value slab
+  static constexpr int kPBox = 32 * kNBT;  // bytes a row of the position slab
+  static constexpr int kVPart = kVBox < kMaxBoxBytes ? kVBox : kMaxBoxBytes;
+  static constexpr int kPPart = kPBox < kMaxBoxBytes ? kPBox : kMaxBoxBytes;
+  static constexpr int kVParts = kVBox / kVPart, kPParts = kPBox / kPPart;
   static constexpr int kVSlabs = KIND == kInt4 ? 2 * kPB : kPB;
-  static constexpr int kPSlab = kVSlabs * kStageRows * kVBox;  // its offset
-  static constexpr int kStageBytes = kPSlab + kStageRows * kPBox;
-  static constexpr int kStages =
-      kRingBudget / kStageBytes > kMaxStages
-          ? kMaxStages
-          : (kRingBudget / kStageBytes < 2 ? 2 : kRingBudget / kStageBytes);
-  // the ring also holds the warps' sums at the end; 128 bytes to align it
-  static constexpr int kSmem =
-      128 + (kStages * kStageBytes > kRowWarps * kAccs * 32 * 4
-                 ? kStages * kStageBytes
-                 : kRowWarps * kAccs * 32 * 4);
+  static_assert(kVSlabs * kVParts + kPParts <= kMaxBoxes, "boxes a stage");
+
+  // the position slab's offset in a stage of `rows` rows, a stage's
+  // bytes, the ring's stages and the kernel's dynamic shared bytes
+  __host__ __device__ static constexpr int pslab(int rows) {
+    return kVSlabs * kVParts * part_bytes(rows, kVPart);
+  }
+  __host__ __device__ static constexpr int stage_bytes(int rows) {
+    return pslab(rows) + kPParts * part_bytes(rows, kPPart);
+  }
+  __host__ __device__ static constexpr int stages(int rows) {
+    return ring_stages(stage_bytes(rows));
+  }
+  __host__ __device__ static constexpr int smem(int rows) {
+    return ring_smem(stages(rows) * stage_bytes(rows));
+  }
+  // the stream's (kStageRows rows)
+  static constexpr int kPSlab = kVSlabs * kVParts *
+                                part_bytes(kStageRows, kVPart);
+  static constexpr int kStageBytes =
+      kPSlab + kPParts * part_bytes(kStageRows, kPPart);
+  static constexpr int kStages = ring_stages(kStageBytes);
+  static constexpr int kSmem = ring_smem(kStages * kStageBytes);
+
+  // lane `lane`'s bytes of row q of value slab s, and of the position
+  // slab, in a stage st of `rows` rows
+  __device__ static __forceinline__ const uint8_t* vbytes(const uint8_t* st,
+                                                          int rows, int s,
+                                                          int q, int lane) {
+    const int off = lane * kVB;
+    return st + (s * kVParts + off / kVPart) * part_bytes(rows, kVPart) +
+           q * kVPart + off % kVPart;
+  }
+  __device__ static __forceinline__ const uint8_t* pbytes(const uint8_t* st,
+                                                          int rows, int q,
+                                                          int lane) {
+    const int off = lane * kNBT;
+    return st + pslab(rows) + (off / kPPart) * part_bytes(rows, kPPart) +
+           q * kPPart + off % kPPart;
+  }
 };
 
-// The boxes of a stage for column block bx: {x, slab}; the value boxes,
-// then the position box. Value group t's live lanes (columns < OB) take
-// one box at byte x = c (bf16: 2c), c lane 0's first column; int4's
-// high-nibble lanes (columns >= half) one more at x = c - half into slab
-// kPB + t (x < 0 where the group straddles half: those bytes arrive as
-// zeros and belong to low-nibble lanes, which read slab t). Returns the
-// count.
-template <int KIND, int B>
-__device__ int stage_boxes(int bx, int prow, int half, int OB,
-                           int (*box)[2]) {
-  using R = Ring<KIND, B>;
-  constexpr int NBT = R::kNBT;
+// Whether part j (w bytes a row) of a slab holds bytes of any of lanes l0
+// .. l1 - 1 (lb bytes each).
+__device__ __forceinline__ bool holds(int j, int w, int l0, int l1, int lb) {
+  return l1 > l0 && j * w < l1 * lb && (j + 1) * w > l0 * lb;
+}
+
+// The boxes of a stage of `rows` rows for column block bx, value boxes
+// first: {x, offset in the stage, map (0 values, 1 positions)}. Value group
+// t's live lanes (columns < OB) take the parts of slab t that hold their
+// bytes, from byte x = c (bf16: 2c) on, c lane 0's first column; int4's
+// high-nibble lanes (columns >= half) the parts of slab kPB + t from x = c
+// - half (x < 0 where the group straddles half: those bytes arrive as zeros
+// and belong to low-nibble lanes, which read slab t); the positions the
+// parts of their slab from x = jb. Returns the count; *bytes the stage's
+// bytes.
+template <int KIND, int B, class Pos>
+__device__ int stage_boxes(int bx, int prow, int half, int OB, int rows,
+                           int (*box)[3], uint32_t* bytes) {
+  using R = Ring<KIND, B, Pos>;
+  constexpr int NBT = R::kNBT, VB = R::kVB, VW = R::kVPart, PW = R::kPPart;
   const int jb = bx * 32 * NBT;  // the block's first position byte
   const int lanes = max(0, min(32, (prow - jb) / NBT));
-  if (lanes == 0) return 0;
+  const int vpart = part_bytes(rows, VW), ppart = part_bytes(rows, PW);
   int n = 0;
-  for (int t = 0; t < R::kPB; ++t) {
-    const int c = t * prow + jb;  // lane 0's first column
-    const int live = max(0, min(lanes, (OB - c) / NBT));
-    const int lo = KIND == kInt4 ? max(0, min(live, (half - c) / NBT)) : live;
-    if (lo > 0) {
-      box[n][0] = KIND == kBf16 ? 2 * c : c;
-      box[n][1] = t;
-      ++n;
+  if (lanes > 0) {
+    for (int t = 0; t < R::kPB; ++t) {
+      const int c = t * prow + jb;  // lane 0's first column
+      const int live = max(0, min(lanes, (OB - c) / NBT));
+      const int lo =
+          KIND == kInt4 ? max(0, min(live, (half - c) / NBT)) : live;
+#pragma unroll
+      for (int j = 0; j < R::kVParts; ++j) {
+        if (holds(j, VW, 0, lo, VB)) {
+          box[n][0] = (KIND == kBf16 ? 2 * c : c) + j * VW;
+          box[n][1] = (t * R::kVParts + j) * vpart;
+          box[n][2] = 0;
+          ++n;
+        }
+        if (KIND == kInt4 && holds(j, VW, lo, live, VB)) {  // high nibbles
+          box[n][0] = c - half + j * VW;
+          box[n][1] = ((R::kPB + t) * R::kVParts + j) * vpart;
+          box[n][2] = 0;
+          ++n;
+        }
+      }
     }
-    if (live > lo) {  // int4 high nibbles
-      box[n][0] = c - half;
-      box[n][1] = R::kPB + t;
+  }
+  const int nv = n;
+#pragma unroll
+  for (int j = 0; j < R::kPParts; ++j) {
+    if (holds(j, PW, 0, lanes, NBT)) {
+      box[n][0] = jb + j * PW;
+      box[n][1] = R::pslab(rows) + j * ppart;
+      box[n][2] = 1;
       ++n;
     }
   }
-  box[n][0] = jb;
-  box[n][1] = -1;  // the position slab
-  return n + 1;
+  *bytes = rows * (nv * VW + (n - nv) * PW);
+  return n;
+}
+
+// Row q of a stage st of `rows` rows, times uu, into the lane's
+// accumulators: acc[(t*NBT + i)*B + p] += uu * W[q, c] (the product rounded,
+// then the sum, no fused multiply-add) for each of the lane's live columns
+// c = t*prow + jb0 + i, p the column's position. The plain versions add 0
+// to the other B-1 accumulators, which leaves them as they are (a sum that
+// starts at +0 is never -0), so skipping those adds keeps every bit.
+template <int KIND, int B, class Pos>
+__device__ __forceinline__ void scatter_row(const uint8_t* st, int rows,
+                                            int q, int lane, float uu,
+                                            const bool* live, const bool* hi,
+                                            float* acc) {
+  using R = Ring<KIND, B, Pos>;
+  constexpr int PB = R::kPB, NBT = R::kNBT, VB = R::kVB;
+  uint32_t pw[(NBT + 3) / 4], vw[PB][(VB + 3) / 4];
+  lds_bytes<NBT>(R::pbytes(st, rows, q, lane), pw);
+#pragma unroll
+  for (int t = 0; t < PB; ++t)
+    if (live[t]) lds_bytes<VB>(R::vbytes(st, rows, hi[t] ? PB + t : t, q,
+                                         lane),
+                               vw[t]);
+#pragma unroll
+  for (int t = 0; t < PB; ++t) {
+    if (!live[t]) continue;
+#pragma unroll
+    for (int i = 0; i < NBT; ++i) {
+      const int p = Pos::at(byte_at(pw, i), t);
+      const float x = __fmul_rn(uu, value_at<KIND>(vw[t], i, hi[t]));
+      float* a = acc + (t * NBT + i) * B;
+#pragma unroll
+      for (int pp = 0; pp < B; ++pp)
+        if (p == pp) a[pp] = __fadd_rn(a[pp], x);
+    }
+  }
+}
+
+// out[j*B + p] for the block's columns (one split's partial sums): each
+// column's kRowWarps consumer warp sums (acc), added in warp order (the
+// warps took rows r = w mod kRowWarps). They pass through the ring, which
+// is free once every stage is consumed. Every thread of the block calls it.
+template <int B, class Pos>
+__device__ __forceinline__ void write_sums(const float* acc, uint8_t* ring,
+                                           int prow, int OB,
+                                           float* __restrict__ out) {
+  constexpr int NBT = Owned<B, Pos>::kNBT;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  __syncthreads();  // every stage is consumed: the ring is free
+  float* s_acc = reinterpret_cast<float*>(ring);  // [kRowWarps][kAccs][32]
+  if (warp < kRowWarps) {
+#pragma unroll
+    for (int i = 0; i < kAccs; ++i)
+      s_acc[(warp * kAccs + i) * 32 + lane] = acc[i];
+  }
+  __syncthreads();
+  for (int idx = tid; idx < kAccs * 32; idx += kRingThreads) {
+    const int i = idx >> 5, l = idx & 31;
+    const int jb = (blockIdx.x * 32 + l) * NBT;
+    const int t = i / (NBT * B), c = t * prow + jb + (i / B) % NBT;
+    if (jb >= prow || c >= OB) continue;
+    float s = s_acc[i * 32 + l];
+#pragma unroll
+    for (int w = 1; w < kRowWarps; ++w)
+      s = __fadd_rn(s, s_acc[(w * kAccs + i) * 32 + l]);
+    out[(size_t)c * B + i % B] = s;
+  }
 }
 
 // grid (column blocks, S), kRingThreads threads, Ring::kSmem dynamic
 // shared bytes: split y streams tiles y, y + S, ... < cum[K] in ring stages
 // of kStageRows rows and writes partial[y][:]; splits past the last tile
 // exit at once. Warps 0-3 consume (warp w takes rows r = w mod 4 of each
-// tile, in order, as accum_rows does); one lane of warp 4 produces,
-// asking the copy engine for a stage's boxes (vmap over the value rows,
-// pmap over the position rows) on the stage's mbarrier.
+// tile, in order: scatter_row); one lane of warp 4 produces, asking the
+// copy engine for a stage's boxes (vmap over the value rows, pmap over the
+// position rows) on the stage's mbarrier.
 template <int KIND, int B>
 __global__ void __launch_bounds__(kRingThreads, 3) ring_stream_kernel(
     const __grid_constant__ CUtensorMap vmap,
@@ -391,14 +440,15 @@ __global__ void __launch_bounds__(kRingThreads, 3) ring_stream_kernel(
     float* __restrict__ partial) {
   using R = Ring<KIND, B>;
   using Pos = typename R::Pos;
-  constexpr int PB = R::kPB, NBT = R::kNBT, VB = R::kVB;
+  constexpr int PB = R::kPB, NBT = R::kNBT;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* ring = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 127) & ~uintptr_t(127));
   __shared__ __align__(8) uint64_t full[kMaxStages], empty[kMaxStages];
   __shared__ int s_cum[kMaxRanks + 1], s_base[kMaxRanks];
-  __shared__ int s_box[kMaxBoxes][2];
+  __shared__ int s_box[kMaxBoxes][3];
   __shared__ int s_nbox;
+  __shared__ uint32_t s_bytes;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   if (tid <= K) s_cum[tid] = cum_tiles[tid];
   if (tid < K) s_base[tid] = base_blocks[tid];
@@ -408,7 +458,8 @@ __global__ void __launch_bounds__(kRingThreads, 3) ring_stream_kernel(
       mbar_init(&empty[s], kRowWarps);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    s_nbox = stage_boxes<KIND, B>(blockIdx.x, prow, half, OB, s_box);
+    s_nbox = stage_boxes<KIND, B, Pos>(blockIdx.x, prow, half, OB,
+                                       kStageRows, s_box, &s_bytes);
   }
   __syncthreads();
   const int total = s_cum[K];
@@ -426,8 +477,7 @@ __global__ void __launch_bounds__(kRingThreads, 3) ring_stream_kernel(
     // have released its previous use
     if (lane == 0) {
       const int nbox = s_nbox;
-      const uint32_t bytes =
-          (nbox - 1) * kStageRows * R::kVBox + kStageRows * R::kPBox;
+      const uint32_t bytes = s_bytes;
       for (int n = 0; n < units; ++n) {
         const int slot = n % R::kStages;
         const uint32_t use = n / R::kStages;
@@ -439,16 +489,13 @@ __global__ void __launch_bounds__(kRingThreads, 3) ring_stream_kernel(
                          (n % per_tile) * kStageRows;
         uint8_t* st = ring + slot * R::kStageBytes;
         mbar_expect_tx(&full[slot], bytes);
-        for (int i = 0; i < nbox; ++i) {
-          const bool vb = i + 1 < nbox;  // a value box; the last: positions
-          tma_box(st + (vb ? s_box[i][1] * kStageRows * R::kVBox
-                           : R::kPSlab),
-                  vb ? &vmap : &pmap, s_box[i][0], row0, &full[slot]);
-        }
+        for (int i = 0; i < nbox; ++i)
+          tma_box(st + s_box[i][1], s_box[i][2] ? &pmap : &vmap, s_box[i][0],
+                  row0, &full[slot]);
       }
     }
   } else {
-    // consumers: accum_rows' arithmetic, in its order, on the staged bytes
+    // consumers
     const int jb0 = (blockIdx.x * 32 + lane) * NBT;
     const bool active = jb0 < prow;
     bool live[PB], hi[PB];
@@ -486,58 +533,14 @@ __global__ void __launch_bounds__(kRingThreads, 3) ring_stream_kernel(
         if (q >= nr) break;
         const float uu = __shfl_sync(0xffffffffu, um, m);
         if (!active) continue;
-        uint32_t pw[(NBT + 3) / 4], vw[PB][(VB + 3) / 4];
-        lds_bytes<NBT>(st + R::kPSlab + q * R::kPBox + lane * NBT, pw);
-#pragma unroll
-        for (int t2 = 0; t2 < PB; ++t2)
-          if (live[t2])
-            lds_bytes<VB>(st + ((hi[t2] ? PB + t2 : t2) * kStageRows + q) *
-                                   R::kVBox + lane * VB,
-                          vw[t2]);
-#pragma unroll
-        for (int t2 = 0; t2 < PB; ++t2) {
-          if (!live[t2]) continue;
-#pragma unroll
-          for (int i = 0; i < NBT; ++i) {
-            const int p = Pos::at(byte_at(pw, i), t2);
-            const float x =
-                __fmul_rn(uu, value_at<KIND>(vw[t2], i, hi[t2]));
-            // x goes to accumulator p; accum_rows adds 0 to the other
-            // B-1, which leaves them as they are (a sum that starts at +0
-            // is never -0), so skipping those adds keeps every bit
-            float* a = acc + (t2 * NBT + i) * B;
-#pragma unroll
-            for (int pp = 0; pp < B; ++pp)
-              if (p == pp) a[pp] = __fadd_rn(a[pp], x);
-          }
-        }
+        scatter_row<KIND, B, Pos>(st, kStageRows, q, lane, uu, live, hi, acc);
       }
       __syncwarp();
       if (lane == 0) mbar_arrive(&empty[slot]);
     }
   }
-  __syncthreads();  // every stage is consumed: the ring is free
-  float* s_acc = reinterpret_cast<float*>(ring);  // [kRowWarps][kAccs][32]
-  if (warp < kRowWarps) {
-#pragma unroll
-    for (int i = 0; i < kAccs; ++i)
-      s_acc[(warp * kAccs + i) * 32 + lane] = acc[i];
-  }
-  __syncthreads();
-  // partial[j*B + p] of the block's columns, the warp sums added in warp
-  // order (write_partial's order)
-  float* out = partial + (size_t)blockIdx.y * OB * B;
-  for (int idx = tid; idx < kAccs * 32; idx += kRingThreads) {
-    const int i = idx >> 5, l = idx & 31;
-    const int jb = (blockIdx.x * 32 + l) * NBT;
-    const int t = i / (NBT * B), c = t * prow + jb + (i / B) % NBT;
-    if (jb >= prow || c >= OB) continue;
-    float s = s_acc[i * 32 + l];
-#pragma unroll
-    for (int w = 1; w < kRowWarps; ++w)
-      s = __fadd_rn(s, s_acc[(w * kAccs + i) * 32 + l]);
-    out[(size_t)c * B + i % B] = s;
-  }
+  write_sums<B, Pos>(acc, ring, prow, OB,
+                     partial + (size_t)blockIdx.y * OB * B);
 }
 
 // y[j] = sum over the live splits s < min(S, live[0]) (all S when live is
@@ -710,10 +713,11 @@ constexpr int log2_of(int B) {
 }
 
 // *map over nrows rows of row_bytes bytes from base (16-aligned, row_bytes
-// a multiple of 16), boxes of box_bytes x kStageRows. A host-side encoding
+// a multiple of 16), boxes of box_bytes x box_rows. A host-side encoding
 // only: no work on the card, no sync.
 inline cudaError_t encode_rows(CUtensorMap* map, const uint8_t* base,
-                               int row_bytes, int nrows, int box_bytes) {
+                               int row_bytes, int nrows, int box_bytes,
+                               int box_rows) {
   if (encode_tiled == nullptr) {
     void* fn = nullptr;
     cudaDriverEntryPointQueryResult found;
@@ -726,7 +730,7 @@ inline cudaError_t encode_rows(CUtensorMap* map, const uint8_t* base,
   }
   const cuuint64_t dims[2] = {(cuuint64_t)row_bytes, (cuuint64_t)nrows};
   const cuuint64_t strides[1] = {(cuuint64_t)row_bytes};
-  const cuuint32_t box[2] = {(cuuint32_t)box_bytes, (cuuint32_t)kStageRows};
+  const cuuint32_t box[2] = {(cuuint32_t)box_bytes, (cuuint32_t)box_rows};
   const cuuint32_t steps[2] = {1, 1};
   return encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
                       const_cast<uint8_t*>(base), dims, strides, box, steps,
@@ -761,9 +765,9 @@ struct StreamLaunch {
   void run() {
     using R = Ring<KIND, B>;
     CUtensorMap vmap, pmap;
-    error = encode_rows(&vmap, vals, vrow, nrows, R::kVBox);
+    error = encode_rows(&vmap, vals, vrow, nrows, R::kVPart, kStageRows);
     if (error == cudaSuccess)
-      error = encode_rows(&pmap, pos, prow, nrows, R::kPBox);
+      error = encode_rows(&pmap, pos, prow, nrows, R::kPPart, kStageRows);
     if (error != cudaSuccess) return;
     bool& smem_set = ring_smem_set[KIND][log2_of(B)][device];
     if (!smem_set) {  // the shared-memory limit, raised once a card

@@ -7,7 +7,12 @@ select_blocks lists every (chunk, rank) block some selected row needs
 (ascending, padded with the all-zero block, capped at max_blocks); the
 kernel reads exactly those blocks and their packed positions and scatters
 u[k, g, :] times each into y[j*B + p]. Bound by the gathered bytes over the
-card's memory rate. bf16 and int8 values only: int4 is refused, as there.
+card's memory rate; its body (csrc/block_gather.cuh, shared with K7) is the
+ring of copy-engine stages K4 and K5 stream through, one block a stage.
+The pad ids are not read: the kernel walks min(n_blocks, max_blocks) ids,
+n_blocks read on the device. A pad adds u * 0 = +-0 to sums that are
+never -0, so this changes no bit (JAX's kernel reads the pads). bf16 and
+int8 values only: int4 is refused, as there.
 """
 
 from __future__ import annotations
@@ -17,9 +22,10 @@ from typing import Optional
 import torch
 
 from effort_tpu_torch.kernels import LAUNCHES, _build
-from effort_tpu_torch.kernels.prefix_stream import (_KIND, body_limits,
+from effort_tpu_torch.kernels.prefix_stream import (_GATHER_MAX_ROWS, _KIND,
+                                                    body_limits,
                                                     check_instance,
-                                                    launch_shape, split_sum)
+                                                    gather_plan, split_sum)
 from effort_tpu_torch.ops.effort import BlockSelection
 from effort_tpu_torch.ops.layouts import BucketedMatrix
 
@@ -28,14 +34,20 @@ LAUNCHES["gather_matvec_dma"] = 0
 
 def gather_product_ref(bm: BucketedMatrix, sel: BlockSelection,
                        pos: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The gather's function: y [OB*B] f32 = the blocks sel.block_ids
-    against u[(id // nc) % K, id % nc, :], positions from bm.pos (packed)
-    or from `pos` (one a column), summed as the kernel sums."""
+    """The gather's function: y [OB*B] f32 = the real blocks of
+    sel.block_ids (the first min(n_blocks, max_blocks); the pads after them
+    add nothing) against u[(id // nc) % K, id % nc, :], positions from
+    bm.pos (packed) or from `pos` (one a column), summed as the kernel sums
+    (gather_plan's splits over the whole list)."""
     K, nc = bm.n_ranks, bm.n_chunks
-    ids = sel.block_ids.long()
+    n_ids = sel.block_ids.shape[0]
     packed = pos is None
-    splits = launch_shape(bm, ids.shape[0],
-                          (bm.pos if packed else pos).shape[2], packed)[2]
+    splits = gather_plan(bm, n_ids, (bm.pos if packed else pos).shape[2],
+                         packed)[2]
+    ids = sel.block_ids[:min(int(sel.n_blocks), n_ids)].long()
+    if ids.shape[0] == 0:
+        return torch.zeros(bm.out_dim, dtype=torch.float32,
+                           device=sel.u_scaled.device)
     return split_sum(bm, ids * bm.chunk_rows,
                      sel.u_scaled[(ids // nc) % K, ids % nc], splits, pos)
 
@@ -63,12 +75,18 @@ def gather_launch(lib: str, fn: str, count: str, bm: BucketedMatrix,
     why = body_limits(bm, G, None if packed else pos)
     if why:
         raise ValueError(why)
-    ids, u = sel.block_ids, sel.u_scaled
-    check_instance(bm, 0, ids, u, pos)
+    if G > _GATHER_MAX_ROWS:
+        raise ValueError(f"{G} rows a block: the gather takes at most "
+                         f"{_GATHER_MAX_ROWS}")
+    ids, u, n_blocks = sel.block_ids, sel.u_scaled, sel.n_blocks
+    check_instance(bm, 0, ids, u, n_blocks, pos)
     if ids.dtype != torch.int32 or ids.ndim != 1 or ids.shape[0] < 1 \
             or not ids.is_contiguous():
         raise ValueError(f"block_ids {ids.dtype} {tuple(ids.shape)}: want "
                          f"contiguous int32 [max_blocks]")
+    if n_blocks.dtype != torch.int32 or n_blocks.numel() != 1:
+        raise ValueError(f"n_blocks {n_blocks.dtype} "
+                         f"{tuple(n_blocks.shape)}: want one int32")
     if u.dtype != torch.float32 or tuple(u.shape) != (K, nc, G) \
             or not u.is_contiguous():
         raise ValueError(f"u_scaled {u.dtype} {tuple(u.shape)}: want "
@@ -76,16 +94,17 @@ def gather_launch(lib: str, fn: str, count: str, bm: BucketedMatrix,
     dev = u.device
     n_ids = ids.shape[0]
     prow = pos.shape[2]
-    threads, col_blocks, splits = launch_shape(bm, n_ids, prow, packed)
+    threads, col_blocks, splits = gather_plan(bm, n_ids, prow, packed)
     partial = torch.empty((splits, bm.out_dim), dtype=torch.float32,
                           device=dev)
     y = torch.empty(bm.out_dim, dtype=torch.float32, device=dev)
-    _build.kernel_fn(lib, fn, "piipiipipiiiipiiipip")(
+    _build.kernel_fn(lib, fn, "piipiiipippiiiipiiipip")(
         bm.vals.data_ptr(), _KIND[bm.vals.dtype],
         bm.vals.shape[2] * bm.vals.element_size(), pos.data_ptr(), prow,
-        bm.bucket_size, ids.data_ptr(), n_ids, u.data_ptr(), K, nc, G,
-        bm.n_buckets, partial.data_ptr(), splits, col_blocks, threads,
-        y.data_ptr(), dev.index, torch.cuda.current_stream(dev).cuda_stream)
+        bm.vals.shape[0] * G, bm.bucket_size, ids.data_ptr(), n_ids,
+        n_blocks.data_ptr(), u.data_ptr(), K, nc, G, bm.n_buckets,
+        partial.data_ptr(), splits, col_blocks, threads, y.data_ptr(),
+        dev.index, torch.cuda.current_stream(dev).cuda_stream)
     LAUNCHES[count] += 1
     return y
 

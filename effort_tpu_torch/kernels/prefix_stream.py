@@ -1,6 +1,6 @@
 """Rank-prefix streaming (bucket_size >= 2): the dispatch select_stream,
 the stream K5 (stream_matvec, csrc/stream_matvec.cu) and its plain version,
-and what K4-K7's wrappers share (limits, launch shape, plain products).
+and what K4-K7's wrappers share (limits, launch plans, plain products).
 
 K5 replaces effort_tpu/kernels/prefix_stream.py:stream_matvec -> _kernel.
 The selection rule (stats[i, k] * |v_i| > cutoff) with the calibrated row
@@ -32,9 +32,9 @@ _MAX_RANKS = 32
 _MAX_TILE_ROWS = 2048
 _ACCS = 64                  # accumulators a thread (csrc/rank_prefix.cuh)
 _ROW_WARPS = 4              # warps of a block; warp w takes rows r = w mod 4
-_RING_THREADS = 32 * (_ROW_WARPS + 1)   # K4's and K5's: + a producer warp
-_RING_BLOCKS = 396          # K4's and K5's stream: three blocks an SM
-_TARGET_BLOCKS = 264        # two blocks an SM on 132 SMs
+_RING_THREADS = 32 * (_ROW_WARPS + 1)   # the ring kernels: + a producer warp
+_RING_BLOCKS = 396          # the ring kernels (K4-K7): three blocks an SM
+_GATHER_MAX_ROWS = 32       # G a gather stage takes (csrc/block_gather.cuh)
 
 
 class StreamSelection(NamedTuple):
@@ -223,29 +223,40 @@ def check_instance(bm: BucketedMatrix, expert: int, *tensors):
                              f"{t.device}")
 
 
-def launch_shape(bm: BucketedMatrix, n_work: int, pos_row_bytes: int,
-                 packed: bool = True) -> tuple:
-    """(threads, column blocks, splits): blocks of _ROW_WARPS warps whose
-    32 lanes own cols_per_thread position bytes of a row each, and enough
-    splits of the n_work tiles (or ids) to put _TARGET_BLOCKS blocks on the
-    card."""
+def column_blocks(bm: BucketedMatrix, pos_row_bytes: int,
+                  packed: bool = True) -> int:
+    """Column blocks of the ring kernels: _ROW_WARPS consumer warps whose
+    32 lanes own cols_per_thread position bytes of a row each."""
     lanes = pos_row_bytes // cols_per_thread(bm.bucket_size, packed)
-    col_blocks = -(-lanes // 32)
-    splits = max(1, min(n_work, -(-_TARGET_BLOCKS // col_blocks)))
-    return 32 * _ROW_WARPS, col_blocks, splits
+    return -(-lanes // 32)
 
 
 def stream_plan(bm: BucketedMatrix, tile_blocks: int) -> tuple:
     """(threads, column blocks, splits) of the ring stream K4 and K5 share
     (csrc/rank_prefix.cuh ring_stream_kernel): four consumer warps and a
-    producer warp a block, launch_shape's column blocks, and as many splits
-    of the K * nc / tile_blocks tiles as put at most _RING_BLOCKS blocks
-    (all resident at once) on the card. The plain versions take the split
-    count from here, so they add the splits as the kernel does."""
-    _, col_blocks, _ = launch_shape(bm, 1, bm.pos.shape[2])  # columns only
+    producer warp a block, and as many splits of the K * nc / tile_blocks
+    tiles as put at most _RING_BLOCKS blocks (all resident at once) on the
+    card. The plain versions take the split count from here, so they add
+    the splits as the kernel does."""
+    col_blocks = column_blocks(bm, bm.pos.shape[2])
     n_work = bm.n_ranks * bm.n_chunks // tile_blocks
     splits = max(1, min(n_work, _RING_BLOCKS // col_blocks))
     return _RING_THREADS, col_blocks, splits
+
+
+def gather_plan(bm: BucketedMatrix, n_ids: int, pos_row_bytes: int,
+                packed: bool = True) -> tuple:
+    """(threads, column blocks, splits) of the ring gather K6 and K7 share
+    (csrc/block_gather.cuh ring_gather_kernel) over a list of n_ids block
+    ids: the stream's block shape, and as many splits of the ids, at most
+    one an id, as put at most _RING_BLOCKS blocks on the card. The split
+    count comes from the packed positions' column blocks for both kernels,
+    so K7 adds its splits as K6 does; the plain versions take it from
+    here too."""
+    splits = max(1, min(n_ids, _RING_BLOCKS // column_blocks(
+        bm, bm.pos.shape[2])))
+    return (_RING_THREADS, column_blocks(bm, pos_row_bytes, packed),
+            splits)
 
 
 def stream_matvec(bm: BucketedMatrix, sel: StreamSelection,

@@ -62,9 +62,11 @@ VARIANTS = {
 }
 
 
-def build_variant(name: str, edits: list, src: Path) -> None:
-    """Point _build at a copy of src with the edits made."""
-    d = Path("build") / "k4_parts" / name
+def build_variant(name: str, edits: list, src: Path,
+                  under: str = "k4_parts") -> None:
+    """Point _build at a copy of src under build/<under>/<name> with the
+    edits made."""
+    d = Path("build") / under / name
     shutil.rmtree(d, ignore_errors=True)
     shutil.copytree(src, d / "csrc")
     for fname, old, new in edits:

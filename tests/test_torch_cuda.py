@@ -436,37 +436,62 @@ def test_fused_matvec_grid_selection_and_ring_match_plain(dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["bf16", "int8"])
 def test_block_gather_cuda_kernels_match_plain(dtype):
-    """K6 and K7 against their plain versions on the card, at a capacity
-    that holds every needed block and at one that drops some: the same y
-    bit for bit, and K6 and K7 agree exactly."""
+    """K6 and K7 (the ring gather) against their plain versions on the
+    card, at G 8 and 16 x B 2 and 4: at capacities that hold every needed
+    block, that hold it exactly, and that drop some (n_blocks below, at and
+    above the capacity), and on an id list that holds only pads (v = 0,
+    n_blocks 0, y exactly 0): the same y bit for bit, K6 and K7 agree
+    exactly, and two calls give the same bits."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from effort_tpu_torch.kernels import gather_dma, gather_mul
     from effort_tpu_torch.ops.effort import select_blocks
-    bm, v = _rank_container(dtype, 7)
-    pos = gather_mul.unpacked_positions(bm)
     before = dict(LAUNCHES)
-    for e, cap in ((0.1, 64), (0.5, 256), (0.5, 48), (1.0, 256)):
-        sel = select_blocks(bm, v, e, 0, cap)
-        y6 = gather_dma.gather_matvec_dma(bm, sel)
-        y7 = gather_mul.gather_bucket_matvec(bm, sel, pos)
-        y6r = gather_dma.gather_matvec_dma_ref(bm, sel)
-        y7r = gather_mul.gather_bucket_matvec_ref(bm, sel, pos)
-        torch.cuda.synchronize()
-        torch.testing.assert_close(y6, y6r, rtol=0, atol=0)
-        torch.testing.assert_close(y7, y7r, rtol=0, atol=0)
-        torch.testing.assert_close(y7, y6, rtol=0, atol=0)
-    assert LAUNCHES["gather_matvec_dma"] - before["gather_matvec_dma"] == 4
+    n = 0
+    for G in (8, 16):
+        for B in (2, 4):
+            bm, v = _rank_container(dtype, 7 + G + B, B=B, G=G)
+            pos = gather_mul.unpacked_positions(bm)
+            blocks = bm.blocks_per_expert
+            cases = [(0.1, 64), (0.5, blocks), (0.5, 48), (1.0, blocks)]
+            for e in (0.25, 0.5):
+                need = int(select_blocks(bm, v, e, 0, blocks).n_blocks)
+                cases += [(e, need + 16), (e, need), (e, max(1, need - 8))]
+            for e, cap in cases:
+                sel = select_blocks(bm, v, e, 0, cap)
+                y6 = gather_dma.gather_matvec_dma(bm, sel)
+                y6b = gather_dma.gather_matvec_dma(bm, sel)
+                y7 = gather_mul.gather_bucket_matvec(bm, sel, pos)
+                y6r = gather_dma.gather_matvec_dma_ref(bm, sel)
+                y7r = gather_mul.gather_bucket_matvec_ref(bm, sel, pos)
+                torch.cuda.synchronize()
+                what = (G, B, e, cap, int(sel.n_blocks))
+                assert torch.equal(y6, y6r), what
+                assert torch.equal(y7, y7r), what
+                assert torch.equal(y7, y6), what
+                assert torch.equal(y6b, y6), what
+                n += 1
+            sel = select_blocks(bm, torch.zeros_like(v), 0.0, 0, 32)
+            assert int(sel.n_blocks) == 0
+            y6 = gather_dma.gather_matvec_dma(bm, sel)
+            y7 = gather_mul.gather_bucket_matvec(bm, sel, pos)
+            torch.cuda.synchronize()
+            assert torch.equal(y6, torch.zeros_like(y6))
+            assert torch.equal(y6, gather_dma.gather_matvec_dma_ref(bm, sel))
+            assert torch.equal(y7, y6)
+    assert LAUNCHES["gather_matvec_dma"] - before["gather_matvec_dma"] == \
+        2 * n + 4
     assert LAUNCHES["gather_bucket_matvec"] - \
-        before["gather_bucket_matvec"] == 4
+        before["gather_bucket_matvec"] == n + 4
 
 
 @pytest.mark.cuda
 def test_rank_prefix_wrappers_raise_on_what_they_do_not_take():
     """On CUDA tensors K4-K7 launch or raise: a row-prefix container (K5-K7;
-    K4 hands it to K1), an input of the wrong width, int4 values (K6, K7)
-    and weights on another device are refused before any launch, and
-    nothing is counted."""
+    K4 hands it to K1), an input of the wrong width, int4 values (K6, K7),
+    blocks of more rows than a gather stage takes (K6, K7) and weights on
+    another device are refused before any launch, and nothing is
+    counted."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from effort_tpu_torch.kernels import gather_dma, gather_mul
@@ -480,6 +505,8 @@ def test_rank_prefix_wrappers_raise_on_what_they_do_not_take():
     sel = ps.select_stream(bm, v, 0.5, 0)
     blocks = select_blocks(bm, v, 0.5, 0, 64)
     blocks4 = select_blocks(bm4, v, 0.5, 0, 64)
+    bm64, v64 = _rank_container("int8", 3, in_dim=512, out_dim=512, G=64)
+    blocks64 = select_blocks(bm64, v64, 0.5, 0, 16)
     sel_cpu = ps.StreamSelection(*(t.cpu() for t in sel))
     before = dict(LAUNCHES)
     with pytest.raises(ValueError):
@@ -492,6 +519,8 @@ def test_rank_prefix_wrappers_raise_on_what_they_do_not_take():
                      sel.cum_tiles, sel.base_blocks, sel.u_scaled[:, :4])),
                  lambda: gather_dma.gather_matvec_dma(bm4, blocks4),
                  lambda: gather_mul.gather_bucket_matvec(bm4, blocks4),
+                 lambda: gather_dma.gather_matvec_dma(bm64, blocks64),
+                 lambda: gather_mul.gather_bucket_matvec(bm64, blocks64),
                  lambda: gather_dma.gather_matvec_dma(bm1, blocks),
                  lambda: gather_dma.gather_matvec_dma(bm.to("cpu"), blocks)):
         with pytest.raises(ValueError):

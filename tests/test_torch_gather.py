@@ -2,7 +2,8 @@
 package: select_blocks, and the plain versions of K6 (gather_matvec_dma,
 packed positions) and K7 (gather_bucket_matvec, one position byte a
 column) against the JAX kernels run in Pallas interpret mode on one
-selection.
+selection; the plain versions' pad skipping and split count (the kernels'
+launch plan, gather_plan).
 
 JAX's gather_bucket_matvec takes an interpret flag; its gather_matvec_dma
 has none, so that test patches jax.experimental.pallas.pallas_call to pass
@@ -20,6 +21,7 @@ from effort_tpu.kernels.gather_mul import gather_bucket_matvec as jax_k7
 from effort_tpu.ops.effort import select_blocks as jax_select_blocks
 from effort_tpu_torch.kernels import LAUNCHES
 from effort_tpu_torch.kernels import gather_dma, gather_mul
+from effort_tpu_torch.kernels import prefix_stream as port_ps
 from effort_tpu_torch.ops.bucketmul import bucket_matvec, gather_capacity
 from effort_tpu_torch.ops.effort import BlockSelection, select_blocks
 from test_torch_rank_prefix import EFFORT, assert_close, containers
@@ -127,3 +129,79 @@ def test_gather_refuses_int4():
         gather_mul.gather_bucket_matvec(tb, st)
     with pytest.raises(ValueError, match="int4"):
         bucket_matvec(tb, torch.from_numpy(v), EFFORT, impl="gather")
+
+
+@pytest.mark.parametrize("name,in_dim,out_dim,col_blocks", [
+    ("wqkv", 4096, 6144, 3), ("wo", 4096, 4096, 2), ("w13", 4096, 28672, 14),
+    ("w2", 14336, 4096, 2)])
+def test_gather_plan_at_mistral_widths(name, in_dim, out_dim, col_blocks):
+    """The ring gather's launch shape at the four Mistral-7B projections
+    (B = 4, G = 16; the container's widths stood in on a small one): a
+    producer warp beside four consumer warps, column blocks that cover the
+    position row (packed for K6, one byte a column for K7: the same count
+    here), and splits that keep every block resident (at most _RING_BLOCKS
+    in all), at most one an id, the same for K6 and K7."""
+    import dataclasses
+    _, tb, _ = containers("int8")
+    B = tb.bucket_size
+    prow = -(-(out_dim // B) * 2 // 8 // 128) * 128   # 2-bit positions
+    bm = dataclasses.replace(
+        tb, in_dim=in_dim, out_dim=out_dim,
+        pos=torch.zeros((1, 1, prow), dtype=torch.uint8))
+    for n_ids in (1, 40, 720, 2512):
+        threads, cb, splits = port_ps.gather_plan(bm, n_ids, prow)
+        t7, cb7, s7 = port_ps.gather_plan(bm, n_ids, out_dim // B,
+                                          packed=False)
+        assert threads == t7 == 32 * 5
+        assert cb == cb7 == col_blocks
+        assert cb * 32 * port_ps.cols_per_thread(B, True) >= prow
+        assert s7 == splits == max(1, min(n_ids,
+                                          port_ps._RING_BLOCKS // cb))
+        assert cb * splits <= port_ps._RING_BLOCKS
+
+
+@pytest.mark.parametrize("capacity", ["above", "at", "below"])
+@pytest.mark.parametrize("G,B,dtype", [(G, B, d) for G in (8, 16)
+                                       for B in (2, 4)
+                                       for d in ("bf16", "int8")])
+def test_plain_gather_skips_pads_bit_for_bit(dma_interpret, G, B, dtype,
+                                             capacity):
+    """K6's and K7's plain versions (the kernels' order of sums) at G 8 and
+    16, B 2 and 4, bf16 and int8, with the capacity above the real block
+    count (pads after the real ids), at it, and below it (blocks dropped):
+    they walk only the real ids, and give the same bits as the sum over the
+    whole id list, pads included, in gather_plan's splits (a pad adds
+    +-0 to sums that are never -0); K7's equals K6's; both are within cos
+    0.99999 and 1e-5 max|y_ref| of JAX's gather_matvec_dma (interpret
+    mode) and gather_bucket_matvec (interpret=True) on JAX's selection
+    carried across; no launch is counted on the CPU."""
+    jb, tb, v = containers(dtype, seed=G + B, B=B, chunk_rows=G)
+    K, nc = tb.n_ranks, tb.n_chunks
+    need = int(select_blocks(tb, torch.from_numpy(v), EFFORT, 0,
+                             tb.blocks_per_expert).n_blocks)
+    assert 8 < need
+    cap = {"above": need + 8, "at": need, "below": need - 8}[capacity]
+    sj, st = selections(jb, tb, v, EFFORT, cap)
+    assert int(st.n_blocks) == need
+    pos7 = gather_mul.unpacked_positions(tb)
+    before = dict(LAUNCHES)
+    ids = st.block_ids.long()
+    ys = []
+    for pos in (None, pos7):
+        splits = port_ps.gather_plan(
+            tb, cap, (tb.pos if pos is None else pos).shape[2],
+            pos is None)[2]
+        assert 1 <= splits <= cap
+        whole = port_ps.split_sum(tb, ids * G,
+                                  st.u_scaled[(ids // nc) % K, ids % nc],
+                                  splits, pos)
+        ys.append(gather_dma.gather_product_ref(tb, st, pos))
+        assert torch.equal(ys[-1], whole)
+    assert torch.equal(ys[1], ys[0])
+    assert torch.equal(gather_dma.gather_matvec_dma(tb, st), ys[0])
+    assert torch.equal(gather_mul.gather_bucket_matvec(tb, st, pos7), ys[0])
+    stj = BlockSelection(*(torch.from_numpy(np.array(a)) for a in sj))
+    assert_close(jax_k6(jb, sj), gather_dma.gather_matvec_dma(tb, stj))
+    assert_close(jax_k7(jb, sj, interpret=True),
+                 gather_mul.gather_bucket_matvec(tb, stj))
+    assert LAUNCHES == before

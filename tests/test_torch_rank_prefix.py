@@ -40,16 +40,19 @@ EFFORT = 0.4        # P * effort (P = 256) is not near a rounding boundary
 COS, REL = 0.99999, 1e-5
 
 
-def containers(dtype, seed=0, percent_load=1.0, outlier_frac=0.0):
+def containers(dtype, seed=0, percent_load=1.0, outlier_frac=0.0, B=4,
+               chunk_rows=G):
     """(JAX container, port container, v): a calibrated row order (rows by
     descending rms, v scaled to match), so each rank's selection sits at
-    its slab's front and tau < 1 truncates."""
+    its slab's front and tau < 1 truncates; bucket size B, chunk_rows rows
+    a chunk."""
     rng = np.random.default_rng(seed)
     rms = np.exp(rng.standard_normal(IN) * 1.2).astype(np.float32)
     pi = np.asarray(jax_calib_row_order(jnp.asarray(rms)))
     wt = (rng.standard_normal((IN, OUT)) * 0.02).astype(np.float32)
     jb = jax_bucketize(jnp.asarray(wt), JaxBucketConfig(
-        bucket_size=4, chunk_rows=G, dtype=dtype, percent_load=percent_load,
+        bucket_size=B, chunk_rows=chunk_rows, dtype=dtype,
+        percent_load=percent_load,
         outlier_frac=outlier_frac), in_perm=pi)
     v = (rms[pi] * rng.standard_normal(IN)).astype(np.float32)
     return jb, bucketed_from_numpy(jax_bm_to_numpy(jb)), v
