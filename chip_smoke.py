@@ -10,7 +10,10 @@ Phases, one JSON line each (a failure raises and exits non-zero):
             {bf16, int8, int4} x efforts {0.1, 0.25, 0.5, 1.0} x tau
             {0.97, 1.0}: equal streamed length C, cos >= 0.9999 and
             max|dy| <= 1e-2 max|y_ref|; device times beside the memory
-            bound and a dense bf16 torch.mm GEMV of the same shape
+            bound and a dense bf16 torch.mm GEMV of the same shape; at
+            int8, tau 0.97 the device time of one call by kernel
+            (selection, stream, split sum; the last two, programmatic
+            dependents, with their wait behind the launch before)
   kernels_batch
             K2 (mxu_matvec_batch, csrc/mxu_matvec_batch.cu) likewise at
             the four shapes x {bf16, int8, int4} x T in {4, 64} slots x
@@ -25,10 +28,13 @@ Phases, one JSON line each (a failure raises and exits non-zero):
   attention K3 (flash_attention, csrc/flash_attention.cu) against its plain
             version at Mistral-7B's heads (32 query, 8 KV, 128 wide) over
             a 512-slot cache: left-padded prompts of 32 and 64 queries, 64
-            queries at slot 448, and a 128-slot window; cos >= 0.9999 per
-            row, max|dy| <= 1e-2 max|y_ref|, queries with no live key
-            exactly 0; times beside the bound and torch's SDPA with the
-            same boolean mask (timed only, never called by the port)
+            queries at slot 448, a 128-slot window, and a 512-query
+            prefill from slot 0; and 64 queries of 256-wide heads (16
+            query, 8 KV); cos >= 0.9999 per row, max|dy| <= 1e-4
+            max|y_ref| (pv_f32, as forward_seq calls it), queries with no
+            live key exactly 0; times beside the bound and torch's SDPA
+            with the same boolean mask (timed only, never called by the
+            port)
   generate  Mistral-7B width, 32 layers, int8 row-prefix buckets, fused
             projections, int8 LM head: Engine.generate answers four
             requests at efforts 0.25 and 0.5 (K1) and 1.0 (dense copies);
@@ -151,11 +157,20 @@ DEEP_TEACHER_STEPS = 13
 # bytes to operations
 BATCH_CASES = ((4, DTYPES, TAUS), (64, DTYPES, TAUS), (16, ("int8",), (0.97,)),
                (256, ("int8",), (0.97,)))
+# K3's cases: Mistral-7B's heads (H 32, KV 8, D 128) unless a case names
+# others
+ATTN_SLOTS = 512
+# K3's gate under pv_f32: max|dy| <= PV_F32_TOL max|y_ref| against its plain
+# version (besides min row cos >= 0.9999 and dead rows exactly 0)
+PV_F32_TOL = 1e-4
 ATTN_CASES = (
     dict(name="prefill32", T=32, start_slot=0, mask_from=27, window=0),
     dict(name="prefill64", T=64, start_slot=0, mask_from=47, window=0),
     dict(name="chunk64_at448", T=64, start_slot=448, mask_from=0, window=0),
     dict(name="window128", T=64, start_slot=448, mask_from=0, window=128),
+    dict(name="prefill512", T=512, start_slot=0, mask_from=0, window=0),
+    dict(name="d256", T=64, start_slot=0, mask_from=0, window=0, H=16, KV=8,
+         D=256),
 )
 # the summary line's times: one layer's four launches of the generate
 # phase's layout (int8) at effort 0.25 and the default tau
@@ -278,6 +293,13 @@ def phase_kernels(flush: torch.Tensor) -> list:
                     p["bytes"] = k1_bytes(bm, C)
                     p["bound_ms"] = p["bytes"] / HBM_BYTES_PER_S * 1e3
                     p["library_ms"] = lib_ms
+                    if (dtype, effort, tau) == SUMMARY:
+                        # where a call's device time goes, as for K2
+                        prof = device_profile(lambda: [
+                            fused_stream.mxu_matvec(bm, v, eq, 0, tau=tau)
+                            for v in vs[:PROFILE_CALLS]],
+                            need=K1_PARTS)["kernel_ms"]
+                        p["parts_ms"] = per_call(prof, PROFILE_CALLS)
                     points.append(p)
                     emit({"phase": "kernels", **p})
             del bm
@@ -386,8 +408,7 @@ def phase_kernels_batch(flush: torch.Tensor) -> list:
                             fused_stream.mxu_matvec_batch(bm, v, eff, 0,
                                                           tau=tau)
                             for v in Vs[T][:PROFILE_CALLS]])["kernel_ms"]
-                        p["parts_ms"] = {k: ms / PROFILE_CALLS
-                                         for k, ms in prof.items()}
+                        p["parts_ms"] = per_call(prof, PROFILE_CALLS)
                     points.append(p)
                     emit({"phase": "kernels_batch", **p})
             del bm
@@ -396,23 +417,53 @@ def phase_kernels_batch(flush: torch.Tensor) -> list:
     return points
 
 
+def attention_inputs(case: dict, g: torch.Generator):
+    """K3's inputs at one of ATTN_CASES over a ATTN_SLOTS-slot cache: the
+    case's dims (T, start, mask_from, window, H, KV, D), the bf16 caches and
+    RUNS queries [T, H*D] (N(0, 4)), drawn from g in that order."""
+    dims = (case["T"], case["start_slot"], case["mask_from"], case["window"],
+            case.get("H", 32), case.get("KV", 8), case.get("D", 128))
+    T, H, KV, D = dims[0], *dims[4:]
+    kc = torch.randn((ATTN_SLOTS, KV, D), generator=g, device="cuda").to(
+        torch.bfloat16)
+    vc = torch.randn((ATTN_SLOTS, KV, D), generator=g, device="cuda").to(
+        torch.bfloat16)
+    Qs = [torch.randn((T, H * D), generator=g, device="cuda") * 2.0
+          for _ in range(RUNS)]
+    return dims, kc, vc, Qs
+
+
+def attention_agreement(dims: tuple, y: torch.Tensor,
+                        yr: torch.Tensor) -> dict:
+    """K3's output y against its plain version's yr at one case: the least
+    row cosine over the queries with a live key, max|dy|, max|y_ref|,
+    whether the queries with none are exactly 0, and whether all of that
+    passes K3's gate (cos >= 0.9999, max|dy| <= PV_F32_TOL max|y_ref|)."""
+    T, start, mf, _, H, _, D = dims
+    dead = start + torch.arange(T, device="cuda") < mf
+    rows, rows_r = y.reshape(T * H, D), yr.reshape(T * H, D)
+    live_rows = (~dead).repeat_interleave(H)
+    c = rows_agree(rows[live_rows], rows_r[live_rows])
+    err = float((y - yr).abs().max())
+    scale = float(yr.abs().max())
+    dead_zero = not bool(y[dead].any())
+    return dict(dead_rows=int(dead.sum()), min_row_cos=c, max_abs_err=err,
+                max_abs_ref=scale, dead_rows_zero=dead_zero,
+                ok=c >= 0.9999 and err <= PV_F32_TOL * scale and dead_zero)
+
+
 def phase_attention(flush: torch.Tensor) -> list:
-    """K3 against its plain version at Mistral-7B's heads (H 32, KV 8,
-    D 128) over a 512-slot cache, in the forward_seq layout. Times are
-    taken with L2 flushed, as K1's and K2's are."""
-    H, KV, D, S = 32, 8, 128, 512
+    """K3 against its plain version at ATTN_CASES over a 512-slot cache,
+    in the forward_seq layout, with pv_f32 (P kept to about 24 bits, as
+    three bf16 parts), as forward_seq calls it. Times are taken with L2
+    flushed, as K1's and K2's are."""
+    S = ATTN_SLOTS
     g = torch.Generator(device="cuda")
     g.manual_seed(99)
     points = []
     for case in ATTN_CASES:
-        T, start, mf, win = (case["T"], case["start_slot"],
-                             case["mask_from"], case["window"])
-        kc = torch.randn((S, KV, D), generator=g, device="cuda").to(
-            torch.bfloat16)
-        vc = torch.randn((S, KV, D), generator=g, device="cuda").to(
-            torch.bfloat16)
-        Qs = [torch.randn((T, H * D), generator=g, device="cuda") * 2.0
-              for _ in range(RUNS)]
+        dims, kc, vc, Qs = attention_inputs(case, g)
+        T, start, mf, win, H, KV, D = dims
 
         def run(q, plain=False):
             return flash_attention_seq(q, kc, vc, start, mf, H, D,
@@ -420,19 +471,12 @@ def phase_attention(flush: torch.Tensor) -> list:
         y, yr = run(Qs[0]), run(Qs[0], plain=True)
         torch.cuda.synchronize()
         slot = start + torch.arange(T, device="cuda")
-        dead = slot < mf                    # queries with no live key
-        rows, rows_r = y.reshape(T * H, D), yr.reshape(T * H, D)
-        live_rows = (~dead).repeat_interleave(H)
-        c = rows_agree(rows[live_rows], rows_r[live_rows])
-        err = float((y - yr).abs().max())
-        scale = float(yr.abs().max())
-        dead_zero = not bool(y[dead].any())
         p = dict(case=case["name"], T=T, S=S, H=H, KV=KV, D=D,
                  start_slot=start, mask_from=mf, window=win,
-                 dead_rows=int(dead.sum()), min_row_cos=c,
-                 max_abs_err=err, max_abs_ref=scale,
-                 dead_rows_zero=dead_zero)
-        if not c >= 0.9999 or not err <= 1e-2 * scale or not dead_zero:
+                 **attention_agreement(dims, y, yr))
+        # PV_F32_TOL: P V keeps P to about 24 bits under pv_f32; one bf16
+        # part of P reads above it (scripts/torch_k3_plans.py)
+        if not p.pop("ok"):
             raise AssertionError(f"K3 disagrees with its plain version: {p}")
         # the live keys of each query, for the bound
         k_ids = torch.arange(S, device="cuda")
@@ -534,9 +578,9 @@ def phase_generate(cfg, w, eng, prompts):
 # the ported kernels' own CUDA kernels, by a part of their profiler names
 # (K1's and K2's live in anonymous namespaces; torch's own reductions are
 # named reduce_kernel too)
-KERNEL_PARTS = {"k1_select": "namespace)::select_kernel",
-                "k1_stream": "namespace)::stream_kernel",
-                "k1_reduce": "namespace)::reduce_kernel",
+KERNEL_PARTS = {"k1_select": "namespace)::k1_select_kernel",
+                "k1_stream": "namespace)::k1_stream_kernel",
+                "k1_reduce": "namespace)::k1_reduce_kernel",
                 "k2_select": "namespace)::select_batch_kernel",
                 "k2_stream": "namespace)::mma_stream_kernel",
                 "k2_reduce": "namespace)::reduce_batch_kernel",
@@ -545,38 +589,93 @@ KERNEL_PARTS = {"k1_select": "namespace)::select_kernel",
                 "k4_k5_stream": "rank_prefix::ring_stream_kernel",
                 "split_sum": "rank_prefix::reduce_splits",    # K4-K7's
                 "k6_k7_gather": "block_gather::ring_gather_kernel"}
+K1_PARTS = ("k1_select", "k1_stream", "k1_reduce")
+# K1's parts as the kernels line names them: the stream and the split sum
+# are programmatic dependents, so their device time includes their wait
+# (griddepcontrol.wait) behind the launch before, not their work alone
+K1_PART_KEYS = {"k1_select": "k1_select",
+                "k1_stream": "k1_stream_incl_wait",
+                "k1_reduce": "k1_reduce_incl_wait"}
 
 
-def device_profile(fn) -> dict:
-    """Where the time of fn() goes: device time by kernel (torch.profiler,
-    device activity only, summed over the raw trace events: host events
-    and the profiler's own event tree cost the run tens of seconds a pass
-    and add nothing to these sums) against the wall time of fn() run again
-    without the profiler; the card's busy share is their ratio."""
+PROFILE_TRIES = 3
+
+
+def device_kernels(fn) -> dict:
+    """{kernel name: (device ms, launches)} of one traced run of fn()
+    (torch.profiler, device activity only, summed over the raw trace
+    events: host events and the profiler's own event tree cost the run
+    tens of seconds a pass and add nothing to these sums). Empty where the
+    profiler delivered no device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
     by_name = {}
     for e in prof.profiler.kineto_results.events():
         if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0:
             ms, n = by_name.get(e.name(), (0.0, 0))
             by_name[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
+    return by_name
+
+
+def device_profile(fn, need=()) -> dict:
+    """Where the time of fn() goes: device time by kernel (device_kernels)
+    against the wall time of fn() run again without the profiler; the
+    card's busy share is their ratio. A trace with no device activity at
+    all (the profiler delivers none now and then, and none where another
+    tool holds the card's activity tracing) is taken again, up to
+    PROFILE_TRIES times; if every one is empty, the device numbers are None
+    (not measured) and `traced` is false. Raises if a trace holds kernels
+    but a part of KERNEL_PARTS named in `need` matches none of them (a
+    renamed kernel must not read as 0)."""
+    for _ in range(PROFILE_TRIES):
+        by_name = device_kernels(fn)
+        if by_name:
+            break
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    if not by_name:
+        print(f"chip_smoke: {PROFILE_TRIES} traces held no device activity; "
+              "device time by kernel not measured", file=sys.stderr)
+        return dict(wall_ms=wall_ms, device_ms=None, device_busy_share=None,
+                    kernel_ms=None, top=[], traced=False)
     kernels = sorted(((k, ms, n) for k, (ms, n) in by_name.items()),
                      key=lambda k: -k[1])
     device_ms = sum(k[1] for k in kernels)
     parts = {part: sum(k[1] for k in kernels if sub in k[0])
              for part, sub in KERNEL_PARTS.items()}
+    missing = [part for part in need if not parts[part]]
+    if missing:
+        raise AssertionError(f"no kernel matches the parts {missing} "
+                             f"(KERNEL_PARTS); the trace's kernels: "
+                             f"{[k[0][:60] for k in kernels]}")
     return dict(wall_ms=wall_ms, device_ms=device_ms,
                 device_busy_share=device_ms / wall_ms,
                 kernel_ms={k: v for k, v in parts.items() if v},
-                top=[(name[:60], ms, n) for name, ms, n in kernels[:8]])
+                top=[(name[:60], ms, n) for name, ms, n in kernels[:8]],
+                traced=True)
+
+
+def per_call(kernel_ms, calls: int):
+    """A profile's kernel_ms over `calls` calls, per call (None where the
+    profile was not measured)."""
+    if kernel_ms is None:
+        return None
+    return {k: ms / calls for k, ms in kernel_ms.items()}
+
+
+def sum_parts(parts: list, keys, names=None):
+    """The sum over points of their parts_ms at `keys` (named names[k] in
+    the result), or None where a point's parts were not measured."""
+    if any(q is None for q in parts):
+        return None
+    names = names or {}
+    return {names.get(k, k): sum(q.get(k, 0.0) for q in parts) for k in keys}
 
 
 def phase_profile(eng, prompt) -> dict:
@@ -585,7 +684,8 @@ def phase_profile(eng, prompt) -> dict:
     n_new = 8
     r = dict(steps=padded(len(prompt), eng.pad_to) + n_new - 1,
              **device_profile(lambda: eng.generate(prompt, n_new=n_new,
-                                                   effort=0.25)))
+                                                   effort=0.25),
+                              need=K1_PARTS))
     emit({"phase": "profile", **r})
     return r
 
@@ -1116,8 +1216,7 @@ def phase_kernels_rank(flush: torch.Tensor) -> dict:
                             fused_stream.fused_matvec(bm, v, eq, 0, tgb,
                                                       tau)
                             for v in vs[:PROFILE_CALLS]])["kernel_ms"]
-                        p4["parts_ms"] = {k: ms / PROFILE_CALLS
-                                          for k, ms in prof.items()}
+                        p4["parts_ms"] = per_call(prof, PROFILE_CALLS)
                     emit({"phase": "kernels_rank", "kernel": "K4", **p4})
                     sels = [prefix_stream.select_stream(bm, v, eq, 0, tgb,
                                                         tau=tau)
@@ -1407,6 +1506,33 @@ def summary_row(name: str, source: str, replaces: str, points: list,
             "library_ms": sum(p["library_ms"] for p in rows)}
 
 
+def k1_row(points: list, launches: int) -> dict:
+    """K1's entry: one decode layer's four launches (SUMMARY), with where
+    they spend their device time (parts_ms: selection, stream and split
+    sum, the last two with their waits; K1_PART_KEYS)."""
+    pick = lambda p: (p["dtype"], p["effort"], p["tau"]) == SUMMARY  # noqa
+    row = summary_row("mxu_matvec", "effort_tpu_torch/csrc/mxu_matvec.cu",
+                      "effort_tpu/kernels/fused_stream.py:270", points,
+                      launches, pick)
+    row["parts_ms"] = sum_parts([p["parts_ms"] for p in points if pick(p)],
+                                K1_PARTS, K1_PART_KEYS)
+    return row
+
+
+def k3_row(points: list, launches: int) -> dict:
+    """K3's entry: one 64-query prefill call (SUMMARY_ATTN), and each
+    case's ms, library ms and bound beside it (by_case)."""
+    row = summary_row(
+        "flash_attention", "effort_tpu_torch/csrc/flash_attention.cu",
+        "effort_tpu/kernels/flash_attention.py:36", points, launches,
+        lambda p: p["case"] == SUMMARY_ATTN)
+    row["by_case"] = {p["case"]: {k: p[k] for k in ("ms", "plain_ms",
+                                                    "library_ms",
+                                                    "bound_ms")}
+                      for p in points}
+    return row
+
+
 def k2_row(points: list, launches: int) -> dict:
     """K2's entry: the T = 64 summary, and the T = 4 one under "_t4"
     keys."""
@@ -1421,11 +1547,11 @@ def k2_row(points: list, launches: int) -> dict:
                                             "bound_by", "library_ms")})
     for key, T in (("parts_ms", SUMMARY_BATCH[1]),
                    ("parts_ms_t4", SUMMARY_BATCH_T4[1])):
-        parts = [p["parts_ms"] for p in points
-                 if (p["dtype"], p["T"], p["tau"]) == (SUMMARY_BATCH[0], T,
-                                                       SUMMARY_BATCH[2])]
-        row[key] = {k: sum(q.get(k, 0.0) for q in parts)
-                    for k in ("k2_select", "k2_stream", "k2_reduce")}
+        row[key] = sum_parts(
+            [p["parts_ms"] for p in points
+             if (p["dtype"], p["T"], p["tau"]) == (SUMMARY_BATCH[0], T,
+                                                   SUMMARY_BATCH[2])],
+            ("k2_select", "k2_stream", "k2_reduce"))
     return row
 
 
@@ -1447,10 +1573,8 @@ def k4_row(points: list, launches: int) -> dict:
     row = summary_row(
         "fused_matvec", "effort_tpu_torch/csrc/fused_matvec.cu",
         "effort_tpu/kernels/fused_stream.py:145", points, launches, pick)
-    parts = [p["parts_ms"] for p in points if pick(p)]
-    row["parts_ms"] = {k: sum(q.get(k, 0.0) for q in parts)
-                       for k in ("k4_select", "k4_k5_stream",
-                                 "split_sum")}
+    row["parts_ms"] = sum_parts([p["parts_ms"] for p in points if pick(p)],
+                                ("k4_select", "k4_k5_stream", "split_sum"))
     return row
 
 
@@ -1510,21 +1634,13 @@ def main() -> int:
     summary_rank = lambda p: (p["dtype"], p["effort"],   # noqa: E731
                               p.get("tau", 0.97)) == SUMMARY_RANK
     out["kernels"] = kernels = [
-        summary_row(
-            "mxu_matvec", "effort_tpu_torch/csrc/mxu_matvec.cu",
-            "effort_tpu/kernels/fused_stream.py:270", out["points"],
-            sum(r["launches"]["mxu_matvec"]
-                for r in out["generate"] + out["prefill"]),
-            lambda p: (p["dtype"], p["effort"], p["tau"]) == SUMMARY),
+        k1_row(out["points"], sum(r["launches"]["mxu_matvec"]
+                                  for r in out["generate"] + out["prefill"])),
         k2_row(out["points_batch"],
                sum(r["launches"]["mxu_matvec_batch"]
                    for r in out["prefill"] + out["serve"])),
-        summary_row(
-            "flash_attention", "effort_tpu_torch/csrc/flash_attention.cu",
-            "effort_tpu/kernels/flash_attention.py:36", out["attention"],
-            sum(r["launches"]["flash_attention"]
-                for r in out["prefill"] + out["serve"]),
-            lambda p: p["case"] == SUMMARY_ATTN),
+        k3_row(out["attention"], sum(r["launches"]["flash_attention"]
+                                     for r in out["prefill"] + out["serve"])),
         k4_row(out["points_rank"]["k4"], rank_launches["fused_matvec"]),
         summary_row(
             "stream_matvec", "effort_tpu_torch/csrc/stream_matvec.cu",

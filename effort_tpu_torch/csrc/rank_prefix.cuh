@@ -617,13 +617,11 @@ __device__ __forceinline__ void rank_rows(
 }
 
 // The selection's end, by one block of kSelThreads threads once every
-// (rank, chunk) mass is in ms [K][nc] (shared memory; the prefixes are
-// written over it). Per rank (one warp each): the inclusive prefix of the
-// chunk masses in f64 (exact, so the same in any order), each rounded to
-// f32 once; C_k = #(prefix < tau * total) + 1, at most nc. Lane l takes
-// the m chunks [l*m, l*m + m): a serial sum, one warp scan of the lane
-// sums, then the lane's prefixes and its count below tau * total. Writes
-// c_out [K], cum_tiles [K+1], base_blocks [K] and cutoff_out [1].
+// (rank, chunk) mass is in ms [K][nc] (shared memory). Per rank, one warp
+// each: C_k = row_prefix::chunk_prefix_len of the rank's chunk masses (the
+// inclusive prefixes in f64, exact in any order, each rounded to f32 once;
+// the count below tau * total, plus 1, at most nc). Writes c_out [K],
+// cum_tiles [K+1], base_blocks [K] and cutoff_out [1].
 __device__ __forceinline__ void rank_scan(
     double* s_mass, int nc, int K, int tgb, float tau, int expert,
     float cutoff, int32_t* __restrict__ c_out,
@@ -632,34 +630,10 @@ __device__ __forceinline__ void rank_scan(
   __shared__ int s_len[kMaxRanks];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   if (warp < K) {
-    const int k = warp, m = (nc + 31) / 32;
-    double* ms = s_mass + k * nc;
-    const int c0 = min(lane * m, nc), c1 = min(c0 + m, nc);
-    double own = 0.0;
-    for (int c = c0; c < c1; ++c) own += ms[c];
-    double x = own;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const double y = __shfl_up_sync(0xffffffffu, x, o);
-      if (lane >= o) x += y;
-    }
-    const double total = __shfl_sync(0xffffffffu, x, 31);
-    double acc = __shfl_up_sync(0xffffffffu, x, 1);  // chunks before c0
-    if (lane == 0) acc = 0.0;
-    for (int c = c0; c < c1; ++c) {
-      acc += ms[c];
-      ms[c] = (double)__double2float_rn(acc);
-    }
-    const float thr = __fmul_rn(tau, __double2float_rn(total));
-    int below = 0;
-    for (int c = c0; c < c1; ++c) below += (float)ms[c] < thr ? 1 : 0;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      below += __shfl_xor_sync(0xffffffffu, below, o);
+    const int C = row_prefix::chunk_prefix_len(s_mass + warp * nc, nc, tau);
     if (lane == 0) {
-      const int C = min(below + 1, nc);  // an empty selection streams 1
-      c_out[k] = C;
-      s_len[k] = (C + tgb - 1) / tgb;
+      c_out[warp] = C;
+      s_len[warp] = (C + tgb - 1) / tgb;
     }
   }
   __syncthreads();

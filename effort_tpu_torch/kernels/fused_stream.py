@@ -8,9 +8,12 @@ versions.
     against an effort-dependent cutoff, finds the shortest chunk prefix
     that holds tau of the selected mass, and streams only that prefix of
     the weights. It is bound by the streamed bytes, C*G*row_bytes, over the
-    card's memory rate. Effort reaches it as a 16.16 fixed-point int32
-    device tensor, as the TPU kernel takes it, so moving the knob needs no
-    host sync and no rebuild.
+    card's memory rate. The selection runs as a grid of blocks owning
+    whole chunks, the last of them to finish finding C (a per-card scratch
+    and ticket, as K4's); the stream and the split sum are programmatic
+    dependents of the launch before them. Effort reaches it as a 16.16
+    fixed-point int32 device tensor, as the TPU kernel takes it, so moving
+    the knob needs no host sync and no rebuild.
   - mxu_matvec_batch (K2) replaces fused_stream.py:mxu_matvec_batch ->
     _kernel_mxu_batch, in csrc/mxu_matvec_batch.cu: the same for T slots
     (prefill tokens or batched decode slots), each with its own f32 effort
@@ -67,6 +70,11 @@ _MAX_MASSES = 24576       # K * nc f64 masses in K4's selection scratch
 # K4's selection scratch a card: _MAX_MASSES f64 masses and the ticket of
 # the last block, zeroed once (the kernel leaves the ticket at 0)
 _K4_SCRATCH: dict = {}
+# K1's scratch a card: "mass", _MAX_CHUNKS f64 chunk masses and the ticket
+# of the selection's last block after them, zeroed once (the kernel leaves
+# the ticket at 0); "u" [in_dim] bf16 and "cutoff" [1] f32, the selection
+# of the last call (grown as wider inputs come)
+_K1_SCRATCH: dict = {}
 _TABLES: dict = {}
 # K2's stream (csrc/mxu_matvec_batch.cu): row bytes of a block's 256
 # output columns by value kind, and rows of a ring stage
@@ -116,8 +124,8 @@ def _vec_cutoff(scores, kq, m, tables):
 def _select_ref(bm: BucketedMatrix, vp: torch.Tensor, eff: torch.Tensor,
                 expert: int, tau: float):
     """The kernels' selection, batched over the leading axes of vp
-    [..., in] (permuted, f32) with eff [...] f32: u [..., in] bf16 and each
-    vector's stream length C [...] int32. The selected masses add in f64
+    [..., in] (permuted, f32) with eff [...] f32: u [..., in] bf16, each
+    vector's stream length C [...] int32 and its cutoff [...] f32. The selected masses add in f64
     (exact in any order for terms spanning less than 2^29, so C does not
     hang on summation order) and each chunk prefix is rounded to f32 once,
     as the kernels sum."""
@@ -137,7 +145,7 @@ def _select_ref(bm: BucketedMatrix, vp: torch.Tensor, eff: torch.Tensor,
         u = u * bm.scales[expert, :, 0]
     mass = torch.where(sel, x, torch.zeros_like(x))
     C = coverage_lengths(mass.reshape(*x.shape[:-1], nc, G), tau)
-    return u.to(torch.bfloat16), C
+    return u.to(torch.bfloat16), C, cutoff
 
 
 def _prefix_product(bm: BucketedMatrix, u: torch.Tensor, C: torch.Tensor,
@@ -156,20 +164,28 @@ def _need_row_prefix(bm: BucketedMatrix):
         raise ValueError("the row-prefix kernels need bucket_size=1")
 
 
+def mxu_select_ref(bm: BucketedMatrix, v: torch.Tensor, effort,
+                   expert: int = 0, tau: float = None):
+    """K1's selection in plain PyTorch, on the 16.16 effort: (u [in] bf16,
+    C int32 [1], cutoff f32 [1])."""
+    tau = _TAU if tau is None else tau
+    _need_row_prefix(bm)
+    vp = bm.permute_v(v, expert).to(torch.float32)
+    eff = effort_q16(effort, vp.device).to(torch.float32)[0] \
+        * (1.0 / 65536.0)
+    u, C, cutoff = _select_ref(bm, vp, eff, expert, tau)
+    return u, C.reshape(1), cutoff.reshape(1)
+
+
 def mxu_matvec_ref(bm: BucketedMatrix, v: torch.Tensor, effort,
                    expert: int = 0, tau: float = None,
                    return_len: bool = False):
     """Plain PyTorch version of K1: the same cutoff on the 16.16 effort, u
     rounded to bf16, C from torch.cumsum, and y = u[:C*G] @ W[:C*G] in f32.
     Returns y [OB] f32, or (y, C) with C an int32 [1] tensor."""
-    tau = _TAU if tau is None else tau
-    _need_row_prefix(bm)
-    vp = bm.permute_v(v, expert).to(torch.float32)
-    eff = effort_q16(effort, vp.device).to(torch.float32)[0] \
-        * (1.0 / 65536.0)
-    u, C = _select_ref(bm, vp, eff, expert, tau)
+    u, C, _ = mxu_select_ref(bm, v, effort, expert, tau)
     y = _prefix_product(bm, u, C, expert)
-    return (y, C.reshape(1)) if return_len else y
+    return (y, C) if return_len else y
 
 
 def slot_efforts(efforts, T: int, device) -> torch.Tensor:
@@ -198,7 +214,7 @@ def mxu_matvec_batch_ref(bm: BucketedMatrix, V: torch.Tensor, efforts,
     _need_row_prefix(bm)
     Vp = bm.permute_v(V, expert).to(torch.float32)
     eff = slot_efforts(efforts, Vp.shape[0], Vp.device)
-    u, C = _select_ref(bm, Vp, eff, expert, tau)
+    u, C, _ = _select_ref(bm, Vp, eff, expert, tau)
     C = torch.amax(C)
     y = _prefix_product(bm, u, C, expert)
     return (y, C.reshape(1)) if return_len else y
@@ -271,6 +287,14 @@ def _k2_per_sm(kind: int, nn: int, dev) -> int:
     return _K2_PER_SM[key]
 
 
+def select_plan(nc: int, sms: int) -> list:
+    """K1's selection grid on a card of `sms` SMs: min(nc, sms) blocks, at
+    most one an SM and none without a chunk; block b owns chunks [b*nc //
+    n, (b+1)*nc // n), the kernel's split. Returns those ranges."""
+    n = min(nc, sms)
+    return [(b * nc // n, (b + 1) * nc // n) for b in range(n)]
+
+
 def _rows_per_block(tiles: int, in_dim: int) -> int:
     """Rows per streaming block: the largest of 256..32 that still puts
     _MIN_BLOCKS blocks on the card (fewer rows per block means more
@@ -320,6 +344,24 @@ def _check(bm: BucketedMatrix, v: torch.Tensor, expert: int):
             raise ValueError(f"weights on {t.device}, v on {v.device}")
 
 
+def mxu_scratch(device, in_dim: int = 0) -> dict:
+    """K1's per-card scratch (see _K1_SCRATCH), u grown to at least in_dim
+    rows. After a call on `device` has run, "u"[:in_dim] and "cutoff" hold
+    that call's selection and the ticket (the "mass" tensor's last element
+    as int32 words) is 0 again: the card tests read them from here."""
+    dev = torch.device(device)
+    if dev not in _K1_SCRATCH:
+        _K1_SCRATCH[dev] = dict(
+            mass=torch.zeros(_MAX_CHUNKS + 1, dtype=torch.float64,
+                             device=dev),
+            u=torch.empty(0, dtype=torch.bfloat16, device=dev),
+            cutoff=torch.empty(1, dtype=torch.float32, device=dev))
+    scratch = _K1_SCRATCH[dev]
+    if scratch["u"].numel() < in_dim:
+        scratch["u"] = torch.empty(in_dim, dtype=torch.bfloat16, device=dev)
+    return scratch
+
+
 def mxu_matvec(bm: BucketedMatrix, v: torch.Tensor, effort,
                expert: int = 0, tau: float = None,
                return_len: bool = False):
@@ -351,9 +393,10 @@ def mxu_matvec(bm: BucketedMatrix, v: torch.Tensor, effort,
     width = bm.vals.shape[2] * (2 if bm.vals_packed else 1)
     rb = _rows_per_block(-(-row_bytes // 512), in_dim)
 
-    u = torch.empty(in_dim, dtype=torch.bfloat16, device=dev)
+    blocks = len(select_plan(
+        nc, torch.cuda.get_device_properties(dev).multi_processor_count))
+    scratch = mxu_scratch(dev, in_dim)
     c_len = torch.empty(1, dtype=torch.int32, device=dev)
-    cutoff = torch.empty(1, dtype=torch.float32, device=dev)
     partial = torch.empty((-(-in_dim // rb), width), dtype=torch.float32,
                           device=dev)
     y = torch.empty(bm.n_buckets, dtype=torch.float32, device=dev)
@@ -361,13 +404,14 @@ def mxu_matvec(bm: BucketedMatrix, v: torch.Tensor, effort,
     scales_ptr = (bm.scales.data_ptr() + expert * in_dim * 4
                   if bm.scales is not None else None)
     _build.kernel_fn("mxu_matvec", "effort_mxu_matvec",
-                     "pppppppiiiiiiiifiipppppip")(
+                     "pppppppiiiiiiiiifiippppppip")(
         vp.data_ptr(), bm.probes.data_ptr() + expert * P * 4,
         bm.stats.data_ptr() + expert * in_dim * 4, scales_ptr,
         eq.data_ptr(), tables.data_ptr(), vals_ptr,
         _KIND[bm.vals.dtype], in_dim, row_bytes, bm.n_buckets, G, nc, P,
-        stride, float(tau), rb, width,
-        u.data_ptr(), c_len.data_ptr(), cutoff.data_ptr(),
+        stride, blocks, float(tau), rb, width,
+        scratch["u"].data_ptr(), c_len.data_ptr(),
+        scratch["cutoff"].data_ptr(), scratch["mass"].data_ptr(),
         partial.data_ptr(), y.data_ptr(), dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     LAUNCHES["mxu_matvec"] += 1

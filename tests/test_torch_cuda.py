@@ -168,6 +168,127 @@ def test_flash_attention_cuda_kernel_matches_plain(start, mask_from,
     assert LAUNCHES["flash_attention"] == launches + 2
 
 
+# (T, S, start_slot, mask_from, window): a causal prefill; a left-padded
+# prompt whose first 9 queries see no key; 40 queries at slot 56 of a
+# 96-slot cache; the same in a 16-slot window
+FLASH_CASES = ((64, 64, 0, 0, 0), (33, 96, 0, 9, 0), (40, 96, 56, 0, 0),
+               (40, 96, 56, 0, 16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 72, 128, 256])
+@pytest.mark.parametrize("pv_f32", [True, False])
+def test_flash_attention_tensor_cores_match_plain(D, pv_f32):
+    """K3 (mma.sync on the tensor cores) against its plain version at head
+    widths 64, 72 (its depth zero-padded to 80), 128 and 256, with GQA (H
+    8, KV 2), at FLASH_CASES: min row cos >= 0.9999; max|dy| <= 1e-4
+    max|y_ref| under pv_f32 (P kept to about 24 bits as three bf16 parts;
+    chip_smoke.py's PV_F32_TOL), 1e-2 without it (P rounded to bf16, against the running max where the
+    plain version takes the final one); queries with no live key exactly
+    0; one launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from effort_tpu_torch.kernels.flash_attention import flash_attention_seq
+    g = torch.Generator(device="cuda")
+    g.manual_seed(D + pv_f32)
+    H, KV = 8, 2
+    launches = LAUNCHES["flash_attention"]
+    for T, S, start, mf, win in FLASH_CASES:
+        q = torch.randn((T, H * D), generator=g, device="cuda") * 2.0
+        kc = torch.randn((S, KV, D), generator=g, device="cuda").bfloat16()
+        vc = torch.randn((S, KV, D), generator=g, device="cuda").bfloat16()
+        args = (q, kc, vc, start, mf, H, D)
+        y = flash_attention_seq(*args, window=win, pv_f32=pv_f32)
+        yr = flash_attention_seq(*args, window=win, pv_f32=pv_f32,
+                                 plain=True)
+        torch.cuda.synchronize()
+        what = (T, S, start, mf, win)
+        dead = max(0, mf - start)
+        assert not bool(y[:dead].any()), what
+        rows, rows_r = y[dead:].reshape(-1, D), yr[dead:].reshape(-1, D)
+        c = torch.nn.functional.cosine_similarity(rows.double(),
+                                                  rows_r.double(), dim=1)
+        assert float(c.min()) >= 0.9999, (what, float(c.min()))
+        tol = 1e-4 if pv_f32 else 1e-2
+        err = float((y - yr).abs().max())
+        assert err <= tol * float(yr.abs().max()), (what, err)
+    assert LAUNCHES["flash_attention"] == launches + len(FLASH_CASES)
+
+
+# (in_dim, out_dim, chunk_rows): P = 4096 probes at the 4096-wide inputs;
+# 112 chunks (w2); 896 chunks of 16 rows, more than a card's SMs, so a
+# selection block owns 6 or 7 chunks (an uneven split) and adds its rows'
+# masses one by one (G not a multiple of 32); and 4 chunks of 4096 rows, more
+# than a block holds in registers (2048), so each block reads its rows after
+# the search (row_prefix::chunk_masses from chunk c0 > 0)
+K1_SHAPES = ((4096, 6144, 512), (4096, 4096, 128), (14336, 4096, 128),
+             (14336, 1024, 16), (16384, 1024, 4096))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bf16", "int8", "int4"])
+def test_mxu_matvec_grid_selection_matches_plain(dtype):
+    """K1's selection spread across the card (k1_select_kernel) at
+    K1_SHAPES (which reach each of its branches on a 132-SM card), efforts
+    0.1, 0.25 and 1 and tau 0.97 and 1: u, read back from the wrapper's
+    scratch (fused_stream.mxu_scratch), equal bit for bit to the plain
+    selection's (mxu_select_ref), and C and the cutoff equal to it; y
+    within cos 0.9999 and max|dy| <= 1e-2 max|y_ref|; the selection's
+    ticket back at 0 after each call; two calls in a row on one stream give
+    the same bits; v = 0 streams one chunk and gives 0; one launch a
+    call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from effort_tpu_torch.ops.bucketize import calib_row_order
+    g = torch.Generator(device="cuda")
+    g.manual_seed(17)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    launches = LAUNCHES["mxu_matvec"]
+    n, ncs, block_rows = 0, [], []
+    for in_dim, out_dim, G in K1_SHAPES:
+        rms = torch.exp(torch.randn(in_dim, generator=g, device="cuda") * 1.2)
+        pi = calib_row_order(rms)
+        wt = torch.randn((in_dim, out_dim), generator=g, device="cuda") * 0.02
+        bm = bucketize(wt, BucketConfig(bucket_size=1, chunk_rows=G,
+                                        dtype=dtype), in_perm=pi)
+        if in_dim == 4096:
+            assert bm.probes.shape[1] == 4096
+        plan = port_fs.select_plan(bm.n_chunks, sms)
+        ncs.append(bm.n_chunks)
+        block_rows.append(max(c1 - c0 for c0, c1 in plan) * G)
+        v = rms[pi.long()] * torch.randn(in_dim, generator=g, device="cuda")
+        for e in (0.1, 0.25, 1.0):
+            for tau in (0.97, 1.0):
+                y, C = port_fs.mxu_matvec(bm, v, e, 0, tau=tau,
+                                          return_len=True)
+                sc = port_fs.mxu_scratch(v.device)
+                u, cut = sc["u"][:in_dim].clone(), sc["cutoff"].clone()
+                ticket = sc["mass"][-1:].view(torch.int32).clone()
+                y2 = port_fs.mxu_matvec(bm, v, e, 0, tau=tau)
+                n += 2
+                ur, Cr, cutr = port_fs.mxu_select_ref(bm, v, e, 0, tau)
+                yr = port_fs.mxu_matvec_ref(bm, v, e, 0, tau=tau)
+                torch.cuda.synchronize()
+                what = (in_dim, out_dim, G, e, tau)
+                assert torch.equal(u, ur), what
+                assert int(C) == int(Cr), (what, int(C), int(Cr))
+                assert torch.equal(cut, cutr), (what, cut, cutr)
+                assert not bool(ticket.any()), what
+                assert torch.equal(y, y2), what
+                c = torch.nn.functional.cosine_similarity(
+                    y.double(), yr.double(), dim=0)
+                assert float(c) >= 0.9999, (what, float(c))
+                err = float((y - yr).abs().max())
+                assert err <= 1e-2 * float(yr.abs().max()), (what, err)
+        y, C = port_fs.mxu_matvec(bm, torch.zeros_like(v), 0.0, 0,
+                                  return_len=True)
+        n += 1
+        assert int(C) == 1 and not bool(y.any())
+    assert 112 in ncs and max(ncs) > sms and max(ncs) % sms
+    assert max(block_rows) > 2048
+    assert LAUNCHES["mxu_matvec"] - launches == n
+
+
 @pytest.mark.cuda
 def test_forward_seq_kernel_route_matches_plain_route():
     """One batched forward_seq over a left-padded prompt on a small random
@@ -215,8 +336,9 @@ def test_forward_seq_kernel_route_matches_plain_route():
 def test_kernel_wrappers_raise_on_what_they_do_not_take():
     """On CUDA tensors the K2 and K3 wrappers launch or raise: a V of the
     wrong width, a rank-prefix container, a 16.16 int32 effort (K1's
-    form), an f32 cache and a head wider than 128 are refused before any
-    launch, and nothing is counted."""
+    form), an f32 cache, a head wider than 256 and one not a multiple of 8
+    wide are refused before any launch, with K3's limit in the message,
+    and nothing is counted."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from effort_tpu_torch.kernels.flash_attention import flash_attention_seq
@@ -241,29 +363,31 @@ def test_kernel_wrappers_raise_on_what_they_do_not_take():
     kc = torch.randn((32, 2, 64), device="cuda")
     with pytest.raises(ValueError):
         flash_attention_seq(q, kc, kc, 0, 0, 4, 64)
-    kw = torch.randn((32, 2, 256), device="cuda").bfloat16()
-    with pytest.raises(ValueError):
-        flash_attention_seq(torch.randn((8, 4 * 256), device="cuda"), kw, kw,
-                            0, 0, 4, 256)
+    for D in (264, 12):
+        kw = torch.randn((32, 2, D), device="cuda").bfloat16()
+        with pytest.raises(ValueError, match="from 8 to 256"):
+            flash_attention_seq(torch.randn((8, 4 * D), device="cuda"), kw,
+                                kw, 0, 0, 4, D)
     assert LAUNCHES == before
 
 
 @pytest.mark.cuda
 def test_forward_seq_auto_attention_is_k3_on_the_card():
-    """forward_seq's "auto" attention on the card is K3 for any heads: a
-    128-wide head launches it once a layer, and a 256-wide head, which K3
-    does not take, raises rather than running the plain attention."""
+    """forward_seq's "auto" attention on the card is K3 for any heads:
+    128- and 256-wide heads launch it once a layer, and a 264-wide head,
+    which K3 does not take, raises rather than running the plain
+    attention."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     import dataclasses
     from effort_tpu_torch.config import tiny_test_model
     from effort_tpu_torch.models import transformer as tf
     ids = torch.tensor([0] * 3 + list(range(3, 8)), device="cuda")
-    for D, raises in ((128, False), (256, True)):
+    for D, raises in ((128, False), (256, False), (264, True)):
         cfg = dataclasses.replace(tiny_test_model(), head_dim=D, n_heads=2,
                                   n_kv_heads=1, dim=2 * D, hidden_dim=4 * D)
         w = tf.init_random_weights(cfg, BucketConfig(bucket_size=1,
-                                                     chunk_rows=128,
+                                                     chunk_rows=8,
                                                      dtype="int8"),
                                    keep_dense=True, device="cuda")
         kc, vc = tf.make_kv_cache(cfg, "cuda")

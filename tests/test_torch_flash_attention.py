@@ -25,7 +25,9 @@ from effort_tpu.kernels.flash_attention import \
     flash_attention_seq as jax_flash_attention_seq
 from effort_tpu_torch.kernels import LAUNCHES
 from effort_tpu_torch.kernels.flash_attention import (flash_attention,
-                                                      flash_attention_seq)
+                                                      flash_attention_seq,
+                                                      flash_limits,
+                                                      flash_plan)
 from test_torch_bridge import cos
 
 torch.set_num_threads(2)
@@ -137,3 +139,56 @@ def test_flash_attention_layout_matches_jax():
     yt = flash_attention(qt, kt, vt, 20, 4).numpy()
     np.testing.assert_allclose(yt, yj, rtol=RTOL, atol=ATOL)
     assert LAUNCHES["flash_attention"] == launches
+
+
+def test_flash_plan_fills_the_card_at_prefill():
+    """At T = 64 with Mistral-7B's GQA (rep 4, KV 8) the plan puts at
+    least 128 blocks on a 132-SM card, one row warp with four key warps
+    each; at T = 512 it takes four row warps with two key warps a block,
+    and still more blocks than SMs."""
+    p = flash_plan(64, 4, 8, 132)
+    assert p.blocks >= 128 and (p.rw, p.kw) == (1, 4)
+    p = flash_plan(512, 4, 8, 132)
+    assert (p.rw, p.kw) == (4, 2) and p.blocks >= 132
+
+
+@pytest.mark.parametrize("T", [1, 17, 64, 512])
+@pytest.mark.parametrize("rep", [1, 4, 8])
+def test_flash_plan_covers_every_row_once(T, rep):
+    """The kernel's rows (block (qb, kv), row r < 16 * rw: query head r //
+    bq, query qb * bq + r % bq, live where r < rep * bq and the query < T)
+    cover every (KV head, query head, query) once, in at most 8 warps a
+    block, with 2 or 4 key warps (the kernel takes no other)."""
+    KV = 2
+    p = flash_plan(T, rep, KV, 132)
+    assert p.rw * p.kw <= 8 and p.kw in (2, 4) and rep * p.bq <= 16 * p.rw
+    seen = {}
+    for kv in range(p.kv):
+        for qb in range(p.q_blocks):
+            for r in range(16 * p.rw):
+                t = qb * p.bq + r % p.bq
+                if r < rep * p.bq and t < T:
+                    key = (kv, r // p.bq, t)
+                    seen[key] = seen.get(key, 0) + 1
+    assert len(seen) == KV * rep * T and set(seen.values()) == {1}
+
+
+@pytest.mark.parametrize("D,ok", [(72, True), (256, True), (8, True),
+                                  (12, False), (264, False), (0, False)])
+def test_flash_kernel_head_limits(D, ok):
+    """The kernel takes heads of any multiple of 8 up to 256 wide (a depth
+    that is not a multiple of 16 is zero-padded); the wrapper refuses the
+    rest with the limit in the message."""
+    why = flash_limits(D)
+    assert (why is None) == ok
+    if not ok:
+        assert "from 8 to 256" in why
+
+
+def test_flash_256_wide_heads_match_jax():
+    """Heads 256 wide (JAX's flash takes any D): the plain version against
+    JAX's kernel in interpret mode over a left-padded prompt."""
+    q, jkv, tkv = _case(5, 24, 48, 4, 2, 256)
+    yj, yt = _both(q, jkv, tkv, 0, 3, 4, 256)
+    assert not np.abs(yt[:3]).any()
+    np.testing.assert_allclose(yt, yj, rtol=RTOL, atol=ATOL)

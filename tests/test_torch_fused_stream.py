@@ -118,3 +118,40 @@ def test_mxu_matvec_stream_length_bounds():
     _, C = port_fs.mxu_matvec(tb, v, 0.3, 0, tau=2.0, return_len=True)
     assert int(C) == tb.n_chunks
     assert LAUNCHES["mxu_matvec"] == launches
+
+
+@pytest.mark.parametrize("nc,sms", [(8, 132), (32, 132), (112, 132),
+                                    (200, 132), (13, 4), (7, 3)])
+def test_select_plan_owns_every_chunk_once(nc, sms):
+    """K1's selection grid: at most one block an SM, none without a chunk,
+    every chunk owned by exactly one block, in order."""
+    plan = port_fs.select_plan(nc, sms)
+    assert len(plan) == min(nc, sms)
+    assert all(c1 > c0 for c0, c1 in plan)
+    owned = [c for c0, c1 in plan for c in range(c0, c1)]
+    assert owned == list(range(nc))
+
+
+@pytest.mark.parametrize("in_dim,dtype", [(896, "int8"), (1664, "int4"),
+                                          (1664, "bf16")])
+def test_mxu_matvec_ref_uneven_chunks_matches_jax(in_dim, dtype):
+    """The plain version against JAX's mxu_matvec (interpret) at chunk
+    counts (7 or 13 chunks of 128 rows) that do not divide evenly over the
+    selection's blocks (select_plan at 4 SMs): C within 1..nc and y within
+    cos 0.9999 at tau = 1. The plain version has no block split; this holds
+    the function that the kernel's uneven split must give, and the card
+    test test_mxu_matvec_grid_selection_matches_plain runs the split."""
+    rng = np.random.default_rng(in_dim)
+    wt = (rng.standard_normal((in_dim, OUT)) * 0.02).astype(np.float32)
+    jb = jax_bucketize(jnp.asarray(wt), JaxBucketConfig(
+        bucket_size=1, chunk_rows=128, dtype=dtype))
+    tb = bucketed_from_numpy(jax_bm_to_numpy(jb))
+    assert tb.n_chunks % len(port_fs.select_plan(tb.n_chunks, 4))
+    v = rng.standard_normal(in_dim).astype(np.float32)
+    for effort in (0.3, 0.8):
+        yj = jax_mxu_matvec(jb, jnp.asarray(v), effort, 0, tau=FULL_TAU,
+                            interpret=True)
+        yt, C = port_fs.mxu_matvec_ref(tb, torch.from_numpy(v), effort, 0,
+                                       tau=FULL_TAU, return_len=True)
+        assert 1 <= int(C) <= tb.n_chunks
+        assert cos(yj, yt.numpy()) > 0.9999, (effort, cos(yj, yt))
