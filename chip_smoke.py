@@ -101,6 +101,48 @@ Phases, one JSON line each (a failure raises and exits non-zero):
             against the plain route at tau = 1, depth 4, over a prompt and
             8 reply tokens (cos >= 0.999); and
             make_server (single flight) answering /q on this model
+  instances K1 at the Mixtral-8x7B expert shapes (w13, w2) x {bf16, int8,
+            int4} and K4 at the four shapes (int8), on containers of 3
+            instances: each instance as an int and as a 0-d int32 CUDA
+            tensor (read by the kernel), y, C (C_k) and u bit for bit
+  moe_model the rank-prefix model freed, Mixtral-8x7B width and depth (32
+            layers, 8 experts, top 2), int8 row-prefix buckets, fused
+            projections, int8 LM head, no dense copies
+  moe_decode
+            Engine.generate on the four prompts at efforts 0.25, 0.5 and
+            1.0: K1 6 * 32 times a step (wqkv, wo, w13 and w2 of the two
+            routed experts, whose instance the kernel reads on the card)
+            and no other kernel; one step under
+            torch.cuda.set_sync_debug_mode("error")
+  moe_profile
+            device time by kernel over one request (39 steps, effort
+            0.25), the busy share, K1's parts, the gate's and the top-k's
+  moe_teacher
+            the kernel route against the plain route at tau = 1, depth 4:
+            cos >= 0.999 and the same top-2 experts at every layer and
+            step; at depth 32 every K1 call against its plain version on
+            the same inputs and instance (cos >= 0.9999, equal C)
+  moe_prefill
+            Engine(prefill=True): time to first token; per pass K3 32
+            times, K2 2 + 2 g_l times a layer (g_l experts with tokens),
+            one host read of the routing a layer; prefill logits against
+            the token loop's at depth 4, printed (with the token loop's
+            experts and f32 attention, through K3, with its own routing,
+            beside the token loop against itself nudged by 2^-20); at
+            depth 32, required, every K2 and K3 call against its plain
+            version and every layer's grouped MoE FFN against the
+            per-token one (K1) on the same inputs (cos >= 0.9999)
+  moe_serve BatchEngine(batch_size=4) + ContinuousBatcher, 8 requests:
+            tokens/s, exact launch counts, the batched MoE FFN slot by slot
+            (K1) and grouped by expert (K2) timed in turns, a batched step
+            against the single stream at depth 4 (cos >= 0.999),
+            make_batch_server and make_server answering HTTP
+  moe_rank  the row-prefix MoE model freed, Mixtral-8x7B width and depth
+            with int8 rank-prefix buckets: "auto" decode (K4, 6 * 32
+            launches a step, the instance read on the card), one step
+            under set_sync_debug_mode("error"), every K4 call against its
+            plain version on the same inputs at depth 32, and the kernel
+            route against the plain route at depth 4 (as moe_teacher)
 Then the `kernels` summary line, the card's nvidia-smi line, and last
 {"ok": true, "device": {...}}. The full per-point table is written to
 chiprun_out/chip_smoke.json. float32 matmuls run in full f32 (TF32 off).
@@ -109,6 +151,7 @@ chiprun_out/chip_smoke.json. float32 matmuls run in full f32 (TF32 off).
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -117,7 +160,7 @@ from pathlib import Path
 
 import torch
 
-from effort_tpu_torch.config import BucketConfig, mistral_7b
+from effort_tpu_torch.config import BucketConfig, mistral_7b, mixtral_8x7b
 from effort_tpu_torch.kernels import LAUNCHES, _build, reset_launches
 from effort_tpu_torch.kernels import (fused_stream, gather_dma, gather_mul,
                                       prefix_stream)
@@ -190,6 +233,10 @@ RANK_EFFORTS = (0.1, 0.25, 0.5)
 SUMMARY_RANK = ("int8", 0.25, 0.97)
 PROMPT_LENS = (5, 17, 32, 64)
 N_NEW = 32
+# the MoE cells: decode efforts, and K1 / K4 launches a layer a step (wqkv,
+# wo, and w13 and w2 of the two routed experts)
+MOE_EFFORTS = (0.25, 0.5, 1.0)
+MOE_PER_LAYER = 6
 OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
 
 
@@ -248,6 +295,7 @@ def phase_kernels(flush: torch.Tensor) -> list:
     g = torch.Generator(device="cuda")
     g.manual_seed(1234)
     points = []
+    inst0 = torch.zeros((), dtype=torch.int32, device="cuda")
     for name, (i, o) in SHAPES.items():
         rms = torch.exp(torch.randn(i, generator=g, device="cuda") * 1.2)
         pi = calib_row_order(rms)
@@ -294,6 +342,12 @@ def phase_kernels(flush: torch.Tensor) -> list:
                     p["bound_ms"] = p["bytes"] / HBM_BYTES_PER_S * 1e3
                     p["library_ms"] = lib_ms
                     if (dtype, effort, tau) == SUMMARY:
+                        # the instance as a 0-d int32 on the card, which
+                        # the kernel reads there (the routed MoE form)
+                        p["ms_device_instance"] = median([gpu_ms(
+                            lambda v: fused_stream.mxu_matvec(
+                                bm, v, eq, inst0, tau=tau),
+                            (v,), flush) for v in vs])
                         # where a call's device time goes, as for K2
                         prof = device_profile(lambda: [
                             fused_stream.mxu_matvec(bm, v, eq, 0, tau=tau)
@@ -829,12 +883,14 @@ def min_row_cos(y: torch.Tensor, yr: torch.Tensor) -> torch.Tensor:
     return torch.where(yr.abs().amax(-1) > 0, c, zero_ok).min()
 
 
-def same_input_layers(seq, cfg_d, eff) -> dict:
+def same_input_layers(seq, cfg_d, eff, k2_per_layer=None) -> dict:
     """One kernel-route pass of forward_seq in which every K2 and K3 call is
     also run through its plain version on the very inputs it was given: per
     layer, the least row cosine of its K2 calls and of its K3 call, and
     whether each K2 call's C equals the plain version's. A fault that shows
-    only at later layers (a stale or strided cache read) shows here."""
+    only at later layers (a stale or strided cache read) shows here.
+    k2_per_layer(): the K2 calls of each layer, known after the pass (4 a
+    layer unless given: an MoE layer's depend on its routing)."""
     k2, k3 = bucketmul.mxu_matvec_batch, transformer.flash_attention_seq
     k2_cos, k2_c, k3_cos = [], [], []
     D = cfg_d.head_dim
@@ -860,11 +916,16 @@ def same_input_layers(seq, cfg_d, eff) -> dict:
     finally:
         bucketmul.mxu_matvec_batch, transformer.flash_attention_seq = k2, k3
     L = cfg_d.n_layers
-    if len(k2_cos) != 4 * L or len(k3_cos) != L:
+    per = k2_per_layer() if k2_per_layer else [4] * L
+    if len(k2_cos) != sum(per) or len(per) != L or len(k3_cos) != L:
         raise AssertionError(f"{len(k2_cos)} K2 and {len(k3_cos)} K3 calls "
                              f"in {L} layers")
-    return dict(k2_min_cos=torch.stack(k2_cos).reshape(L, 4).amin(1).tolist(),
-                k2_c_equal=torch.stack(k2_c).reshape(L, 4).all(1).tolist(),
+    k2_cos, k2_c = torch.stack(k2_cos), torch.stack(k2_c)
+    ends = torch.tensor(per).cumsum(0).tolist()
+    return dict(k2_min_cos=[float(k2_cos[e - n:e].min())
+                            for n, e in zip(per, ends)],
+                k2_c_equal=[bool(k2_c[e - n:e].all())
+                            for n, e in zip(per, ends)],
                 k3_min_cos=torch.stack(k3_cos).tolist())
 
 
@@ -1005,7 +1066,7 @@ def phase_serve(cfg, w, eng, prompts) -> list:
     return [r]
 
 
-def serve_teacher(cfg, w, reqs) -> list:
+def serve_teacher(cfg, w, reqs, phase: str = "serve_teacher") -> list:
     """At depth 4 and tau = 1, one batched decode step's logits for each
     slot against forward_token on the single-stream K1 route at the slot's
     effort, both reading copies of the same cache (exact bf16 head)."""
@@ -1033,7 +1094,7 @@ def serve_teacher(cfg, w, reqs) -> list:
                              cos=cos(lb[b], ls),
                              argmax_equal=bool(lb[b].argmax()
                                                == ls.argmax())))
-        emit({"phase": "serve_teacher", "slots": rows})
+        emit({"phase": phase, "slots": rows})
         if not all(x["cos"] >= 0.999 for x in rows):
             raise AssertionError(f"batched step vs single stream: {rows}")
     finally:
@@ -1041,7 +1102,7 @@ def serve_teacher(cfg, w, reqs) -> list:
     return rows
 
 
-def serve_http(cfg, w) -> dict:
+def serve_http(cfg, w, phase: str = "serve_http") -> dict:
     """make_batch_server on 127.0.0.1 (a free port), in this process: four
     concurrent /q requests, one stream=1 request and one /v1/completions
     request. Every answer must be 200 with its full token count (or end at
@@ -1100,7 +1161,7 @@ def serve_http(cfg, w) -> dict:
            and full(json.loads(obj["choices"][0]["text"])))
     r = dict(concurrent_q=[st for st, _ in got], concurrent_s=concurrent_s,
              stream_events=len(data), completion=obj["choices"][0], ok=ok)
-    emit({"phase": "serve_http", **r})
+    emit({"phase": phase, **r})
     if not ok:
         raise AssertionError(f"batch server: {r}")
     return r
@@ -1163,6 +1224,7 @@ def phase_kernels_rank(flush: torch.Tensor) -> dict:
     g = torch.Generator(device="cuda")
     g.manual_seed(2468)
     out = {k: [] for k in ("k4", "k5", "k6", "k7")}
+    inst0 = torch.zeros((), dtype=torch.int32, device="cuda")
     for name, (i, o) in SHAPES.items():
         rms = torch.exp(torch.randn(i, generator=g, device="cuda") * 1.2)
         pi = calib_row_order(rms)
@@ -1209,6 +1271,10 @@ def phase_kernels_rank(flush: torch.Tensor) -> dict:
                         [(v,) for v in vs],
                         rank_bytes(bm, tiles, tgb, True), lib_ms))
                     if (dtype, effort, tau) == SUMMARY_RANK:
+                        p4["ms_device_instance"] = median([gpu_ms(
+                            lambda v: fused_stream.fused_matvec(
+                                bm, v, eq, inst0, tgb, tau),
+                            (v,), flush) for v in vs])
                         # where a call's device time goes (selection,
                         # stream, split sum): the mean over PROFILE_CALLS
                         # calls
@@ -1300,10 +1366,12 @@ RANK_ROUTES = {"auto": "fused_matvec", "stream": "stream_matvec",
                "gather": "gather_matvec_dma"}
 
 
-def only(name: str, steps: int, L: int) -> dict:
-    """The launch counts of a decode path that runs kernel `name` alone: 4
-    projections a layer a step, every other kernel 0."""
-    return {k: (4 * L * steps if k == name else 0) for k in LAUNCHES}
+def only(name: str, steps: int, L: int, per_layer: int = 4) -> dict:
+    """The launch counts of a decode path that runs kernel `name` alone:
+    per_layer launches a layer a step (4 projections of a dense layer; 6 of
+    an MoE layer: wqkv, wo, and w13, w2 of its two experts), every other
+    kernel 0."""
+    return {k: (per_layer * L * steps if k == name else 0) for k in LAUNCHES}
 
 
 def phase_rank_decode(cfg, w, prompts) -> dict:
@@ -1365,11 +1433,13 @@ def phase_rank_decode(cfg, w, prompts) -> dict:
     return out
 
 
-def phase_rank_same_input(cfg, w, prompt) -> list:
+def phase_rank_same_input(cfg, w, prompt, per_layer: int = 4,
+                          phase: str = "rank_same_input") -> list:
     """At depth 32, every K4 call of a few decode steps run through its
-    plain version too, on the very inputs it was given: per layer the
-    least cosine and whether every C_k matched (required: >= 0.9999 and
-    all equal)."""
+    plain version too, on the very inputs (and instance) it was given: per
+    layer the least cosine and whether every C_k matched (required: >=
+    0.9999 and all equal). per_layer: K4 calls a layer a step (6 on an
+    MoE layer)."""
     k4 = bucketmul.fused_matvec
     rows = []
     for effort in (0.25, 0.5):
@@ -1395,17 +1465,18 @@ def phase_rank_same_input(cfg, w, prompt) -> list:
             bucketmul.fused_matvec = k4
         L = cfg.n_layers
         n = len(prompt)
-        if len(cs) != 4 * L * n:
+        if len(cs) != per_layer * L * n:
             raise AssertionError(f"{len(cs)} K4 calls in {n} steps of {L} "
                                  f"layers")
-        per_layer = torch.stack(cs).reshape(n, L, 4).amin(dim=(0, 2))
-        c_ok = torch.stack(eq_c).reshape(n, L, 4).all(dim=2).all(dim=0)
+        least = torch.stack(cs).reshape(n, L, per_layer).amin(dim=(0, 2))
+        c_ok = torch.stack(eq_c).reshape(n, L, per_layer).all(dim=2).all(
+            dim=0)
         r = dict(depth=L, effort=effort, steps=n, calls=len(cs),
-                 k4_min_cos=per_layer.tolist(),
+                 k4_min_cos=least.tolist(),
                  k4_c_equal=c_ok.tolist(),
-                 min_cos=float(per_layer.min()), required=True)
+                 min_cos=float(least.min()), required=True)
         rows.append(r)
-        emit({"phase": "rank_same_input", **r})
+        emit({"phase": phase, **r})
         if not (r["min_cos"] >= 0.9999 and all(r["k4_c_equal"])):
             raise AssertionError(f"rank same-input check: {r}")
     return rows
@@ -1445,14 +1516,17 @@ def phase_rank_teacher(cfg, w, tokens) -> list:
     return rows
 
 
-def rank_http(cfg, w) -> dict:
-    """make_server (single flight) on the rank-prefix model at 127.0.0.1
-    (a free port), in this process: three /q requests of 8 tokens at
-    efforts 25, 50 and 100, each answered 200 with 8 tokens, K4 launched 4 *
-    32 times a step behind the server and no other kernel."""
+def rank_http(cfg, w, kernel: str = "fused_matvec", per_layer: int = 4,
+              phase: str = "rank_http", n_queries: int = 3) -> dict:
+    """make_server (single flight) on a model at 127.0.0.1 (a free port),
+    in this process: /q requests of 8 tokens at efforts 25, 50 and 100
+    (the first n_queries), each answered 200 with 8 tokens, `kernel`
+    launched per_layer times a layer a step behind the server and no other
+    kernel (on the rank-prefix model K4, 4 a layer)."""
     import asyncio
     import urllib.request
-    n, queries = 8, ("hello", "rank prefix", "effort")
+    n = 8
+    queries = ("hello", "rank prefix", "effort")[:n_queries]
     eng = Engine(w, cfg, eos_id=-1)
 
     def fetch(port, q, effort):
@@ -1481,12 +1555,676 @@ def rank_http(cfg, w) -> dict:
     r = dict(status=[st for st, _ in got], tokens=toks, launches=launches,
              ok=all(st == 200 and len(t) == n for (st, _), t in zip(got,
                                                                   toks)))
-    emit({"phase": "rank_http", **r})
+    emit({"phase": phase, **r})
     if not r["ok"]:
-        raise AssertionError(f"rank-prefix server: {r}")
-    check_launches(launches, only("fused_matvec", steps, cfg.n_layers),
-                   "the server on the rank-prefix model")
+        raise AssertionError(f"single-flight server ({phase}): {r}")
+    check_launches(launches, only(kernel, steps, cfg.n_layers, per_layer),
+                   f"the single-flight server ({phase})")
     return r
+
+
+# ---- MoE (Mixtral-8x7B) ---------------------------------------------------
+
+# containers of the K1/K4 instance check
+INSTANCES = 3
+
+
+def phase_instances() -> list:
+    """K1 at the Mixtral-8x7B expert shapes (w13 4096 -> 28672, w2 14336 ->
+    4096) x {bf16, int8, int4} and K4 at the four projection shapes (int8,
+    RANK_BUCKETS), on containers of INSTANCES instances, at efforts 0.25
+    and 1.0: every instance given as an int and as a 0-d int32 CUDA tensor
+    (read by the kernel on the card) gives y, C (C_k) and u equal bit for
+    bit, and the tensor form agrees with the plain version of that
+    instance (K1: equal C, cos >= 0.9999; K4: y bit for bit)."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(97)
+    cases = ([("K1", name, dtype) for name in ("w13", "w2")
+              for dtype in DTYPES]
+             + [("K4", name, "int8") for name in SHAPES])
+    rows = []
+    for kernel, name, dtype in cases:
+        i, o = SHAPES[name]
+        rms = torch.exp(torch.randn(i, generator=g, device="cuda") * 1.2)
+        pi = calib_row_order(rms)
+        v = rms[pi.long()] * torch.randn(i, generator=g, device="cuda")
+        wt = torch.randn((INSTANCES, i, o), generator=g, device="cuda") * 0.02
+        if kernel == "K1":
+            bc = BucketConfig(bucket_size=1, chunk_rows=128, dtype=dtype)
+            bc = dataclasses.replace(bc, chunk_rows=pick_chunk_rows(bc, i, o))
+        else:
+            bc = BucketConfig(dtype=dtype, **RANK_BUCKETS)
+        bm = bucketize(wt, bc, in_perm=pi)
+        del wt
+        tgb = bucketmul._tile_blocks(bm)
+        for e in range(INSTANCES):
+            inst = torch.full((), e, dtype=torch.int32, device="cuda")
+            for effort in (0.25, 1.0):
+                eq = effort_q16(effort, "cuda")
+                outs = []
+                for x in (e, inst):
+                    if kernel == "K1":
+                        y, C = fused_stream.mxu_matvec(bm, v, eq, x,
+                                                       return_len=True)
+                        u = fused_stream.mxu_scratch("cuda")["u"][:i].clone()
+                        outs.append((y, C, u))
+                    else:
+                        y, C, sel = fused_stream.fused_matvec(
+                            bm, v, eq, x, tgb, return_selection=True)
+                        outs.append((y, C) + tuple(sel))
+                if kernel == "K1":
+                    yr, Cr = fused_stream.mxu_matvec_ref(bm, v, eq, e,
+                                                         return_len=True)
+                    plain_ok = (torch.equal(outs[1][1], Cr)
+                                and cos(outs[1][0], yr) >= 0.9999)
+                else:
+                    yr = fused_stream.fused_matvec_ref(bm, v, eq, e, tgb)
+                    plain_ok = torch.equal(outs[1][0], yr)
+                torch.cuda.synchronize()
+                r = dict(kernel=kernel, shape=name, in_dim=i, out_dim=o,
+                         dtype=dtype, instance=e, effort=effort,
+                         C=outs[0][1].tolist(),
+                         bitwise_equal=all(torch.equal(a, b)
+                                           for a, b in zip(*outs)),
+                         agrees_with_plain=bool(plain_ok))
+                rows.append(r)
+                if not (r["bitwise_equal"] and r["agrees_with_plain"]):
+                    raise AssertionError(f"device instance: {r}")
+        del bm
+        torch.cuda.empty_cache()
+    emit({"phase": "instances", "points": len(rows),
+          "all_bitwise_equal": all(r["bitwise_equal"] for r in rows)})
+    return rows
+
+
+def build_moe_model():
+    """Mixtral-8x7B width and depth (32 layers, 8 experts, top 2), int8
+    row-prefix buckets, fused wqkv and w13, int8 LM head, no dense copies
+    (so effort 1.0 runs K1 at full coverage); random calibrated weights
+    from seed 0. Returns (cfg, w, engine)."""
+    cfg = mixtral_8x7b(n_layers=32, max_seq_len=512)
+    bcfg = BucketConfig(bucket_size=1, chunk_rows=128, dtype="int8")
+    t0 = time.perf_counter()
+    w = quantize_head(init_random_weights(cfg, bcfg, seed=0, calibrate=True,
+                                          fuse=True, device="cuda"))
+    torch.cuda.synchronize()
+    emit({"phase": "moe_model", "seconds": time.perf_counter() - t0,
+          "weights_gib": torch.cuda.memory_allocated() / 2**30})
+    return cfg, w, Engine(w, cfg, eos_id=-1)
+
+
+def moe_one_step_no_sync(cfg, w, effort: float = 0.25) -> None:
+    """One forward_token step of the MoE model under
+    torch.cuda.set_sync_debug_mode("error"): the routed instances stay on
+    the card, so nothing in the step may wait on a host read."""
+    kv = make_kv_cache(cfg, "cuda")
+    eq = effort_q16(effort, "cuda")
+    tok = torch.full((), 7, dtype=torch.int32, device="cuda")
+    forward_token(w, cfg, tok, 0, *kv, effort=eq)          # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        forward_token(w, cfg, tok, 1, *kv, effort=eq)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def phase_moe_decode(cfg, w, eng, prompts) -> list:
+    """Single-stream MoE decode (K1 with the routed instance on the card):
+    the four prompts, 32 new tokens each, at efforts 0.25, 0.5 and 1.0;
+    ms a token by CUDA events; K1 6 * 32 times a step and no other kernel;
+    then one step under set_sync_debug_mode("error")."""
+    steps = sum(padded(n, eng.pad_to) + N_NEW - 1 for n in PROMPT_LENS)
+    eng.generate(prompts[0], n_new=2, effort=0.25)       # warm-up
+    results = []
+    for effort in MOE_EFFORTS:
+        torch.cuda.synchronize()
+        reset_launches()                # the path's run starts here ...
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = [eng.generate(p, n_new=N_NEW, effort=effort) for p in prompts]
+        end.record()
+        end.synchronize()
+        launches = dict(LAUNCHES)       # ... and is read here
+        ms = start.elapsed_time(end)
+        r = dict(effort=effort, requests=len(prompts), steps=steps, ms=ms,
+                 ms_per_token=ms / steps, launches=launches,
+                 first_tokens=out[0].token_ids[:8])
+        results.append(r)
+        emit({"phase": "moe_decode", **r})
+        check_replies([x.token_ids for x in out], cfg, N_NEW,
+                      f"moe decode, effort {effort}")
+        check_launches(launches, only("mxu_matvec", steps, cfg.n_layers,
+                                      MOE_PER_LAYER),
+                       f"moe decode at effort {effort}")
+    moe_one_step_no_sync(cfg, w)
+    emit({"phase": "moe_no_sync", "forward_token_steps": 1,
+          "sync_debug_mode": "error", "raised": False})
+    results[0]["replies"] = out
+    return results
+
+
+def phase_moe_profile(cfg, w, eng, prompt) -> dict:
+    """Where one MoE request's time goes: 8 new tokens after a 5-token
+    prompt (39 steps) at effort 0.25: wall and device ms, the busy share
+    and K1's parts; the gate's product (the library's matrix kernels) and
+    the top-k (every other kernel of route(): the sort, the softmax, the
+    casts) from a trace of the routing alone, route() at every layer of
+    39 steps on a normed decode input (the decode's shapes; the decode's
+    attention products are matrix kernels too, so its own trace cannot
+    tell them apart); the rest is the device time left."""
+    n_new = 8
+    steps = padded(len(prompt), eng.pad_to) + n_new - 1
+    r = dict(steps=steps, **device_profile(
+        lambda: eng.generate(prompt, n_new=n_new, effort=0.25),
+        need=K1_PARTS))
+    x = rms_norm(embed(w, prompt[0]), w.layers.ffn_norm[0], cfg.norm_eps)
+    by_name = device_kernels(lambda: [
+        transformer.route(w.layers, l, x, cfg) for _ in range(steps)
+        for l in range(cfg.n_layers)])
+    if by_name and r["traced"]:
+        def matrix(name):
+            return any(k in name.lower() for k in (
+                "gemm", "gemv", "nvjet", "xmma", "cutlass", "splitk"))
+        gate = sum(ms for k, (ms, _) in by_name.items() if matrix(k))
+        topk = sum(ms for k, (ms, _) in by_name.items() if not matrix(k))
+        k1 = sum(r["kernel_ms"].get(k, 0.0) for k in K1_PARTS)
+        r.update(gate_ms=gate, topk_ms=topk,
+                 rest_ms=r["device_ms"] - k1 - gate - topk,
+                 routing_kernels=sorted((k[:60], ms, n) for k, (ms, n)
+                                        in by_name.items()))
+    else:
+        r.update(gate_ms=None, topk_ms=None, rest_ms=None)
+    emit({"phase": "moe_profile", **r})
+    return r
+
+
+def routes_of(fn, forced=None):
+    """fn() with every call of transformer.route recorded: (fn's result,
+    the experts [..., k] of each call in order). forced {layer: experts
+    [n, k]}: a call at that layer takes those experts for its last n rows
+    (the gates the softmax of its own logits at them), so two routes can
+    be compared with the same routing."""
+    route, seen = transformer.route, []
+
+    def record(layer, l, x, cfg):
+        gates, idx = route(layer, l, x, cfg)
+        if forced is not None and l in forced:
+            idx = idx.clone()
+            idx[-forced[l].shape[0]:] = forced[l]
+            logits = bucketmul.mm_f32(
+                x.to(torch.bfloat16).reshape(-1, cfg.dim),
+                layer.ffn_gate[l]).reshape(idx.shape[0], -1)
+            gates = torch.softmax(torch.gather(logits, -1, idx.long()), -1)
+        seen.append(idx)
+        return gates, idx
+    transformer.route = record
+    try:
+        return fn(), seen
+    finally:
+        transformer.route = route
+
+
+def expert_sets(idx: torch.Tensor) -> torch.Tensor:
+    """The top-k experts as sets (sorted): the gated sum does not depend
+    on their order beyond the rounding of one f32 addition."""
+    return torch.sort(idx, dim=-1).values
+
+
+def rel_margins(w, cfg, xs) -> list:
+    """(second - third largest gate logit) / |largest| of each layer's
+    input x [dim] in xs [(l, x)]: how near a routing is to a change."""
+    out = []
+    for l, x in xs:
+        lg = bucketmul.mm_f32(x.to(torch.bfloat16)[None],
+                              w.layers.ffn_gate[l])[0]
+        top = torch.sort(lg, descending=True).values
+        out.append(float((top[1] - top[2]) / top[0].abs()))
+    return out
+
+
+def moe_route_teacher(cfg4, w, tokens, phase: str) -> list:
+    """At depth 4 and tau = 1, the kernel route against the plain route
+    over the same tokens, both reading the kernel route's history: the same
+    top-2 experts at every layer and step, and cos >= 0.999 of the exact
+    bf16 head's logits at every step."""
+    saved = fused_stream._TAU
+    fused_stream._TAU = 1.0
+    rows = []
+    try:
+        for effort in (0.25, 0.5):
+            eq = effort_q16(effort, "cuda")
+            kv = make_kv_cache(cfg4, "cuda")
+            cs, same = [], []
+            for pos, tok in enumerate(tokens):
+                hp, rp = routes_of(lambda: forward_layers(
+                    w, cfg4, embed(w, tok), pos, *(x.clone() for x in kv),
+                    effort=eq, impl="plain"))
+                hk, rk = routes_of(lambda: forward_layers(
+                    w, cfg4, embed(w, tok), pos, *kv, effort=eq,
+                    impl="kernel"))
+                same.append(torch.equal(expert_sets(torch.stack(rp)),
+                                        expert_sets(torch.stack(rk))))
+                cs.append(cos(dense_matvec(rms_norm(hk, w.norm,
+                                                    cfg4.norm_eps), w.output),
+                              dense_matvec(rms_norm(hp, w.norm,
+                                                    cfg4.norm_eps),
+                                           w.output)))
+            r = dict(depth=cfg4.n_layers, effort=effort, steps=len(tokens),
+                     min_cos=min(cs), mean_cos=sum(cs) / len(cs),
+                     same_experts_every_step=all(same),
+                     steps_with_other_experts=[i for i, x in enumerate(same)
+                                               if not x])
+            rows.append(r)
+            emit({"phase": phase, **r})
+            if not (r["min_cos"] >= 0.999 and r["same_experts_every_step"]):
+                raise AssertionError(f"MoE kernel route vs plain: {r}")
+    finally:
+        fused_stream._TAU = saved
+    return rows
+
+
+def phase_moe_teacher(cfg, w, tokens) -> dict:
+    """The kernel route against the plain route: at depth 4 over a prompt
+    and its reply (moe_route_teacher); at depth 32, every K1 call of two
+    decode steps also run through its plain version on the very inputs
+    and instance it was given: per layer the least cosine and whether
+    every C matched (required: >= 0.9999 and all equal)."""
+    out = {"depth4": moe_route_teacher(
+        dataclasses.replace(cfg, n_layers=4), w, tokens, "moe_teacher")}
+    k1 = bucketmul.mxu_matvec
+    L, rows = cfg.n_layers, []
+    for effort in (0.25, 0.5):
+        cs, eq_c = [], []
+
+        def both(bm, v, effort, expert=0, tau=None):
+            y, C = k1(bm, v, effort, expert, tau, return_len=True)
+            yr, Cr = fused_stream.mxu_matvec_ref(bm, v, effort, expert, tau,
+                                                 return_len=True)
+            cs.append(torch.nn.functional.cosine_similarity(
+                y.double(), yr.double(), dim=0))
+            eq_c.append((C == Cr).all())
+            return y
+        bucketmul.mxu_matvec = both
+        try:
+            kv = make_kv_cache(cfg, "cuda")
+            eq = effort_q16(effort, "cuda")
+            for pos, tok in enumerate(tokens[:2]):
+                forward_token(w, cfg, tok, pos, *kv, effort=eq, impl="kernel")
+        finally:
+            bucketmul.mxu_matvec = k1
+        n = len(cs) // (MOE_PER_LAYER * L)
+        if len(cs) != MOE_PER_LAYER * L * n or n != 2:
+            raise AssertionError(f"{len(cs)} K1 calls in 2 steps of {L} "
+                                 f"layers")
+        per_layer = torch.stack(cs).reshape(n, L, MOE_PER_LAYER).amin(
+            dim=(0, 2))
+        c_ok = torch.stack(eq_c).reshape(n, L, MOE_PER_LAYER).all(
+            dim=2).all(dim=0)
+        r = dict(depth=L, effort=effort, steps=n, calls=len(cs),
+                 k1_min_cos=per_layer.tolist(), k1_c_equal=c_ok.tolist(),
+                 min_cos=float(per_layer.min()), required=True)
+        rows.append(r)
+        emit({"phase": "moe_same_input", **r})
+        if not (r["min_cos"] >= 0.9999 and all(r["k1_c_equal"])):
+            raise AssertionError(f"MoE same-input check: {r}")
+    out["same_input"] = rows
+    return out
+
+
+def grouped_k2_launches(groups: list) -> int:
+    """K2 launches of prefill passes whose grouped routings were recorded
+    (one [T, k] experts tensor a layer): wqkv and wo, and w13 and w2 once
+    per expert that has tokens."""
+    return sum(2 + 2 * len(set(idx.reshape(-1).tolist())) for idx in groups)
+
+
+def phase_moe_prefill(cfg, w, prompts) -> dict:
+    """Engine(prefill=True) on the MoE model: the four prompts (32- and
+    64-token padded) at efforts 0.25 and 0.5, one token each: time to first
+    token; per pass K3 32 times, K2 2 + 2 g_l times a layer (g_l the
+    experts with tokens in layer l, from the routing recorded here), one
+    host read of the routing a layer, K1 never. Then the prefill against
+    the token loop (moe_prefill_teacher) at depths 4 (printed) and 32
+    (the same-input gates)."""
+    pre = Engine(w, cfg, eos_id=-1, prefill=True)
+    pre.generate(prompts[0], n_new=2, effort=0.25)       # warm-up
+    L, out = cfg.n_layers, {"runs": []}
+    for effort in (0.25, 0.5):
+        ttft = {}
+
+        def run():
+            for p in prompts:
+                t0 = time.perf_counter()
+                pre.generate(p, n_new=1, effort=effort)
+                ttft.setdefault(padded(len(p)), []).append(
+                    (time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        reset_launches()                # the path's run starts here ...
+        transformer.HOST_READS["moe_routing"] = 0
+        _, seen = routes_of(run)
+        launches = dict(LAUNCHES)       # ... and is read here
+        reads = transformer.HOST_READS["moe_routing"]
+        groups = [idx for idx in seen if idx.ndim == 2]
+        calls = len(prompts)
+        r = dict(effort=effort, requests=calls,
+                 ttft_ms={P: median(v) for P, v in ttft.items()},
+                 ttft_ms_all=ttft, launches=launches,
+                 routing_host_reads=reads,
+                 experts_with_tokens=[len(set(idx.reshape(-1).tolist()))
+                                      for idx in groups])
+        out["runs"].append(r)
+        emit({"phase": "moe_prefill", **r})
+        check_launches(launches, {
+            "mxu_matvec_batch": grouped_k2_launches(groups),
+            "flash_attention": L * calls, "mxu_matvec": 0},
+            f"moe prefill at effort {effort}")
+        if len(groups) != L * calls or reads != L * calls:
+            raise AssertionError(f"{len(groups)} grouped routings and "
+                                 f"{reads} host reads in {calls} passes")
+    out["teacher"] = [r for depth in (4, 32) for r in moe_prefill_teacher(
+        dataclasses.replace(cfg, n_layers=depth), w, prompts[1])]
+    return out
+
+
+def moe_prefill_teacher(cfg_d, w, prompt) -> list:
+    """The prefill pass against the token loop on one left-padded prompt
+    (tau = 1). At depth 4, printed: at efforts 1.0 and 0.25 the logits
+    (exact bf16 head) of forward_seq (the grouped MoE FFN on K2) against
+    those of forward_layers a position (the per-token FFN on K1, the
+    decode attention): with the token loop's experts (routes_of forced)
+    and f32 attention ("xla", the decode attention's arithmetic), through
+    K3 with them, and with the prefill's own routing through K3 (where
+    its expert sets part from the token loop's, and the relative margin
+    of that layer input); beside them the noise floor: the token loop
+    against itself with the attention-norm weights moved by a relative
+    2^-20 x N(0, 1) (about 16 f32 ulps). At effort 0.25 the selections
+    turn last-bit differences into whole rows and the routing into whole
+    experts, and the differences grow from layer to layer and position to
+    position (my chip runs: the nudged token loop falls to cos 0.67 at
+    depth 4), so the end-to-end comparison is no gate. At depth 32,
+    required (what the prefill adds, held on its own inputs, where no
+    difference can grow): every K2 and K3 call of a kernel pass against
+    its plain version (cos >= 0.9999, equal C), and at every layer the
+    grouped MoE FFN against the per-token FFN (K1 a row, the routed
+    instance on the card) on the same rows: the same experts and cos >=
+    0.9999 for every row."""
+    saved = fused_stream._TAU
+    fused_stream._TAU = 1.0
+    n, L = len(prompt), cfg_d.n_layers
+    P = padded(n)
+    off = P - n
+    ids = torch.tensor([0] * off + prompt, dtype=torch.int32, device="cuda")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(7)
+    nudge = torch.randn(w.layers.attn_norm.shape, generator=g, device="cuda")
+    w_nudged = dataclasses.replace(w, layers=dataclasses.replace(
+        w.layers, attn_norm=w.layers.attn_norm * (1 + 2.0**-20 * nudge)))
+    rows = []
+
+    def loop(effort, xs, weights=w):
+        kv = make_kv_cache(cfg_d, "cuda")
+        eq = effort_q16(effort, "cuda")
+        ffn = transformer._ffn
+
+        def keep(layer, l, x, *args):      # each layer's FFN input
+            xs.append((l, x))
+            return ffn(layer, l, x, *args)
+        transformer._ffn = keep
+        try:
+            return torch.stack([dense_matvec(rms_norm(forward_layers(
+                weights, cfg_d, embed(weights, ids[off + q]), q, *kv,
+                effort=eq, impl="kernel"), weights.norm, cfg_d.norm_eps),
+                weights.output) for q in range(n)])
+        finally:
+            transformer._ffn = ffn
+
+    def seq(cfg_s, eff, impl="auto", attn_impl="auto"):
+        return forward_seq(w, cfg_s, ids, *make_kv_cache(cfg_s, "cuda"),
+                           rope_offset=off, mask_from=off, effort=eff,
+                           impl=impl, attn_impl=attn_impl)[off:]
+
+    def versus(a, b):
+        cs = [cos(x, y) for x, y in zip(a, b)]
+        return dict(min_cos=min(cs), mean_cos=sum(cs) / len(cs),
+                    first_token_equal=bool(a[-1].argmax() == b[-1].argmax()))
+    try:
+        for effort in ((1.0, 0.25) if L == 4 else ()):
+            eff = torch.tensor(effort, device="cuda")
+            xs = []
+            lt, seen_t = routes_of(lambda: loop(effort, xs))
+            tok = torch.stack(seen_t).reshape(n, L, -1)   # [pos, layer, k]
+            forced = {l: tok[:, l] for l in range(L)}
+            lf, seen_f = routes_of(lambda: seq(cfg_d, eff))
+            free = torch.stack(seen_f)[:, off:].transpose(0, 1)
+            where = (expert_sets(free) != expert_sets(tok)).any(
+                -1).nonzero().tolist()
+            margins = rel_margins(w, cfg_d, xs)
+            r = dict(depth=L, effort=effort, positions=n, routings=n * L,
+                     forced_f32_attention=versus(routes_of(
+                         lambda: seq(cfg_d, eff, attn_impl="xla"),
+                         forced=forced)[0], lt),
+                     forced_k3=versus(routes_of(lambda: seq(cfg_d, eff),
+                                                forced=forced)[0], lt),
+                     own_routing_k3=versus(lf, lt),
+                     own_routing_differs_at=where,
+                     margins_where_differs=[margins[q * L + l]
+                                            for q, l in where],
+                     least_margin=min(margins),
+                     token_loop_nudged=versus(loop(effort, [], w_nudged),
+                                              lt),
+                     required=False)
+            rows.append(r)
+            emit({"phase": "moe_prefill_teacher", **r})
+        if L == 32:
+            eff = torch.tensor(0.25, device="cuda")
+            seen = []
+
+            def per_layer():
+                return [2 + 2 * len(set(idx.reshape(-1).tolist()))
+                        for idx in seen]
+
+            def run(*args):
+                out, got = routes_of(lambda: seq(*args))
+                seen.extend(got)
+                return out
+            r = dict(depth=L, pair="same_input_k2_k3_0.25",
+                     **same_input_layers(run, cfg_d, eff, per_layer))
+            r["min_cos"] = min(r["k2_min_cos"] + r["k3_min_cos"])
+            r["required"] = True
+            rows.append(r)
+            emit({"phase": "moe_prefill_teacher", **r})
+            if not (r["min_cos"] >= 0.9999 and all(r["k2_c_equal"])):
+                raise AssertionError(f"MoE same-input check: {r}")
+            r = same_input_moe_ffn(seq, cfg_d, eff)
+            rows.append(r)
+            emit({"phase": "moe_prefill_teacher", **r})
+            if not (r["min_cos"] >= 0.9999 and r["same_experts"]):
+                raise AssertionError(f"MoE same-input FFN check: {r}")
+    finally:
+        fused_stream._TAU = saved
+    return rows
+
+
+def same_input_moe_ffn(seq, cfg_d, eff) -> dict:
+    """One kernel-route prefill pass in which every layer's grouped MoE
+    FFN (_moe_grouped: K2 once per expert) is also run token by token
+    (_moe_rows: K1 a row and expert, the routed instance on the card) on
+    the very rows it was given: per layer the least row cosine and whether
+    the two routed every row to the same experts."""
+    grouped, rows_ffn = transformer._moe_grouped, transformer._moe_rows
+    cs, same = [], []
+
+    def both(layer, l, X, pe, cfg, impl):
+        (y, g_idx), (yr, r_idx) = (
+            routes_of(lambda: grouped(layer, l, X, pe, cfg, impl)),
+            routes_of(lambda: rows_ffn(layer, l, X, pe, cfg, "kernel")))
+        cs.append(min_row_cos(yr, y))
+        same.append(torch.equal(expert_sets(g_idx[0]),
+                                expert_sets(torch.stack(r_idx))))
+        return y
+    transformer._moe_grouped = both
+    try:
+        seq(cfg_d, eff, "kernel", "flash")
+    finally:
+        transformer._moe_grouped = grouped
+    if len(cs) != cfg_d.n_layers:
+        raise AssertionError(f"{len(cs)} grouped FFN calls in "
+                             f"{cfg_d.n_layers} layers")
+    per_layer = torch.stack(cs).tolist()
+    return dict(depth=cfg_d.n_layers, pair="same_input_moe_ffn_0.25",
+                ffn_min_cos=per_layer, min_cos=min(per_layer),
+                same_experts=all(same), required=True)
+
+
+def time_batch_ffn(be, steps: int) -> float:
+    """ms of `steps` batched decode steps (host clock to the card's end)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        be.step()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / steps
+
+
+def phase_moe_serve(cfg, w, prompts) -> dict:
+    """Continuous batching on the MoE model: BatchEngine(batch_size=4) +
+    ContinuousBatcher, 8 requests (prompts of 5-64 tokens, mixed efforts,
+    32 new tokens each) through 4 slots: tokens/s; per decode step K1 4
+    times a slot a layer (w13 and w2 of two experts, the routed instance
+    on the card) and K2 twice a layer; per admission K2 2 + 2 g_l and K3
+    once a layer. Then the two ways of a batched step's MoE FFN timed in
+    turns (slot by slot with K1, the shipped path; grouped by expert with
+    K2 after a host read), one batched step against the single-stream
+    route at depth 4, tau = 1 (cos >= 0.999 per slot), make_batch_server
+    and make_server answering HTTP."""
+    g = torch.Generator().manual_seed(11)
+    reqs = [torch.randint(3, cfg.vocab_size, (n,), generator=g).tolist()
+            for n in SERVE_LENS]
+    be = BatchEngine(w, cfg, batch_size=4, eos_id=-1)
+    cb = ContinuousBatcher(be)
+    cb.submit(reqs[0], 2, 0.25, lambda toks: None)        # warm-up
+    cb.run_until_drained()
+    done = {}
+    for i, (p, e) in enumerate(zip(reqs, SERVE_EFFORTS)):
+        cb.submit(p, N_NEW, e, lambda toks, i=i: done.__setitem__(i, toks))
+    ticks = [0]
+
+    def run():
+        while cb.has_work():
+            cb.tick()
+            ticks[0] += 1
+        torch.cuda.synchronize()
+    torch.cuda.synchronize()
+    reset_launches()                    # the path's run starts here ...
+    t0 = time.perf_counter()
+    _, seen = routes_of(run)
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)           # ... and is read here
+    L, admits, steps = cfg.n_layers, len(reqs), ticks[0]
+    groups = [idx for idx in seen if idx.ndim == 2]
+    r = dict(requests=admits, slots=4, new_tokens=N_NEW, steps=steps,
+             wall_s=wall, tokens_per_s=admits * N_NEW / wall,
+             ms_per_step=wall * 1e3 / steps, launches=launches,
+             first_tokens=done.get(0, [])[:8])
+    emit({"phase": "moe_serve", **r})
+    check_replies([done.get(i) or [] for i in range(admits)], cfg, N_NEW,
+                  "moe serve")
+    check_launches(launches, {
+        "mxu_matvec": 4 * be.B * L * steps,
+        "mxu_matvec_batch": 2 * L * steps + grouped_k2_launches(groups),
+        "flash_attention": L * admits}, "moe serve")
+    # the batched step's MoE FFN two ways, in turns on the same slots
+    for b in range(be.B):
+        be.admit(b, b, reqs[b], 128, SERVE_EFFORTS[b])
+    rows_ffn = transformer._moe_rows
+    ways = {"slot_by_slot_k1": rows_ffn,
+            "grouped_k2": transformer._moe_grouped}
+    ms = {k: [] for k in ways}
+    try:
+        for k in ("slot_by_slot_k1", "grouped_k2", "grouped_k2",
+                  "slot_by_slot_k1", "slot_by_slot_k1", "grouped_k2"):
+            transformer._moe_rows = ways[k]
+            be.step()                   # warm-up of this way
+            ms[k].append(time_batch_ffn(be, 10))
+    finally:
+        transformer._moe_rows = rows_ffn
+    r["batch_ffn_ms_per_step"] = ms
+    emit({"phase": "moe_serve_ffn_ways", "ms_per_step": ms})
+    r["teacher"] = serve_teacher(cfg, w, reqs, phase="moe_serve_teacher")
+    r["http_batch"] = serve_http(cfg, w, phase="moe_serve_http")
+    r["http_single"] = rank_http(cfg, w, "mxu_matvec", MOE_PER_LAYER,
+                                 "moe_http", n_queries=2)
+    return r
+
+
+def build_moe_rank_model():
+    """Mixtral-8x7B width and depth with int8 rank-prefix buckets
+    (RANK_BUCKETS: about 1.25 bytes a weight), fused projections, int8 LM
+    head, no dense copies; random calibrated weights from seed 0."""
+    cfg = mixtral_8x7b(n_layers=32, max_seq_len=512)
+    t0 = time.perf_counter()
+    w = quantize_head(init_random_weights(
+        cfg, BucketConfig(dtype="int8", **RANK_BUCKETS), seed=0,
+        calibrate=True, fuse=True, device="cuda"))
+    torch.cuda.synchronize()
+    emit({"phase": "moe_rank_model", "seconds": time.perf_counter() - t0,
+          "weights_gib": torch.cuda.memory_allocated() / 2**30})
+    return cfg, w
+
+
+def phase_moe_rank(prompts) -> dict:
+    """The rank-prefix MoE model: "auto" decode (K4 with the routed
+    instance on the card, 6 * 32 launches a step, no other kernel) on the
+    four prompts at efforts 0.25, 0.5 and 1.0, one step under
+    set_sync_debug_mode("error"), at depth 32 every K4 call of two steps
+    against its plain version on the same inputs and instance, and at
+    depth 4 the kernel route against the plain route at tau = 1
+    (moe_route_teacher)."""
+    cfg, w = build_moe_rank_model()
+    eng = Engine(w, cfg, eos_id=-1)
+    eng.generate(prompts[0], n_new=2, effort=0.25)       # warm-up
+    steps = sum(padded(n, eng.pad_to) + N_NEW - 1 for n in PROMPT_LENS)
+    out = {"decode": []}
+    for effort in MOE_EFFORTS:
+        torch.cuda.synchronize()
+        reset_launches()                # the path's run starts here ...
+        t0 = time.perf_counter()
+        reps = [eng.generate(p, n_new=N_NEW, effort=effort) for p in prompts]
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(LAUNCHES)       # ... and is read here
+        r = dict(effort=effort, requests=len(prompts), steps=steps, ms=ms,
+                 ms_per_token=ms / steps, launches=launches,
+                 first_tokens=reps[0].token_ids[:8])
+        out["decode"].append(r)
+        emit({"phase": "moe_rank_decode", **r})
+        check_replies([x.token_ids for x in reps], cfg, N_NEW,
+                      f"moe rank decode, effort {effort}")
+        check_launches(launches, only("fused_matvec", steps, cfg.n_layers,
+                                      MOE_PER_LAYER),
+                       f"moe rank decode at effort {effort}")
+    moe_one_step_no_sync(cfg, w)
+    emit({"phase": "moe_rank_no_sync", "raised": False})
+    out["same_input"] = phase_rank_same_input(
+        cfg, w, prompts[0][:2], MOE_PER_LAYER, "moe_rank_same_input")
+    out["teacher"] = moe_route_teacher(
+        dataclasses.replace(cfg, n_layers=4), w,
+        prompts[0] + reps[0].token_ids[:8], "moe_rank_teacher")
+    return out
+
+
+def free_card() -> None:
+    """Release what the last model left on the card: collect unreachable
+    objects first (the servers' and batchers' reference cycles keep their
+    weights alive until the collector runs), then return the cached
+    blocks; prints the GiB still allocated."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "free", "allocated_gib":
+          torch.cuda.memory_allocated() / 2**30})
 
 
 def summary_row(name: str, source: str, replaces: str, points: list,
@@ -1516,6 +2254,8 @@ def k1_row(points: list, launches: int) -> dict:
                       launches, pick)
     row["parts_ms"] = sum_parts([p["parts_ms"] for p in points if pick(p)],
                                 K1_PARTS, K1_PART_KEYS)
+    row["ms_device_instance"] = sum(p["ms_device_instance"] for p in points
+                                    if pick(p))
     return row
 
 
@@ -1575,6 +2315,8 @@ def k4_row(points: list, launches: int) -> dict:
         "effort_tpu/kernels/fused_stream.py:145", points, launches, pick)
     row["parts_ms"] = sum_parts([p["parts_ms"] for p in points if pick(p)],
                                 ("k4_select", "k4_k5_stream", "split_sum"))
+    row["ms_device_instance"] = sum(p["ms_device_instance"] for p in points
+                                    if pick(p))
     return row
 
 
@@ -1614,7 +2356,7 @@ def main() -> int:
     run("serve", phase_serve, *model)
     prompts = model[3]
     del model, replies
-    torch.cuda.empty_cache()
+    free_card()
 
     cfg, w = build_rank_model()
     rank = run("rank_decode", phase_rank_decode, cfg, w, prompts)
@@ -1623,24 +2365,41 @@ def main() -> int:
     run("rank_teacher", phase_rank_teacher, cfg, w, prompts[0] + reply[:8])
     run("rank_http", rank_http, cfg, w)
     del w
-    torch.cuda.empty_cache()
+    free_card()
+
+    run("instances", phase_instances)
+    cfg, w, eng = build_moe_model()
+    moe = run("moe_decode", phase_moe_decode, cfg, w, eng, prompts)
+    reply = moe[0].pop("replies")[0].token_ids
+    run("moe_profile", phase_moe_profile, cfg, w, eng, prompts[0])
+    run("moe_teacher", phase_moe_teacher, cfg, w, prompts[0] + reply[:8])
+    run("moe_prefill", phase_moe_prefill, cfg, w, prompts)
+    run("moe_serve", phase_moe_serve, cfg, w, prompts)
+    del w, eng
+    free_card()
+    run("moe_rank", phase_moe_rank, prompts)
     emit({"phase": "phase_seconds", **out["phase_seconds"]})
 
     rank_launches = {k: sum(r["launches"][k]
-                            for r in rank["decode"] + rank["routes"])
+                            for r in rank["decode"] + rank["routes"]
+                            + out["moe_rank"]["decode"])
                      + out["rank_http"]["launches"][k]
                      for k in ("fused_matvec", "stream_matvec",
                                "gather_matvec_dma", "gather_bucket_matvec")}
+    serve_runs = (out["serve"] + out["moe_prefill"]["runs"]
+                  + [out["moe_serve"]])
+    k1_runs = (out["generate"] + out["prefill"] + out["moe_decode"]
+               + [out["moe_serve"], out["moe_serve"]["http_single"]])
     summary_rank = lambda p: (p["dtype"], p["effort"],   # noqa: E731
                               p.get("tau", 0.97)) == SUMMARY_RANK
     out["kernels"] = kernels = [
         k1_row(out["points"], sum(r["launches"]["mxu_matvec"]
-                                  for r in out["generate"] + out["prefill"])),
+                                  for r in k1_runs)),
         k2_row(out["points_batch"],
                sum(r["launches"]["mxu_matvec_batch"]
-                   for r in out["prefill"] + out["serve"])),
+                   for r in out["prefill"] + serve_runs)),
         k3_row(out["attention"], sum(r["launches"]["flash_attention"]
-                                     for r in out["prefill"] + out["serve"])),
+                                     for r in out["prefill"] + serve_runs)),
         k4_row(out["points_rank"]["k4"], rank_launches["fused_matvec"]),
         summary_row(
             "stream_matvec", "effort_tpu_torch/csrc/stream_matvec.cu",

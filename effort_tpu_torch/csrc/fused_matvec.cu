@@ -7,7 +7,13 @@
 // stream and the split sum that K5 shares (rank_prefix.cuh). The TPU kernel
 // takes its effort as a compile-time constant; this one reads it from the
 // device at run time, as K1 does, so moving the knob needs no rebuild and
-// no host sync.
+// no host sync. The instance e (the TPU kernel's scalar-prefetched
+// `expert`) is read from device memory too: grid_select_kernel takes the
+// probes, stats and scales of instance 0 and a pointer to e, offsets them
+// itself (probes e*P, stats and scales e*in_dim*K) and writes the rank
+// slabs' first blocks, base_blocks[k] = (e*K + k)*nc, which the stream
+// reads; the stream's copy-engine maps span every instance. So a routed
+// expert drives K4 with no host round trip.
 //
 // Bound: bytes. A call must move the values and packed positions of the
 // live tiles, v, stats and scales once, and writes y; it does two
@@ -45,7 +51,7 @@ __global__ void __launch_bounds__(kSelThreads) grid_select_kernel(
     const float* __restrict__ probes, const float* __restrict__ stats,
     const float* __restrict__ scales, const int32_t* __restrict__ eff_q,
     const float* __restrict__ tables, int G, int nc, int K, int tgb,
-    float tau, int expert, float* __restrict__ u,
+    float tau, const int32_t* __restrict__ inst, float* __restrict__ u,
     int32_t* __restrict__ c_out, int32_t* __restrict__ cum_tiles,
     int32_t* __restrict__ base_blocks, float* __restrict__ cutoff_out,
     double* __restrict__ mass, unsigned int* __restrict__ ticket) {
@@ -53,6 +59,10 @@ __global__ void __launch_bounds__(kSelThreads) grid_select_kernel(
   __shared__ bool s_last;
   const int tid = threadIdx.x;
   const float eff = __fmul_rn((float)eff_q[0], 1.0f / 65536.0f);
+  const int expert = inst[0];
+  probes += (size_t)expert * P;
+  stats += (size_t)expert * nc * G * K;
+  if (scales != nullptr) scales += (size_t)expert * nc * G * K;
   const float cutoff = row_prefix::find_cutoff(v, P, stride, probes, eff,
                                                tables);
   const int c0 = (int)((long long)blockIdx.x * nc / gridDim.x);
@@ -99,8 +109,9 @@ extern "C" {
 // All pointers are device pointers of card `device`; `stream` is the
 // caller's cudaStream_t there. vals and pos hold nrows rows of vrow and
 // prow bytes (half: int4's low-nibble columns). v is the permuted input
-// [nc*G] f32; probes
-// [P], stats and scales (or null) [nc*G, K] of instance `expert`. Outputs:
+// [nc*G] f32; probes [P], stats and scales (or null) [nc*G, K] are those
+// of instance 0, and inst points to the instance, an int32 the selection
+// reads (not range-checked). Outputs:
 // u [K, nc*G] f32, c_out [K], cum_tiles [K+1], base_blocks [K], cutoff
 // [1], y [OB*B]; partial [splits, OB*B] f32 is scratch, and so are mass
 // [kMaxMasses] f64 and the ticket after it (zero between calls: the
@@ -112,7 +123,7 @@ int effort_fused_matvec(const float* v, const float* probes,
                         const void* vals, int kind, int vrow, const void* pos,
                         int prow, int half, int nrows, int B, int G, int nc,
                         int K, int tgb, int OB, int P, int stride, float tau,
-                        int expert, float* u, int32_t* c_out,
+                        const int32_t* inst, float* u, int32_t* c_out,
                         int32_t* cum_tiles, int32_t* base_blocks,
                         float* cutoff, double* mass, float* partial,
                         int splits, int col_blocks, int threads, float* y,
@@ -137,7 +148,7 @@ int effort_fused_matvec(const float* v, const float* probes,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   grid_select_kernel<<<blocks, kSelThreads, smem, st>>>(
       v, P, stride, probes, stats, scales, eff_q, tables, G, nc, K, tgb, tau,
-      expert, u, c_out, cum_tiles, base_blocks, cutoff, mass,
+      inst, u, c_out, cum_tiles, base_blocks, cutoff, mass,
       reinterpret_cast<unsigned int*>(mass + kMaxMasses));
   StreamLaunch launch{static_cast<const uint8_t*>(vals), vrow,
                       static_cast<const uint8_t*>(pos), prow, half, nrows,

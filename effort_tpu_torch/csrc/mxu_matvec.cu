@@ -2,7 +2,9 @@
 //
 // Replaces the TPU kernel effort_tpu/kernels/fused_stream.py:_kernel_mxu
 // (entry mxu_matvec, fused_stream.py:616-684). What it computes, for one
-// instance e of a packed [E*nc+1, G, OBv] value tensor: the selection of
+// instance e of a packed [E*nc+1, G, OBv] value tensor (e read from device
+// memory, as the TPU kernel takes its `expert` by scalar prefetch, so a
+// routed expert drives the kernel with no host round trip): the selection of
 // row_prefix.cuh (u, the cutoff and the stream length C) at the 16.16
 // fixed-point effort, then
 //   y[j]    = sum over rows r < C*G of u_r * W_e[r, j], accumulated in f32
@@ -40,6 +42,14 @@
 // card: calls on one CUDA stream run in order, and every launch of the
 // port is on the caller's current stream, so no two selections use them
 // at once.
+//
+// The instance. The kernels take base pointers of every instance and a
+// pointer to the instance e (int32), and form their own offsets: values
+// e*in_dim rows, probes e*P, stats and scales e*in_dim. The instance is
+// written before the chain (by the routing's kernels, or it is a constant
+// the wrapper keeps), and k1_select_kernel is an ordinary launch, which
+// starts after all earlier work on the stream has ended; so the stream, a
+// dependent, may read it before griddepcontrol.wait.
 
 #include "row_prefix.cuh"
 
@@ -116,14 +126,18 @@ __global__ void __launch_bounds__(kSelThreads) k1_select_kernel(
     const float* __restrict__ v, int P, int stride,
     const float* __restrict__ probes, const float* __restrict__ stats,
     const float* __restrict__ scales, const int32_t* __restrict__ eff_q,
-    const float* __restrict__ tables, int G, int nc, float tau,
-    __nv_bfloat16* __restrict__ u, int32_t* __restrict__ c_out,
-    float* __restrict__ cutoff_out, double* __restrict__ mass,
-    unsigned int* __restrict__ ticket) {
+    const int32_t* __restrict__ inst, const float* __restrict__ tables,
+    int G, int nc, float tau, __nv_bfloat16* __restrict__ u,
+    int32_t* __restrict__ c_out, float* __restrict__ cutoff_out,
+    double* __restrict__ mass, unsigned int* __restrict__ ticket) {
   __shared__ double s_seg[kMaxSegs];
   __shared__ bool s_last;
   const int tid = threadIdx.x;
   const float eff = __fmul_rn((float)eff_q[0], 1.0f / 65536.0f);
+  const size_t e = (size_t)inst[0];
+  probes += e * P;
+  stats += e * nc * G;
+  if (scales != nullptr) scales += e * nc * G;
   launch_dependents();
   const int c0 = (int)((long long)blockIdx.x * nc / gridDim.x);
   const int c1 = (int)((long long)(blockIdx.x + 1) * nc / gridDim.x);
@@ -175,15 +189,19 @@ __global__ void __launch_bounds__(kSelThreads) k1_select_kernel(
 // column tile; blocks past the streamed prefix exit at once.
 template <int KIND>
 __global__ void __launch_bounds__(kStreamThreads) k1_stream_kernel(
-    const uint8_t* __restrict__ vals, int row_bytes, int G,
-    const int32_t* __restrict__ c_in, const __nv_bfloat16* __restrict__ u,
-    int rows_per_block, float* __restrict__ partial, int width) {
+    const uint8_t* __restrict__ vals, const int32_t* __restrict__ inst,
+    int in_dim, int row_bytes, int G, const int32_t* __restrict__ c_in,
+    const __nv_bfloat16* __restrict__ u, int rows_per_block,
+    float* __restrict__ partial, int width) {
   constexpr int N = Acc<KIND>::N;
   __shared__ float s_acc[kWarps][N][32];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int r0 = blockIdx.y * rows_per_block;
   const int cb = (blockIdx.x * 32 + lane) * 16;
   const bool active = cb < row_bytes;
+  // written before the chain (see the top of the file): read before the
+  // wait
+  vals += (size_t)inst[0] * in_dim * row_bytes;
   wait_prior();
   launch_dependents();
   const int r_end = min(r0 + rows_per_block, c_in[0] * G);
@@ -278,15 +296,18 @@ cudaError_t launch_dependent(void (*kernel)(Params...), dim3 grid,
 extern "C" {
 
 // All pointers are device pointers of card `device`; `stream` is the
-// caller's cudaStream_t on that card. `blocks` selection blocks, 1 to nc
+// caller's cudaStream_t on that card. probes, stats, scales and vals are
+// those of instance 0; inst points to the instance, an int32 the kernels
+// read (not range-checked). `blocks` selection blocks, 1 to nc
 // (select_plan: at most one an SM). mass is the per-card scratch:
 // kMaxChunks f64 and the ticket after them (zero between calls: the
 // wrapper allocates it zeroed once a card). Returns the CUDA error of the
 // launches (0 = none).
 int effort_mxu_matvec(const float* v, const float* probes,
                       const float* stats, const float* scales,
-                      const int32_t* eff_q, const float* tables,
-                      const void* vals, int kind, int in_dim, int row_bytes,
+                      const int32_t* eff_q, const int32_t* inst,
+                      const float* tables, const void* vals, int kind,
+                      int in_dim, int row_bytes,
                       int out_dim, int G, int nc, int P, int stride,
                       int blocks, float tau, int rows_per_block, int width,
                       void* u, int32_t* c_out, float* cutoff_out,
@@ -300,8 +321,8 @@ int effort_mxu_matvec(const float* v, const float* probes,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   __nv_bfloat16* ub = static_cast<__nv_bfloat16*>(u);
   k1_select_kernel<<<blocks, kSelThreads, 0, st>>>(
-      v, P, stride, probes, stats, scales, eff_q, tables, G, nc, tau, ub,
-      c_out, cutoff_out, mass,
+      v, P, stride, probes, stats, scales, eff_q, inst, tables, G, nc, tau,
+      ub, c_out, cutoff_out, mass,
       reinterpret_cast<unsigned int*>(mass + kMaxChunks));
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -312,16 +333,19 @@ int effort_mxu_matvec(const float* v, const float* probes,
   const int32_t* cc = c_out;
   if (kind == kBf16)
     err = launch_dependent(k1_stream_kernel<kBf16>, grid,
-                           dim3(kStreamThreads), st, vb, row_bytes, G, cc,
-                           uc, rows_per_block, partial, width);
+                           dim3(kStreamThreads), st, vb, inst, in_dim,
+                           row_bytes, G, cc, uc, rows_per_block, partial,
+                           width);
   else if (kind == kInt8)
     err = launch_dependent(k1_stream_kernel<kInt8>, grid,
-                           dim3(kStreamThreads), st, vb, row_bytes, G, cc,
-                           uc, rows_per_block, partial, width);
+                           dim3(kStreamThreads), st, vb, inst, in_dim,
+                           row_bytes, G, cc, uc, rows_per_block, partial,
+                           width);
   else
     err = launch_dependent(k1_stream_kernel<kInt4>, grid,
-                           dim3(kStreamThreads), st, vb, row_bytes, G, cc,
-                           uc, rows_per_block, partial, width);
+                           dim3(kStreamThreads), st, vb, inst, in_dim,
+                           row_bytes, G, cc, uc, rows_per_block, partial,
+                           width);
   if (err != cudaSuccess) return (int)err;
   const float* pc = partial;
   err = launch_dependent(k1_reduce_kernel, dim3((out_dim + 255) / 256),

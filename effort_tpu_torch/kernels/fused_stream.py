@@ -30,6 +30,13 @@ versions.
     position into y[j*B + p]. Bound by the streamed bytes. The TPU kernel
     takes a static effort; this one reads the 16.16 device tensor at run
     time, as K1 does.
+
+K1 and K4 take their instance (the layer, or layer * E + expert of an MoE
+FFN) as an int or as a 0-d int32 tensor on the card, and read it there, as
+the TPU kernels take `expert` by scalar prefetch: a routed expert, which
+comes out of the gate's top-k on the card, drives them with no host round
+trip. An int reaches the same kernels as a pointer into a per-card table
+of instance ids (prefix_stream.instance_ptr). K2 takes an int.
 """
 
 from __future__ import annotations
@@ -46,12 +53,13 @@ from effort_tpu_torch.kernels.prefix_stream import (_KIND, StreamSelection,
                                                     body_limits,
                                                     check_instance,
                                                     coverage_lengths,
+                                                    instance_ptr,
                                                     row_values, stream_plan,
                                                     stream_product_ref,
                                                     tile_offsets)
 from effort_tpu_torch.ops.effort import effort_q16
 from effort_tpu_torch.ops.layouts import (BucketedMatrix, strided_sample,
-                                          strided_sample_len)
+                                          strided_sample_len, take)
 
 _NL = 32          # thresholds per cutoff-search level
 _RATIO = 0.62
@@ -122,7 +130,7 @@ def _vec_cutoff(scores, kq, m, tables):
 
 
 def _select_ref(bm: BucketedMatrix, vp: torch.Tensor, eff: torch.Tensor,
-                expert: int, tau: float):
+                expert, tau: float):
     """The kernels' selection, batched over the leading axes of vp
     [..., in] (permuted, f32) with eff [...] f32: u [..., in] bf16, each
     vector's stream length C [...] int32 and its cutoff [...] f32. The selected masses add in f64
@@ -133,30 +141,28 @@ def _select_ref(bm: BucketedMatrix, vp: torch.Tensor, eff: torch.Tensor,
     dev = vp.device
     vs = strided_sample(vp, bm.in_dim, bm.probes.shape[1])
     P = vs.shape[-1]
-    scores = torch.abs(vs * bm.probes[expert].to(torch.float32))
+    scores = torch.abs(vs * take(bm.probes, expert).to(torch.float32))
     kq = torch.clamp(torch.round(P * eff), 1.0, float(P))
     m = torch.amax(scores, dim=-1) + 1e-30
     cutoff = _vec_cutoff(scores, kq, m, thresh_tables(dev))
 
-    x = bm.stats[expert, :, 0] * torch.abs(vp)
+    x = take(bm.stats, expert)[:, 0] * torch.abs(vp)
     sel = x > cutoff[..., None]
     u = torch.where(sel, vp, torch.zeros_like(vp))
     if bm.scales is not None:
-        u = u * bm.scales[expert, :, 0]
+        u = u * take(bm.scales, expert)[:, 0]
     mass = torch.where(sel, x, torch.zeros_like(x))
     C = coverage_lengths(mass.reshape(*x.shape[:-1], nc, G), tau)
     return u.to(torch.bfloat16), C, cutoff
 
 
 def _prefix_product(bm: BucketedMatrix, u: torch.Tensor, C: torch.Tensor,
-                    expert: int) -> torch.Tensor:
+                    expert) -> torch.Tensor:
     """u[..., :C*G] @ W[:C*G] in f32 (rows past the prefix zeroed)."""
-    rows = torch.arange(bm.in_dim, device=u.device) < C * bm.chunk_rows
-    u_pre = torch.where(rows, u.to(torch.float32),
+    rows = torch.arange(bm.in_dim, device=u.device)
+    u_pre = torch.where(rows < C * bm.chunk_rows, u.to(torch.float32),
                         torch.zeros((), device=u.device))
-    first = expert * bm.in_dim
-    return u_pre @ row_values(bm, torch.arange(first, first + bm.in_dim,
-                                               device=u.device))
+    return u_pre @ row_values(bm, expert * bm.in_dim + rows)
 
 
 def _need_row_prefix(bm: BucketedMatrix):
@@ -165,7 +171,7 @@ def _need_row_prefix(bm: BucketedMatrix):
 
 
 def mxu_select_ref(bm: BucketedMatrix, v: torch.Tensor, effort,
-                   expert: int = 0, tau: float = None):
+                   expert=0, tau: float = None):
     """K1's selection in plain PyTorch, on the 16.16 effort: (u [in] bf16,
     C int32 [1], cutoff f32 [1])."""
     tau = _TAU if tau is None else tau
@@ -178,7 +184,7 @@ def mxu_select_ref(bm: BucketedMatrix, v: torch.Tensor, effort,
 
 
 def mxu_matvec_ref(bm: BucketedMatrix, v: torch.Tensor, effort,
-                   expert: int = 0, tau: float = None,
+                   expert=0, tau: float = None,
                    return_len: bool = False):
     """Plain PyTorch version of K1: the same cutoff on the 16.16 effort, u
     rounded to bf16, C from torch.cumsum, and y = u[:C*G] @ W[:C*G] in f32.
@@ -204,7 +210,7 @@ def slot_efforts(efforts, T: int, device) -> torch.Tensor:
 
 
 def mxu_matvec_batch_ref(bm: BucketedMatrix, V: torch.Tensor, efforts,
-                         expert: int = 0, tau: float = None,
+                         expert=0, tau: float = None,
                          return_len: bool = False):
     """Plain PyTorch version of K2: each slot of V [T, in] selects at its
     own f32 effort (kq = clip(round(P*eff), 1, P)), u is rounded to bf16,
@@ -305,11 +311,10 @@ def _rows_per_block(tiles: int, in_dim: int) -> int:
     return 32
 
 
-def _check(bm: BucketedMatrix, v: torch.Tensor, expert: int):
+def _check(bm: BucketedMatrix, v: torch.Tensor, expert):
     E, nc, G = bm.n_experts, bm.n_chunks, bm.chunk_rows
     _need_row_prefix(bm)
-    if not isinstance(expert, int) or not 0 <= expert < E:
-        raise ValueError(f"expert {expert!r} not an int in [0, {E})")
+    check_instance(bm, expert)
     vals = bm.vals
     if vals.dtype not in _KIND or vals.ndim != 3 \
             or not vals.is_contiguous() \
@@ -363,14 +368,16 @@ def mxu_scratch(device, in_dim: int = 0) -> dict:
 
 
 def mxu_matvec(bm: BucketedMatrix, v: torch.Tensor, effort,
-               expert: int = 0, tau: float = None,
+               expert=0, tau: float = None,
                return_len: bool = False):
     """Row-prefix effort matvec: y [OB] f32 (or (y, C) with the streamed
     chunk count C as an int32 [1] device tensor).
 
     effort: a float, an f32 tensor or a 16.16 int32 tensor (effort_q16).
     expert: instance index (the layer in the packed per-projection
-    containers). tau: coverage target, default the module's _TAU.
+    containers, layer * E + expert in an MoE FFN's), an int (checked on
+    the host) or a 0-d int32 tensor on the card (read by the kernel, not
+    checked). tau: coverage target, default the module's _TAU.
 
     CPU tensors run the plain version (mxu_matvec_ref); CUDA tensors launch
     the kernel, on the current stream without synchronising, or raise."""
@@ -400,14 +407,12 @@ def mxu_matvec(bm: BucketedMatrix, v: torch.Tensor, effort,
     partial = torch.empty((-(-in_dim // rb), width), dtype=torch.float32,
                           device=dev)
     y = torch.empty(bm.n_buckets, dtype=torch.float32, device=dev)
-    vals_ptr = bm.vals.data_ptr() + expert * in_dim * row_bytes
-    scales_ptr = (bm.scales.data_ptr() + expert * in_dim * 4
-                  if bm.scales is not None else None)
     _build.kernel_fn("mxu_matvec", "effort_mxu_matvec",
-                     "pppppppiiiiiiiiifiippppppip")(
-        vp.data_ptr(), bm.probes.data_ptr() + expert * P * 4,
-        bm.stats.data_ptr() + expert * in_dim * 4, scales_ptr,
-        eq.data_ptr(), tables.data_ptr(), vals_ptr,
+                     "ppppppppiiiiiiiiifiippppppip")(
+        vp.data_ptr(), bm.probes.data_ptr(), bm.stats.data_ptr(),
+        bm.scales.data_ptr() if bm.scales is not None else None,
+        eq.data_ptr(), instance_ptr(expert, dev), tables.data_ptr(),
+        bm.vals.data_ptr(),
         _KIND[bm.vals.dtype], in_dim, row_bytes, bm.n_buckets, G, nc, P,
         stride, blocks, float(tau), rb, width,
         scratch["u"].data_ptr(), c_len.data_ptr(),
@@ -437,6 +442,9 @@ def mxu_matvec_batch(bm: BucketedMatrix, V: torch.Tensor, efforts,
     tau = _TAU if tau is None else tau
     if V.ndim != 2 or V.shape[0] < 1:
         raise ValueError(f"V {tuple(V.shape)}: want [T, in] with T >= 1")
+    if not isinstance(expert, int):
+        raise TypeError("K2 takes its instance as an int (the MoE FFN "
+                        "groups rows by expert on the host)")
     _check(bm, V, expert)
     dev = V.device
     Vp = bm.permute_v(V, expert).to(torch.float32).contiguous()
@@ -483,7 +491,7 @@ def mxu_matvec_batch(bm: BucketedMatrix, V: torch.Tensor, efforts,
 # ---- K4: the rank-prefix matvec (bucket_size >= 2) -------------------------
 
 def _select_ranks_ref(bm: BucketedMatrix, vp: torch.Tensor,
-                      eff: torch.Tensor, expert: int, tau: float):
+                      eff: torch.Tensor, expert, tau: float):
     """K4's selection: (u [K, in] f32, C [K] int32) with K1's cutoff search
     and table, n_i = #{k: stats[i, k] |v_i| > cutoff}, u[k, i] = v_i [k <
     n_i] scale[i, k], and C_k from rank k's selected masses (f64 sums)."""
@@ -491,23 +499,23 @@ def _select_ranks_ref(bm: BucketedMatrix, vp: torch.Tensor,
     dev = vp.device
     vs = strided_sample(vp, bm.in_dim, bm.probes.shape[1])
     P = vs.shape[-1]
-    scores = torch.abs(vs * bm.probes[expert].to(torch.float32))
+    scores = torch.abs(vs * take(bm.probes, expert).to(torch.float32))
     kq = torch.clamp(torch.round(P * eff), 1.0, float(P))
     m = torch.amax(scores) + 1e-30
     cutoff = _vec_cutoff(scores, kq, m, thresh_tables(dev))
-    x = bm.stats[expert] * torch.abs(vp)[:, None]            # [in, K]
+    x = take(bm.stats, expert) * torch.abs(vp)[:, None]      # [in, K]
     n = (x > cutoff).sum(dim=1)
     sel = torch.arange(K, device=dev)[None, :] < n[:, None]
     zero = torch.zeros((), device=dev)
     u = torch.where(sel, vp[:, None], zero)
     if bm.scales is not None:
-        u = u * bm.scales[expert]
+        u = u * take(bm.scales, expert)
     C = coverage_lengths(torch.where(sel, x, zero).T.reshape(K, nc, G), tau)
     return u.T.contiguous(), C
 
 
 def fused_matvec_ref(bm: BucketedMatrix, v: torch.Tensor, effort,
-                     expert: int = 0, tile_blocks: int = 8,
+                     expert=0, tile_blocks: int = 8,
                      tau: float = None, return_selection: bool = False):
     """Plain PyTorch version of K4: its selection (_select_ranks_ref) at the
     16.16 effort, then the stream's function (prefix_stream.
@@ -564,13 +572,15 @@ def supports_fused(bm: BucketedMatrix, tile_blocks: int = 8) -> bool:
 
 
 def fused_matvec(bm: BucketedMatrix, v: torch.Tensor, effort,
-                 expert: int = 0, tile_blocks: int = 8, tau: float = None,
+                 expert=0, tile_blocks: int = 8, tau: float = None,
                  return_selection: bool = False):
     """Effort matvec with the selection in the kernel: y [OB*B] f32.
     bucket_size == 1 goes to mxu_matvec (K1), as in the JAX package.
 
     effort: a float, an f32 tensor or a 16.16 int32 tensor (effort_q16),
-    read by the kernel at run time. return_selection returns (y, C, sel):
+    read by the kernel at run time. expert: an int or a 0-d int32 tensor
+    on the card, read by the kernel (as mxu_matvec's). return_selection
+    returns (y, C, sel):
     C [K] int32, each rank's coverage length in chunks, and the selection
     (cum_tiles, base_blocks, u) as a prefix_stream.StreamSelection, which
     K5 takes; all on the device.
@@ -611,17 +621,16 @@ def fused_matvec(bm: BucketedMatrix, v: torch.Tensor, effort,
     partial = torch.empty((splits, bm.out_dim), dtype=torch.float32,
                           device=dev)
     y = torch.empty(bm.out_dim, dtype=torch.float32, device=dev)
-    row = expert * in_dim * K * 4
     _build.kernel_fn("fused_matvec", "effort_fused_matvec",
-                     "pppppppiipiiiiiiiiiiifipppppppiiipip")(
-        vp.data_ptr(), bm.probes.data_ptr() + expert * P * 4,
-        bm.stats.data_ptr() + row,
-        bm.scales.data_ptr() + row if bm.scales is not None else None,
+                     "pppppppiipiiiiiiiiiiifppppppppiiipip")(
+        vp.data_ptr(), bm.probes.data_ptr(), bm.stats.data_ptr(),
+        bm.scales.data_ptr() if bm.scales is not None else None,
         eq.data_ptr(), thresh_tables(dev).data_ptr(), bm.vals.data_ptr(),
         _KIND[bm.vals.dtype], vrow, bm.pos.data_ptr(), prow, vrow,
         bm.vals.shape[0] * G, bm.bucket_size, G, nc, K, tile_blocks,
         bm.n_buckets, P,
-        max(1, -(-in_dim // P)), float(tau), expert, u.data_ptr(),
+        max(1, -(-in_dim // P)), float(tau), instance_ptr(expert, dev),
+        u.data_ptr(),
         C.data_ptr(), cum.data_ptr(), base.data_ptr(), cutoff.data_ptr(),
         _K4_SCRATCH[dev].data_ptr(), partial.data_ptr(), splits, col_blocks,
         threads, y.data_ptr(), dev.index,

@@ -212,15 +212,43 @@ def body_limits(bm: BucketedMatrix, rows: int,
     return None
 
 
-def check_instance(bm: BucketedMatrix, expert: int, *tensors):
-    """expert in range, and every tensor on the weights' device."""
-    if not isinstance(expert, int) or not 0 <= expert < bm.n_experts:
+def check_instance(bm: BucketedMatrix, expert, *tensors):
+    """The instance is an int in range, or a 0-d int32 tensor on the
+    weights' device (not read: the kernel trusts it, as the TPU kernel
+    trusts its scalar-prefetched expert); every tensor is on the weights'
+    device."""
+    if isinstance(expert, torch.Tensor):
+        if expert.dtype != torch.int32 or expert.numel() != 1 \
+                or expert.device != bm.vals.device:
+            raise ValueError(f"expert {expert.dtype} {tuple(expert.shape)} "
+                             f"on {expert.device}: want one int32 on "
+                             f"{bm.vals.device}")
+    elif not isinstance(expert, int) or not 0 <= expert < bm.n_experts:
         raise ValueError(f"expert {expert!r} not an int in "
                          f"[0, {bm.n_experts})")
     for t in tensors:
         if t.device != bm.vals.device or t.device != bm.pos.device:
             raise ValueError(f"weights on {bm.vals.device}, an input on "
                              f"{t.device}")
+
+
+# a card's instance ids 0, 1, ... as int32: an int instance reaches the
+# kernels that read their instance on the device (K1, K4) as a pointer
+# into this table, so both forms of the instance run one code path
+_INSTANCE_IDS: dict = {}
+
+
+def instance_ptr(expert, device) -> int:
+    """The device address of the instance: a tensor's own, or an int's
+    entry of the card's id table (grown as larger instances come; a
+    replaced table is kept, since launches still queued may read it)."""
+    if isinstance(expert, torch.Tensor):
+        return expert.data_ptr()
+    tables = _INSTANCE_IDS.setdefault(device, [])
+    if not tables or tables[-1].numel() <= expert:
+        n = max(1024, 2 * expert + 2)
+        tables.append(torch.arange(n, dtype=torch.int32, device=device))
+    return tables[-1].data_ptr() + 4 * expert
 
 
 def column_blocks(bm: BucketedMatrix, pos_row_bytes: int,

@@ -9,6 +9,12 @@ random-weight synthesis.
   - forward_token_batch: one decode step of B slots, each with its own
     position, left-pad offset and effort (K2 per projection, or the
     reference on a rank-prefix model).
+  - MoE models (n_experts > 1, Mixtral): each token's FFN is the gated sum
+    of its top-k experts by the layer's gate (_ffn). In decode the routed
+    instance l * E + e stays a device tensor that K1 / K4 read, so a step
+    waits on no host read; prefill groups the tokens by expert (one host
+    read of the routing a layer) and runs each expert with tokens once
+    over its rows (_moe_grouped: K2).
 
   - Bucketized projection weights of all layers are packed into single
     BucketedMatrix containers (instance axis = layer); the kernel indexes an
@@ -37,6 +43,9 @@ from effort_tpu_torch.ops.bucketmul import (bucket_matmul, bucket_matvec,
 from effort_tpu_torch.ops.layouts import BucketedMatrix, concat_bucketed
 
 PROJ_FIELDS = ("wq", "wk", "wv", "wo", "w1", "w2", "w3", "wqkv", "w13")
+# host reads of the MoE routing (_moe_grouped: one a layer of a prefill
+# pass); a run zeroes the count and reads it after, as it does LAUNCHES
+HOST_READS = {"moe_routing": 0}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -320,28 +329,124 @@ def proj_efforts(effort, cfg: ModelConfig) -> dict:
             "w13": mk("w1", "w3")}
 
 
-def _ffn(layer: LayerWeights, l: int, x, pe: dict, cfg: ModelConfig,
-         impl: str, mv=bucket_matvec):
-    """Dense gated FFN of layer l on x [dim] (mv = bucket_matvec) or on
-    rows X [T, dim] (mv = bucket_matmul)."""
-    if cfg.n_experts != 1:
-        raise NotImplementedError("the MoE FFN is not ported yet")
+def _expert_ffn(layer: LayerWeights, inst, x, pe: dict, cfg: ModelConfig,
+                impl: str, mv=bucket_matvec):
+    """Gated FFN of one instance (layer l of a dense model, l * E + e of an
+    MoE layer; an int or a 0-d int32 device tensor) on x [dim] (mv =
+    bucket_matvec) or on rows X [T, dim] (mv = bucket_matmul)."""
     hid = cfg.hidden_dim
     if layer.w13 is not None:
-        x13 = mv(layer.w13, x, pe["w13"], l, impl)
+        x13 = mv(layer.w13, x, pe["w13"], inst, impl)
         x1, x3 = x13[..., :hid], x13[..., hid:]
     else:
-        x1 = mv(layer.w1, x, pe["w1"], l, impl)
-        x3 = mv(layer.w3, x, pe["w3"], l, impl)
+        x1 = mv(layer.w1, x, pe["w1"], inst, impl)
+        x3 = mv(layer.w3, x, pe["w3"], inst, impl)
     x2 = torch.nn.functional.silu(x1) * x3
-    return mv(layer.w2, x2, pe["w2"], l, impl)
+    return mv(layer.w2, x2, pe["w2"], inst, impl)
+
+
+def route(layer: LayerWeights, l: int, x, cfg: ModelConfig):
+    """Top-k gating of layer l for x [..., dim]: (gates [..., k] f32, the
+    softmax of the top logits, and experts [..., k] int32, best first).
+    The logits are the bf16 product with the gate accumulated in f32;
+    equal logits go to the lower expert, as lax.top_k breaks ties (a
+    stable descending sort; torch.topk does not promise the order). On
+    the device, with no host read."""
+    lead = x.shape[:-1]
+    logits = mm_f32(x.to(torch.bfloat16).reshape(-1, cfg.dim),
+                    layer.ffn_gate[l]).reshape(*lead, cfg.n_experts)
+    top, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
+    k = cfg.n_experts_per_tok
+    return (torch.softmax(top[..., :k], dim=-1),
+            idx[..., :k].to(torch.int32))
+
+
+def _ffn(layer: LayerWeights, l: int, x, pe: dict, cfg: ModelConfig,
+         impl: str):
+    """FFN of layer l on one token x [dim]: the dense gated FFN, or the
+    MoE one (the JAX package's _ffn): the gates of the top-k experts, and
+    out = sum over i in top-k order of gates[i] * FFN_{l*E + e_i}(x), in
+    f32. Each instance stays a 0-d int32 device tensor, so K1 / K4 read
+    it on the card and the layer waits on no host read."""
+    E = cfg.n_experts
+    if E == 1:
+        return _expert_ffn(layer, l, x, pe, cfg, impl)
+    gates, idx = route(layer, l, x, cfg)
+    out = None
+    for i in range(cfg.n_experts_per_tok):
+        y = gates[i] * _expert_ffn(layer, idx[i] + l * E, x, pe, cfg, impl)
+        out = y if out is None else out + y
+    return out
+
+
+def _row_efforts(pe: dict, rows) -> dict:
+    """The per-projection efforts of some rows of a batch: an effort per
+    row ([T] tensor) is taken at `rows` (an int, or an index tensor);
+    a shared one stays as it is."""
+    def pick(e):
+        if not isinstance(e, torch.Tensor) or e.ndim == 0:
+            return e
+        return e[rows] if isinstance(rows, int) else e.index_select(0, rows)
+    return {k: pick(e) for k, e in pe.items()}
+
+
+def _moe_rows(layer: LayerWeights, l: int, X, pe: dict, cfg: ModelConfig,
+              impl: str):
+    """The MoE FFN on rows X [T, dim], one token at a time (each row at
+    its own effort): the JAX package's vmap of the per-token FFN. On the
+    kernel route, K1 (or K4) a row and expert, with device instances."""
+    return torch.stack([_ffn(layer, l, X[t], _row_efforts(pe, t), cfg, impl)
+                        for t in range(X.shape[0])])
+
+
+def _moe_grouped(layer: LayerWeights, l: int, X, pe: dict,
+                 cfg: ModelConfig, impl: str):
+    """The MoE FFN on rows X [T, dim], grouped by expert: the routing of
+    every row is read to the host once (HOST_READS["moe_routing"]), then
+    each expert that has rows runs once over them (bucket_matmul: K2 on
+    the kernel route, each row at its own effort, the stream as long as
+    its longest row needs) and gates * y is added in each row's top-k
+    order, as _ffn adds."""
+    T, E, k = X.shape[0], cfg.n_experts, cfg.n_experts_per_tok
+    gates, idx = route(layer, l, X, cfg)
+    flat = idx.reshape(-1).long()                  # (row, i) pairs
+    order = torch.argsort(flat, stable=True)       # grouped by expert
+    # the counts of each expert, read to the host (torch.bincount would
+    # read its input's maximum first: a second wait)
+    counts = (flat[:, None] == torch.arange(E, device=X.device)).sum(
+        0).tolist()
+    HOST_READS["moe_routing"] += 1
+    Y = torch.empty((T * k, cfg.dim), dtype=torch.float32, device=X.device)
+    start = 0
+    for e, n in enumerate(counts):
+        if not n:
+            continue
+        pairs = order[start:start + n]
+        rows = torch.div(pairs, k, rounding_mode="floor")
+        Y.index_copy_(0, pairs, _expert_ffn(
+            layer, l * E + e, X.index_select(0, rows),
+            _row_efforts(pe, rows), cfg, impl, mv=bucket_matmul))
+        start += n
+    Y = Y.reshape(T, k, cfg.dim)
+    out = gates[:, :1] * Y[:, 0]
+    for i in range(1, k):
+        out = out + gates[:, i:i + 1] * Y[:, i]
+    return out
 
 
 def _ffn_seq(layer: LayerWeights, l: int, X, pe: dict, cfg: ModelConfig,
              impl: str):
-    """Batched FFN for prefill and batched decode: X [T, dim] (dense
-    models only; the MoE FFN raises as _ffn does)."""
-    return _ffn(layer, l, X, pe, cfg, impl, mv=bucket_matmul)
+    """Batched FFN for prefill (and a dense model's batched decode): X
+    [T, dim]. Dense models run one bucket_matmul a projection; MoE models
+    token by token on the "reference" route (as the JAX package vmaps its
+    per-token FFN, on "jnp" whatever its impl) and grouped by expert on
+    the others (K2 on the kernel route, where the JAX package's "auto"
+    takes "jnp")."""
+    if cfg.n_experts == 1:
+        return _expert_ffn(layer, l, X, pe, cfg, impl, mv=bucket_matmul)
+    if impl == "reference":
+        return _moe_rows(layer, l, X, pe, cfg, impl)
+    return _moe_grouped(layer, l, X, pe, cfg, impl)
 
 
 def _qkv(lw: LayerWeights, l: int, x, pe: dict, cfg: ModelConfig,
@@ -453,7 +558,10 @@ def forward_token_batch(w: ModelWeights, cfg: ModelConfig,
     [L, B, S, KV, D] are written in place at each slot's pos. Every
     projection is one bucket_matmul over the B slots (the JAX package's
     _mv_batch): K2 on the kernel route, the slots' own efforts inside one
-    launch. Returns logits [B, vocab] f32."""
+    launch. An MoE FFN runs slot by slot (_moe_rows: the JAX package's
+    vmap; K1 a slot and expert on the kernel route, with device
+    instances, so the step waits on no host read of the routing).
+    Returns logits [B, vocab] f32."""
     B = toks.shape[0]
     dev = w.device
     KV, D, H = cfg.n_kv_heads, cfg.head_dim, cfg.n_heads
@@ -476,7 +584,8 @@ def forward_token_batch(w: ModelWeights, cfg: ModelConfig,
                           v_cache[l].to(torch.float32), live, cfg)
         X = X + bucket_matmul(lw.wo, attn, pe["wo"], l, impl)
         Fn = rms_norm(X, lw.ffn_norm[l], cfg.norm_eps)
-        X = X + _ffn_seq(lw, l, Fn, pe, cfg, impl)
+        X = X + (_ffn_seq(lw, l, Fn, pe, cfg, impl) if cfg.n_experts == 1
+                 else _moe_rows(lw, l, Fn, pe, cfg, impl))
     return head_logits_batch(w, rms_norm(X, w.norm, cfg.norm_eps))
 
 
@@ -617,22 +726,23 @@ def assemble_weights(raw: dict, cfg: ModelConfig, bcfg: BucketConfig,
         b = dataclasses.replace(
             bcfg, chunk_rows=pick_chunk_rows(bcfg, rw.in_dim, rw.out_dim))
         chunk = max(1, int(2**30 // (rw.in_dim * rw.out_dim * 4)))
-        parts = []
-        for s in range(0, rw.n_inst, chunk):
-            wt_c = rw.make(s, min(chunk, rw.n_inst - s))
-            dev = wt_c.device
-            if bake:
-                p = bucketize(wt_c, b, keep_dense=keep_dense,
-                              in_perm=_on(in_pi, dev),
-                              out_perm=_on(out_pi, dev))
-            else:
-                p = bucketize(wt_c, b, keep_dense=keep_dense,
-                              act_rms=_on(in_rms, dev), perm_segment=1)
-            del wt_c
-            if percent_load < 1.0:
-                p = truncate_bucketed(p, percent_load)
-            parts.append(p)
-        return concat_bucketed(parts)
+
+        def parts():
+            for s in range(0, rw.n_inst, chunk):
+                wt_c = rw.make(s, min(chunk, rw.n_inst - s))
+                dev = wt_c.device
+                if bake:
+                    p = bucketize(wt_c, b, keep_dense=keep_dense,
+                                  in_perm=_on(in_pi, dev),
+                                  out_perm=_on(out_pi, dev))
+                else:
+                    p = bucketize(wt_c, b, keep_dense=keep_dense,
+                                  act_rms=_on(in_rms, dev), perm_segment=1)
+                del wt_c
+                if percent_load < 1.0:
+                    p = truncate_bucketed(p, percent_load)
+                yield p
+        return concat_bucketed(parts(), rw.n_inst)
 
     out_head = raw["output"]
     emb = raw["tok_embeddings"]
@@ -689,6 +799,26 @@ def assemble_weights(raw: dict, cfg: ModelConfig, bcfg: BucketConfig,
 
 def _on(x, device):
     return None if x is None else torch.as_tensor(x).to(device)
+
+
+def tile_layers(w: ModelWeights, cfg1: ModelConfig,
+                n_layers: int) -> ModelWeights:
+    """A 1-layer model's layer stack repeated to n_layers distinct copies
+    on its device (concat_bucketed; no new weights, no bucketization): a
+    full-depth model with a real model's bytes, layouts and selection
+    counts at 1/depth of the build's cost, for timing. Every layer holds
+    the same weights, so it says nothing of quality. An MoE layer's
+    experts stay together: instance l * E + e."""
+    if cfg1.n_layers != 1:
+        raise ValueError("tile_layers expects a 1-layer source")
+    lw = w.layers
+    repl = {f: concat_bucketed([getattr(lw, f)] * n_layers)
+            for f in PROJ_FIELDS if getattr(lw, f) is not None}
+    repl["attn_norm"] = lw.attn_norm.repeat(n_layers, 1)
+    repl["ffn_norm"] = lw.ffn_norm.repeat(n_layers, 1)
+    if lw.ffn_gate is not None:
+        repl["ffn_gate"] = lw.ffn_gate.repeat(n_layers, 1, 1)
+    return dataclasses.replace(w, layers=dataclasses.replace(lw, **repl))
 
 
 def init_random_weights(cfg: ModelConfig, bcfg: BucketConfig,

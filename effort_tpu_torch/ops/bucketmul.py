@@ -23,6 +23,14 @@ Execution paths of bucket_matvec, selected by `impl`:
   - "plain":     the plain PyTorch version of what "kernel" runs, on any
                  device: the kernel's exact semantics without the kernel,
                  to hold the kernel route against on the card.
+
+The instance `expert` (the layer, or layer * E + expert of an MoE FFN) is
+an int or a 0-d int32 tensor on the weights' device, as a routed expert
+comes out of the gate's top-k. A tensor is read on the device on every
+route but "stream" and "gather" (K1 and K4 read it in the kernel, the
+plain routes index with it), so routed decode waits on no host read;
+those two read it on the host, once a call (their selections, plain
+tensor ops, take an int).
 """
 
 from __future__ import annotations
@@ -44,7 +52,7 @@ from effort_tpu_torch.kernels.prefix_stream import (body_limits,
                                                     stream_matvec_ref)
 from effort_tpu_torch.ops.effort import (compute_cutoff, compute_cutoff_exact,
                                          row_rank_counts, select_blocks)
-from effort_tpu_torch.ops.layouts import BucketedMatrix, strided_sample
+from effort_tpu_torch.ops.layouts import BucketedMatrix, strided_sample, take
 
 
 def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -60,45 +68,45 @@ def dense_matvec(v: torch.Tensor, wt: torch.Tensor) -> torch.Tensor:
 
 
 def _add_outliers(bm: BucketedMatrix, y: torch.Tensor, vp: torch.Tensor,
-                  expert: int) -> torch.Tensor:
+                  expert) -> torch.Tensor:
     """y[..., col] += w * v[..., row] for the exact int4 outlier table
     (leading axes are slots). An outlier whose row truncate_bucketed
     dropped (row >= in_dim) adds exactly 0: its index is clamped and its
     term masked on the device, with no host sync."""
     if bm.outlier_vals is None:
         return y
-    oi = bm.outlier_idx[expert].long()
+    oi = take(bm.outlier_idx, expert).long()
     rows = oi[:, 0]
-    x = bm.outlier_vals[expert] * vp[..., rows.clamp(max=bm.in_dim - 1)]
+    x = take(bm.outlier_vals, expert) * vp[
+        ..., rows.clamp(max=bm.in_dim - 1)]
     return y.index_add(-1, oi[:, 1], torch.where(rows < bm.in_dim, x, 0.0))
 
 
 def bucket_matvec_ref(bm: BucketedMatrix, v: torch.Tensor, effort,
-                      expert: int = 0,
-                      exact_cutoff: bool = True) -> torch.Tensor:
+                      expert=0, exact_cutoff: bool = True) -> torch.Tensor:
     """Exact bucketMul semantics as dense tensor ops (reads all weights)."""
     K, G, B = bm.n_ranks, bm.chunk_rows, bm.bucket_size
     nb = bm.n_buckets
     v = bm.permute_v(v, expert).to(torch.float32)
     cf = compute_cutoff_exact if exact_cutoff else compute_cutoff
     cutoff = cf(strided_sample(v, bm.in_dim, bm.probes.shape[1]),
-                bm.probes[expert], effort)
-    n = row_rank_counts(v, bm.stats[expert], cutoff)          # [in]
+                take(bm.probes, expert), effort)
+    n = row_rank_counts(v, take(bm.stats, expert), cutoff)    # [in]
     ranks = torch.arange(K, dtype=torch.int32, device=v.device)
     u = v[None, :] * (ranks[:, None] < n[None, :])             # [K, in]
     if bm.scales is not None:
-        u = u * bm.scales[expert].T
+        u = u * take(bm.scales, expert).T
 
-    vals = bm.vals_unpacked()[:-1].reshape(bm.n_experts, K, bm.n_chunks,
-                                           G, nb)[expert]
+    vals = take(bm.vals_unpacked()[:-1].reshape(
+        bm.n_experts, K, bm.n_chunks, G, nb), expert)
     if B == 1:
         # row-prefix layout: positions are identically zero and the
         # semantics collapse to one matmul u_0 @ W
         y = u[0] @ vals[0].reshape(bm.in_dim, nb).to(torch.float32)
         return _add_outliers(bm, y, v, expert)
 
-    pos = bm.pos_unpacked()[:-1].reshape(bm.n_experts, K, bm.n_chunks, G,
-                                         nb)[expert]
+    pos = take(bm.pos_unpacked()[:-1].reshape(
+        bm.n_experts, K, bm.n_chunks, G, nb), expert)
     y = torch.zeros((nb, B), dtype=torch.float32, device=v.device)
     for k in range(K):
         vk = vals[k].reshape(bm.in_dim, nb).to(torch.float32)
@@ -131,11 +139,14 @@ def gather_capacity(bm: BucketedMatrix, effort: float) -> int:
     return min(n, _round_up(bm.blocks_per_expert, 8))
 
 
-def _rank_prefix(bm: BucketedMatrix, v: torch.Tensor, effort, expert: int,
+def _rank_prefix(bm: BucketedMatrix, v: torch.Tensor, effort, expert,
                  impl: str) -> torch.Tensor:
     """The routes "kernel", "plain", "stream" and "gather" on a rank-prefix
     container (bucket_size >= 2), outliers not yet added."""
     tgb = _tile_blocks(bm)
+    fused = impl in ("kernel", "plain") and supports_fused(bm, tgb)
+    if not fused and not isinstance(expert, int):
+        expert = int(expert)       # the host read of the module docstring
     if impl == "gather":
         if not isinstance(effort, (int, float)):
             raise TypeError("impl='gather' sizes its block list from a "
@@ -143,7 +154,7 @@ def _rank_prefix(bm: BucketedMatrix, v: torch.Tensor, effort, expert: int,
         sel = select_blocks(bm, v, effort, expert,
                             gather_capacity(bm, float(effort)))
         return gather_matvec_dma(bm, sel)
-    if impl in ("kernel", "plain") and supports_fused(bm, tgb):
+    if fused:
         fn = fused_matvec if impl == "kernel" else fused_matvec_ref
         return fn(bm, v, effort, expert, tile_blocks=tgb)
     sel = select_stream(bm, v, effort, expert, tile_blocks=tgb)
@@ -152,7 +163,7 @@ def _rank_prefix(bm: BucketedMatrix, v: torch.Tensor, effort, expert: int,
 
 
 def bucket_matvec(bm: BucketedMatrix, v: torch.Tensor, effort,
-                  expert: int = 0, impl: str = "auto") -> torch.Tensor:
+                  expert=0, impl: str = "auto") -> torch.Tensor:
     """Effort-truncated matvec: v [in] -> f32 [out_dim].
 
     effort: a python float, an f32 tensor, or a 16.16 int32 tensor
@@ -177,7 +188,7 @@ def bucket_matvec(bm: BucketedMatrix, v: torch.Tensor, effort,
         if bm.dense is None:
             raise ValueError("dense path needs weights built with "
                              "keep_dense")
-        return dense_matvec(bm.permute_v(v, expert), bm.dense[expert])
+        return dense_matvec(bm.permute_v(v, expert), take(bm.dense, expert))
     if impl == "reference":
         # the kernels' approximate cutoff, so reference-vs-kernel
         # comparisons select the same rows
@@ -198,7 +209,7 @@ def bucket_matvec(bm: BucketedMatrix, v: torch.Tensor, effort,
 
 
 def bucket_matmul(bm: BucketedMatrix, V: torch.Tensor, effort,
-                  expert: int = 0, impl: str = "auto") -> torch.Tensor:
+                  expert=0, impl: str = "auto") -> torch.Tensor:
     """Batched effort-truncated matmul: V [T, in] -> f32 [T, out_dim].
 
     effort: a python float, an f32 tensor (scalar, or [T]: one effort per
@@ -209,7 +220,8 @@ def bucket_matmul(bm: BucketedMatrix, V: torch.Tensor, effort,
     container (the JAX package has no batched rank-prefix kernel and takes
     its per-row "jnp" semantics there); "kernel" is K2 on CUDA tensors and
     its plain version on CPU tensors (no padding of T: the kernel takes any
-    T); "plain" is K2's plain version on any device; "reference" is the
+    T; K2 takes an int instance); "plain" is K2's plain version on any
+    device; "reference" is the
     per-row bucketMul semantics (every weight read); "dense" the bf16
     matmul on the dense copy."""
     if impl == "auto":
@@ -225,7 +237,7 @@ def bucket_matmul(bm: BucketedMatrix, V: torch.Tensor, effort,
             raise ValueError("dense path needs weights built with "
                              "keep_dense")
         return mm_f32(bm.permute_v(V, expert).to(torch.bfloat16),
-                      bm.dense[expert])
+                      take(bm.dense, expert))
     if impl == "reference":
         effs = ([effort] * V.shape[0] if isinstance(effort, (int, float))
                 else slot_efforts(effort, V.shape[0], V.device))

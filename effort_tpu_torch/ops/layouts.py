@@ -28,6 +28,16 @@ META_FIELDS = ("in_dim", "out_dim", "bucket_size", "chunk_rows", "n_ranks",
                "n_experts", "dtype_name", "perm_segment", "rows_sorted")
 
 
+def take(t: torch.Tensor, expert) -> torch.Tensor:
+    """t[expert] for an instance given as an int or as a 0-d int32 tensor
+    on t's device. A tensor is read by index_select on the device (a copy
+    of one instance): indexing with a 0-d tensor would read it back to the
+    host and wait for the card."""
+    if isinstance(expert, int):
+        return t[expert]
+    return t.index_select(0, expert.reshape(1))[0]
+
+
 @dataclasses.dataclass
 class BucketedMatrix:
     """One bucketized weight matrix (possibly several instances: experts,
@@ -108,16 +118,17 @@ class BucketedMatrix:
         """int4 values stored two per byte (uint8 nibbles of q+8)."""
         return self.vals.dtype == torch.uint8
 
-    def permute_v(self, v: torch.Tensor, expert: int) -> torch.Tensor:
+    def permute_v(self, v: torch.Tensor, expert) -> torch.Tensor:
         """Apply the runtime input permutation to v [..., in] (leading axes
-        are slots). Under truncated loading of a baked (importance-sorted)
-        layout in_dim < in: the dropped tail is the least important rows,
-        which the matvec ignores."""
+        are slots); expert an int or a 0-d int32 device tensor (take).
+        Under truncated loading of a baked (importance-sorted) layout
+        in_dim < in: the dropped tail is the least important rows, which
+        the matvec ignores."""
         if self.seg_order is None:
             return v[..., :self.in_dim] if v.shape[-1] > self.in_dim else v
         lead = v.shape[:-1]
         return v.reshape(*lead, -1, self.perm_segment)[
-            ..., self.seg_order[expert].long(), :].reshape(*lead, -1)
+            ..., take(self.seg_order, expert).long(), :].reshape(*lead, -1)
 
     def dim_order_full(self, expert: int = 0) -> Optional[torch.Tensor]:
         """Full row permutation derived from seg_order."""
@@ -195,36 +206,43 @@ class BucketedMatrix:
         return total
 
 
-def concat_bucketed(bms: list) -> BucketedMatrix:
+def concat_bucketed(bms, n_experts: int = None) -> BucketedMatrix:
     """Concatenate BucketedMatrix parts along the instance axis (the
-    trailing all-zero block is kept once)."""
-    a = bms[0]
-    if len(bms) == 1:
-        return a
-
-    def cat(field, strip_zero=False):
-        xs = [getattr(b, field) for b in bms]
-        if any(x is None for x in xs):
-            if not all(x is None for x in xs):
-                raise ValueError(f"{field} present in only some parts")
-            return None
-        if strip_zero:
-            xs = [x[:-1] for x in xs] + [xs[0][-1:]]
-        return torch.cat(xs, dim=0)
-
-    return dataclasses.replace(
-        a,
-        vals=cat("vals", strip_zero=True),
-        pos=cat("pos", strip_zero=True),
-        stats=cat("stats"),
-        probes=cat("probes"),
-        scales=cat("scales"),
-        outlier_vals=cat("outlier_vals"),
-        outlier_idx=cat("outlier_idx"),
-        dense=cat("dense"),
-        seg_order=cat("seg_order"),
-        n_experts=sum(b.n_experts for b in bms),
-    )
+    trailing all-zero block is kept once). bms: a list, or an iterable of
+    parts holding n_experts instances in all, consumed one part at a
+    time: each field is allocated once for every instance and a part is
+    copied in as it comes, so a builder that makes the parts one by one
+    never holds them all beside the result (at a full model's size, that
+    is twice its largest projection)."""
+    if isinstance(bms, list):
+        if len(bms) == 1:
+            return bms[0]
+        n_experts = sum(b.n_experts for b in bms)
+    out, first, at = {}, None, 0
+    per_instance = [f for f in TENSOR_FIELDS if f != "probe_dims"]
+    for b in bms:
+        if first is None:
+            first = b
+        for f in per_instance:
+            src, zb = getattr(b, f), int(f in ("vals", "pos"))
+            if (src is None) != (getattr(first, f) is None):
+                raise ValueError(f"{f} present in only some parts")
+            if src is None:
+                continue
+            per = (src.shape[0] - zb) // b.n_experts
+            if f not in out:
+                out[f] = torch.empty((n_experts * per + zb,)
+                                     + tuple(src.shape[1:]),
+                                     dtype=src.dtype, device=src.device)
+                if zb:
+                    out[f][-1:] = src[-1:]
+            out[f][at * per:(at + b.n_experts) * per] = src[:src.shape[0]
+                                                            - zb]
+        at += b.n_experts
+    if at != n_experts:
+        raise ValueError(f"parts hold {at} instances, not {n_experts}")
+    return dataclasses.replace(first, n_experts=n_experts,
+                               **{f: out.get(f) for f in per_instance})
 
 
 def _dequant(vals: torch.Tensor, scales: Optional[torch.Tensor]):

@@ -9,7 +9,8 @@
     next batched decode step, so requests do not wait for each other;
   - one batched decode step (forward_token_batch) advances every slot:
     each projection is one K2 launch over the B slots, each slot selecting
-    at its own effort. Slots without a request run at effort 0.
+    at its own effort (an MoE FFN runs slot by slot: K1 a slot and
+    routed expert). Slots without a request run at effort 0.
 
 ContinuousBatcher is the scheduler loop the HTTP server drives.
 

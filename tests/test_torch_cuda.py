@@ -693,3 +693,148 @@ def test_rank_prefix_engine_routes_on_the_card():
     for a, b in zip(out["kernel"], out["plain"]):
         c = a @ b / ((a @ a) ** 0.5 * (b @ b) ** 0.5)
         assert c >= 0.999
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bf16", "int8", "int4"])
+def test_device_instance_equals_int_instance(dtype):
+    """K1 and K4 on containers of 3 instances: each instance given as a 0-d
+    int32 CUDA tensor gives the int instance's y, C (C_k) and u bit for
+    bit, and the instances differ from each other."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(5)
+    wt = torch.randn((3, 2048, 1024), generator=g, device="cuda") * 0.02
+    v = torch.randn(2048, generator=g, device="cuda")
+    bm1 = bucketize(wt, BucketConfig(bucket_size=1, chunk_rows=128,
+                                     dtype=dtype))
+    bm4 = bucketize(wt, BucketConfig(bucket_size=4, chunk_rows=16,
+                                     dtype=dtype))
+    ys = []
+    for e in range(3):
+        t = torch.tensor(e, dtype=torch.int32, device="cuda")
+        out = []
+        for inst in (e, t):
+            y, C = port_fs.mxu_matvec(bm1, v, 0.3, inst, return_len=True)
+            u = port_fs.mxu_scratch("cuda")["u"][:2048].clone()
+            y4, C4, sel = port_fs.fused_matvec(bm4, v, 0.3, inst,
+                                               return_selection=True)
+            out.append((y, C, u, y4, C4, sel.u_scaled, sel.base_blocks,
+                        sel.cum_tiles))
+        torch.cuda.synchronize()
+        for a, b in zip(*out):
+            assert torch.equal(a, b), e
+        ys.append(out[0][0])
+    assert not torch.equal(ys[0], ys[1]) and not torch.equal(ys[1], ys[2])
+
+
+def _tiny_moe(B):
+    from effort_tpu_torch.config import tiny_test_model
+    from effort_tpu_torch.models import transformer as tf
+    cfg = tiny_test_model(n_experts=4, n_experts_per_tok=2, max_seq_len=64)
+    bc = BucketConfig(bucket_size=B, chunk_rows=8 if B == 1 else 16,
+                      dtype="int8")
+    return cfg, tf.init_random_weights(cfg, bc, seed=1, calibrate=True,
+                                       fuse=True, device="cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 4])
+def test_moe_decode_step_waits_on_no_host_read(B):
+    """One MoE decode step (forward_token, K1 or K4 with the routed
+    instance on the card) raises nothing under
+    torch.cuda.set_sync_debug_mode("error"), and launches 6 kernels a
+    layer (wqkv, wo, and w13, w2 of two experts)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from effort_tpu_torch.models import transformer as tf
+    from effort_tpu_torch.ops.effort import effort_q16
+    cfg, w = _tiny_moe(B)
+    kc, vc = tf.make_kv_cache(cfg, "cuda")
+    eq = effort_q16(0.5, "cuda")
+    tok = torch.tensor(5, dtype=torch.int32, device="cuda")
+    tf.forward_token(w, cfg, tok, 0, kc, vc, effort=eq)        # warm-up
+    torch.cuda.synchronize()
+    name = "mxu_matvec" if B == 1 else "fused_matvec"
+    before = dict(LAUNCHES)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        lg = tf.forward_token(w, cfg, tok, 1, kc, vc, effort=eq)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(lg).all())
+    got = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+    assert got[name] == 6 * cfg.n_layers and sum(got.values()) == got[name]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 4])
+def test_moe_kernel_route_matches_plain_route(B):
+    """A tiny MoE model's kernel route (K1 / K4 with device instances)
+    against its plain route at tau = 1: the same top-2 experts at every
+    layer and position, logits cos >= 0.999; and the prefill kernel route
+    (routing read once a layer, K2 once per expert) against the token
+    loop, cos >= 0.999."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from effort_tpu_torch.models import transformer as tf
+    from effort_tpu_torch.models.generate import Engine
+    cfg, w = _tiny_moe(B)
+    prompt = [1, 5, 9, 13, 2]
+    route = tf.route
+    saved = port_fs._TAU
+    port_fs._TAU = 1.0
+    try:
+        out, picks = {}, {}
+        for impl in ("kernel", "plain"):
+            seen = []
+
+            def record(*args):
+                gates, idx = route(*args)
+                seen.append(idx)
+                return gates, idx
+            tf.route = record
+            out[impl] = Engine(w, cfg, impl=impl, pad_to=8).position_logits(
+                prompt, effort=0.5)
+            picks[impl] = torch.stack(seen).tolist()
+        if B == 1:
+            tf.route = route
+            out["prefill"] = Engine(
+                w, cfg, impl="kernel", pad_to=8, prefill=True,
+                prefill_impl="kernel").position_logits(prompt, effort=0.5)
+    finally:
+        tf.route = route
+        port_fs._TAU = saved
+    assert picks["kernel"] == picks["plain"]
+    for other in [k for k in out if k != "kernel"]:
+        for a, b in zip(out["kernel"], out[other]):
+            c = a @ b / ((a @ a) ** 0.5 * (b @ b) ** 0.5)
+            assert c >= 0.999, other
+
+
+@pytest.mark.cuda
+def test_instance_wrappers_raise_on_what_they_do_not_take():
+    """K1 and K4 refuse an instance tensor that is not one int32 on the
+    weights' card; K2 takes an int instance only; nothing is counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    wt = torch.randn((2, 512, 512), device="cuda") * 0.02
+    bm1 = bucketize(wt, BucketConfig(bucket_size=1, chunk_rows=128,
+                                     dtype="int8"))
+    bm4 = bucketize(wt, BucketConfig(bucket_size=4, chunk_rows=16))
+    v = torch.randn(512, device="cuda")
+    before = dict(LAUNCHES)
+    for bad in (torch.tensor(1, device="cuda"),             # int64
+                torch.tensor(1, dtype=torch.int32),          # on the CPU
+                torch.tensor([0, 1], dtype=torch.int32, device="cuda"), 2):
+        with pytest.raises(ValueError):
+            port_fs.mxu_matvec(bm1, v, 0.5, bad)
+        with pytest.raises(ValueError):
+            port_fs.fused_matvec(bm4, v, 0.5, bad)
+    with pytest.raises(TypeError):
+        port_fs.mxu_matvec_batch(bm1, v[None], 0.5,
+                                 torch.tensor(1, dtype=torch.int32,
+                                              device="cuda"))
+    assert LAUNCHES == before
