@@ -37,11 +37,13 @@ Phases, one JSON line each (a failure raises and exits non-zero):
             port)
   generate  Mistral-7B width, 32 layers, int8 row-prefix buckets, fused
             projections, int8 LM head: Engine.generate answers four
-            requests at efforts 0.25 and 0.5 (K1) and 1.0 (dense copies);
-            K1's launch count must be 4 * 32 per decode step, K2's and
-            K3's 0
+            requests at efforts 0.25 and 0.5 (K1) and 1.0 (dense copies),
+            through the captured steps (each decode step one replayed CUDA
+            graph, Engine's default on the card) and the eager ones
+            (capture=False): the same tokens; K1's launch count must be
+            4 * 32 per decode step, K2's and K3's 0, on both
   profile   device time by kernel over one request, and the card's busy
-            share of that request's wall time
+            share of that request's wall time, graph and eager
   teacher   logits of the kernel route against the route through K1's
             plain version over one reply's tokens at tau = 1, both reading
             the same history: cos >= 0.999 at every step at depth 4;
@@ -72,6 +74,33 @@ Phases, one JSON line each (a failure raises and exits non-zero):
             single-stream K1 route at depth 4, tau = 1 (cos >= 0.999 per
             slot), and make_batch_server on 127.0.0.1 answering four
             concurrent /q, one stream=1 and one /v1/completions
+  graph     the captured step against the eager one at full width and
+            depth, efforts 0.25 and 1.0: teacher-forced logits of 64
+            positions bit for bit (or within the eager route's own spread,
+            measured first), one whole generation's launches under
+            set_sync_debug_mode("error") (no host read before its end),
+            equal tokens and launch counts; also on the rank-prefix
+            (rank_graph) and MoE (moe_graph) models
+  batch_graph
+            BatchEngine's captured step against its eager step in lockstep
+            over 8 steps of 4 slots: logits bit for bit, equal launches,
+            one replay under set_sync_debug_mode("error"); also on the MoE
+            model (moe_batch_graph: per-slot K1)
+  sampling  same seed, same tokens; temperature 0, top_k 1 and top_p 1e-9
+            are greedy; new sampling and penalty values capture no graph;
+            10 000 draws of _pick_token within 0.02 total variation of the
+            truncated softmax
+  int8_kv   the int8 KV cache: under 0.6x the bf16 cache's bytes; its
+            attention read against the bf16 cache's on the same inputs
+            at every layer and position (128 teacher-forced, depth 32,
+            effort 1.0), cos >= 0.999; end-to-end logits at 1.0 and 0.25
+            printed beside their noise floors (int8_kv's docstring);
+            BatchEngine(kv_dtype="int8") serves the 8 requests in 4 slots
+            with exact launch counts
+  ring_kv   the ring KV cache (4096 slots, RING_LAYERS layers): 4160
+            teacher-forced positions against a full cache of max_seq_len
+            4224, cos >= 0.999 at every position >= 4096 at effort 1.0
+            (0.25 printed)
   kernels_rank
             K4 (fused_matvec, csrc/fused_matvec.cu) and K5 (stream_matvec,
             csrc/stream_matvec.cu) against their plain versions at the four
@@ -95,7 +124,8 @@ Phases, one JSON line each (a failure raises and exits non-zero):
             launches a step), a few tokens through "stream" (K5 only) and
             "gather" (K6 only) at 8-slot padding, and the "gather" route's
             device time by kernel over two tokens; device time by kernel
-            over one request;
+            over one request ("auto", graph and eager; decode eager at
+            0.25 only, with the graph's tokens);
             every layer's K4 call against its plain version on the same
             inputs at depth 32 (cos >= 0.9999, equal C_k); the kernel route
             against the plain route at tau = 1, depth 4, over a prompt and
@@ -110,13 +140,15 @@ Phases, one JSON line each (a failure raises and exits non-zero):
             projections, int8 LM head, no dense copies
   moe_decode
             Engine.generate on the four prompts at efforts 0.25, 0.5 and
-            1.0: K1 6 * 32 times a step (wqkv, wo, w13 and w2 of the two
-            routed experts, whose instance the kernel reads on the card)
-            and no other kernel; one step under
-            torch.cuda.set_sync_debug_mode("error")
+            1.0, graph (and eager at 0.25, the same tokens): K1 6 * 32
+            times a step
+            (wqkv, wo, w13 and w2 of the two routed experts, whose
+            instance the kernel reads on the card) and no other kernel;
+            one step under torch.cuda.set_sync_debug_mode("error")
   moe_profile
-            device time by kernel over one request (39 steps, effort
-            0.25), the busy share, K1's parts, the gate's and the top-k's
+            device time by kernel over one request (39 steps, efforts 0.25
+            and 0.5, graph and eager), the busy share, K1's parts, the
+            gate's and the top-k's
   moe_teacher
             the kernel route against the plain route at tau = 1, depth 4:
             cos >= 0.999 and the same top-2 experts at every layer and
@@ -153,6 +185,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -166,15 +199,19 @@ from effort_tpu_torch.kernels import (fused_stream, gather_dma, gather_mul,
                                       prefix_stream)
 from effort_tpu_torch.kernels.flash_attention import flash_attention_seq
 from effort_tpu_torch.models import transformer
-from effort_tpu_torch.models.generate import Engine
+from effort_tpu_torch.models.generate import Engine, _pick_token
 from effort_tpu_torch.ops import bucketmul
-from effort_tpu_torch.models.transformer import (embed, forward_layers,
+from effort_tpu_torch.models.transformer import (_attention, embed,
+                                                 forward_layers,
                                                  forward_seq, forward_token,
                                                  forward_token_batch,
                                                  head_logits,
                                                  init_random_weights,
                                                  make_kv_cache,
-                                                 quantize_head, rms_norm)
+                                                 make_quant_kv_cache,
+                                                 quant_kv_hooks,
+                                                 quantize_head, rms_norm,
+                                                 write_row)
 from effort_tpu_torch.ops.bucketize import (bucketize, calib_row_order,
                                             pick_chunk_rows)
 from effort_tpu_torch.ops.bucketmul import dense_matvec
@@ -596,34 +633,64 @@ def check_launches(got: dict, want: dict, what: str) -> None:
         raise AssertionError(f"launches (got, expected) in {what}: {bad}")
 
 
+def routes(eng, w, cfg, **kw):
+    """(route, engine) pairs of a decode phase: the captured steps (eng,
+    each step a replayed CUDA graph) and the same steps run eagerly."""
+    return (("graph", eng),
+            ("eager", Engine(w, cfg, eos_id=-1, capture=False, **kw)))
+
+
+def warm(engines, prompt, efforts) -> None:
+    """One short request a key, so no capture falls in a timed run."""
+    for e in engines:
+        for effort in efforts:
+            e.generate(prompt, n_new=2, effort=effort)
+
+
+def same_tokens(a: list, b: list, what: str) -> None:
+    """The graph route's replies against the eager route's."""
+    if [r.token_ids for r in a] != [r.token_ids for r in b]:
+        raise AssertionError(f"graph and eager tokens part ({what})")
+
+
 def phase_generate(cfg, w, eng, prompts):
-    """Single-stream decode, the prompt fed token by token (K1)."""
+    """Single-stream decode, the prompt fed token by token (K1): each
+    effort through the captured steps and then through the eager ones
+    (capture=False), CUDA events around the four requests; both give the
+    same tokens and the same launch counts."""
     steps = sum(padded(n, eng.pad_to) + N_NEW - 1 for n in PROMPT_LENS)
-    eng.generate(prompts[0], n_new=2, effort=0.25)       # warm-up
+    pairs = routes(eng, w, cfg)
+    warm([e for _, e in pairs], prompts[0], (0.25, 1.0))
     results, replies = [], {}
     for effort in (0.25, 0.5, 1.0):
-        torch.cuda.synchronize()
-        reset_launches()                # the path's run starts here ...
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = [eng.generate(p, n_new=N_NEW, effort=effort) for p in prompts]
-        end.record()
-        end.synchronize()
-        launches = dict(LAUNCHES)       # ... and is read here
-        ms = start.elapsed_time(end)
-        want = 4 * cfg.n_layers * steps if effort < 0.999 else 0
-        r = dict(effort=effort, requests=len(prompts), steps=steps,
-                 ms=ms, ms_per_token=ms / steps, launches=launches,
-                 first_tokens=out[0].token_ids[:8])
-        results.append(r)
-        emit({"phase": "generate", **r})
-        check_replies([rep.token_ids for rep in out], cfg, N_NEW,
-                      f"generate, effort {effort}")
-        check_launches(launches, {"mxu_matvec": want, "mxu_matvec_batch": 0,
-                                  "flash_attention": 0},
-                       f"generate at effort {effort}")
-        replies[effort] = out
+        for route, e in pairs:
+            torch.cuda.synchronize()
+            reset_launches()            # the path's run starts here ...
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = [e.generate(p, n_new=N_NEW, effort=effort)
+                   for p in prompts]
+            end.record()
+            end.synchronize()
+            launches = dict(LAUNCHES)   # ... and is read here
+            ms = start.elapsed_time(end)
+            want = 4 * cfg.n_layers * steps if effort < 0.999 else 0
+            r = dict(route=route, effort=effort, requests=len(prompts),
+                     steps=steps, ms=ms, ms_per_token=ms / steps,
+                     launches=launches, first_tokens=out[0].token_ids[:8])
+            results.append(r)
+            emit({"phase": "generate", **r})
+            check_replies([rep.token_ids for rep in out], cfg, N_NEW,
+                          f"generate, {route}, effort {effort}")
+            check_launches(launches, {"mxu_matvec": want,
+                                      "mxu_matvec_batch": 0,
+                                      "flash_attention": 0},
+                           f"generate ({route}) at effort {effort}")
+            if route == "graph":
+                replies[effort] = out
+            else:
+                same_tokens(replies[effort], out, f"generate {effort}")
     if not sum(r["launches"]["mxu_matvec"] for r in results):
         raise AssertionError("K1 was not launched on the decode path")
     return results, replies
@@ -666,18 +733,42 @@ def device_kernels(fn) -> dict:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    by_name = {}
+    by_name, spans = {}, []
     for e in prof.profiler.kineto_results.events():
         if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0:
             ms, n = by_name.get(e.name(), (0.0, 0))
             by_name[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
+            spans.append((e.start_ns(), e.start_ns() + e.duration_ns()))
+    if by_name:
+        by_name[UNION] = (union_ms(spans), len(spans))
     return by_name
+
+
+# device_kernels' entry for the time the card ran any kernel at all: the
+# union of the kernels' spans (a programmatic dependent's span starts
+# while the launch before it still runs, so the sum counts that wait twice)
+UNION = "(union of kernel spans)"
+
+
+def union_ms(spans: list) -> float:
+    total, end = 0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total / 1e6
 
 
 def device_profile(fn, need=()) -> dict:
     """Where the time of fn() goes: device time by kernel (device_kernels)
     against the wall time of fn() run again without the profiler; the
-    card's busy share is their ratio. A trace with no device activity at
+    card's busy share is their ratio (device_busy_share, the sum over
+    kernels, as earlier runs read it; device_union_share, the union of the
+    kernels' spans, which counts a programmatic dependent's wait behind the
+    launch before it once). A trace with no device activity at
     all (the profiler delivers none now and then, and none where another
     tool holds the card's activity tracing) is taken again, up to
     PROFILE_TRIES times; if every one is empty, the device numbers are None
@@ -697,7 +788,9 @@ def device_profile(fn, need=()) -> dict:
         print(f"chip_smoke: {PROFILE_TRIES} traces held no device activity; "
               "device time by kernel not measured", file=sys.stderr)
         return dict(wall_ms=wall_ms, device_ms=None, device_busy_share=None,
+                    device_union_ms=None, device_union_share=None,
                     kernel_ms=None, top=[], traced=False)
+    union = by_name.pop(UNION)[0]
     kernels = sorted(((k, ms, n) for k, (ms, n) in by_name.items()),
                      key=lambda k: -k[1])
     device_ms = sum(k[1] for k in kernels)
@@ -710,6 +803,7 @@ def device_profile(fn, need=()) -> dict:
                              f"{[k[0][:60] for k in kernels]}")
     return dict(wall_ms=wall_ms, device_ms=device_ms,
                 device_busy_share=device_ms / wall_ms,
+                device_union_ms=union, device_union_share=union / wall_ms,
                 kernel_ms={k: v for k, v in parts.items() if v},
                 top=[(name[:60], ms, n) for name, ms, n in kernels[:8]],
                 traced=True)
@@ -732,16 +826,26 @@ def sum_parts(parts: list, keys, names=None):
     return {names.get(k, k): sum(q.get(k, 0.0) for q in parts) for k in keys}
 
 
-def phase_profile(eng, prompt) -> dict:
+def profile_routes(phase: str, pairs, prompt, effort: float = 0.25,
+                   need=K1_PARTS) -> dict:
+    """Where one request's time goes (8 new tokens at `effort`), through
+    the captured steps and the eager ones: {route: device_profile}."""
+    n_new, out = 8, {}
+    for route, e in pairs:
+        e.generate(prompt, n_new=2, effort=effort)          # warm key
+        out[route] = dict(steps=padded(len(prompt), e.pad_to) + n_new - 1,
+                          effort=effort, **device_profile(
+                              lambda e=e: e.generate(prompt, n_new=n_new,
+                                                     effort=effort),
+                              need=need))
+        emit({"phase": phase, "route": route, **out[route]})
+    return out
+
+
+def phase_profile(cfg, w, eng, prompt) -> dict:
     """Where one request's time goes: one request of 8 new tokens at
-    effort 0.25 on the token-loop engine."""
-    n_new = 8
-    r = dict(steps=padded(len(prompt), eng.pad_to) + n_new - 1,
-             **device_profile(lambda: eng.generate(prompt, n_new=n_new,
-                                                   effort=0.25),
-                              need=K1_PARTS))
-    emit({"phase": "profile", **r})
-    return r
+    effort 0.25 on the token-loop engine, graph and eager."""
+    return profile_routes("profile", routes(eng, w, cfg), prompt)
 
 
 def phase_teacher(cfg, w, tokens) -> list:
@@ -1017,14 +1121,19 @@ SERVE_LENS = (5, 64, 17, 40, 9, 33, 60, 24)
 SERVE_EFFORTS = (0.25, 0.5, 1.0, 0.25, 0.5, 1.0, 0.25, 0.5)
 
 
+def serve_requests(cfg) -> list:
+    """The serving phases' 8 prompts (SERVE_LENS tokens), from a seed."""
+    g = torch.Generator().manual_seed(11)
+    return [torch.randint(3, cfg.vocab_size, (n,), generator=g).tolist()
+            for n in SERVE_LENS]
+
+
 def phase_serve(cfg, w, eng, prompts) -> list:
     """Continuous batching: BatchEngine(batch_size=4) + ContinuousBatcher
     serve 8 requests through 4 slots (prompt lengths 5-64, efforts mixed,
     32 new tokens each), then a teacher check of one batched step against
     the single-stream K1 route, then the HTTP server in batch mode."""
-    g = torch.Generator().manual_seed(11)
-    reqs = [torch.randint(3, cfg.vocab_size, (n,), generator=g).tolist()
-            for n in SERVE_LENS]
+    reqs = serve_requests(cfg)
     be = BatchEngine(w, cfg, batch_size=4, eos_id=-1)
     cb = ContinuousBatcher(be)
     cb.submit(reqs[0], 2, 0.25, lambda toks: None)        # warm-up
@@ -1376,31 +1485,40 @@ def only(name: str, steps: int, L: int, per_layer: int = 4) -> dict:
 
 def phase_rank_decode(cfg, w, prompts) -> dict:
     """Single-stream decode on the rank-prefix model: the four prompts at
-    efforts 0.25, 0.5 and 1.0 through "auto" (K4), one prompt of a few
+    efforts 0.25, 0.5 and 1.0 through "auto" (K4; captured steps, and at
+    0.25 eager ones too, with the same tokens), one prompt of a few
     tokens through "stream" (K5) and "gather" (K6), each with exact launch
     counts; then one request under the profiler."""
     L, out = cfg.n_layers, {"decode": [], "routes": []}
     eng = Engine(w, cfg, eos_id=-1)
-    eng.generate(prompts[0], n_new=2, effort=0.25)       # warm-up
+    pairs = routes(eng, w, cfg)
+    warm([e for _, e in pairs], prompts[0], (0.25,))
     steps = sum(padded(n, eng.pad_to) + N_NEW - 1 for n in PROMPT_LENS)
     for effort in (0.25, 0.5, 1.0):
-        torch.cuda.synchronize()
-        reset_launches()                # the path's run starts here ...
-        t0 = time.perf_counter()
-        reps = [eng.generate(p, n_new=N_NEW, effort=effort) for p in prompts]
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3
-        launches = dict(LAUNCHES)       # ... and is read here
-        r = dict(effort=effort, requests=len(prompts), steps=steps, ms=ms,
-                 ms_per_token=ms / steps, launches=launches,
-                 first_tokens=reps[0].token_ids[:8])
-        out["decode"].append(r)
-        emit({"phase": "rank_decode", **r})
-        check_replies([x.token_ids for x in reps], cfg, N_NEW,
-                      f"rank decode, effort {effort}")
-        check_launches(launches, only("fused_matvec", steps, L),
-                       f"rank decode at effort {effort}")
-    out["replies"] = reps
+        # eager beside the graph at the profiled effort only (time)
+        for route, e in pairs[:2 if effort == 0.25 else 1]:
+            torch.cuda.synchronize()
+            reset_launches()            # the path's run starts here ...
+            t0 = time.perf_counter()
+            reps = [e.generate(p, n_new=N_NEW, effort=effort)
+                    for p in prompts]
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            launches = dict(LAUNCHES)   # ... and is read here
+            r = dict(route=route, effort=effort, requests=len(prompts),
+                     steps=steps, ms=ms, ms_per_token=ms / steps,
+                     launches=launches, first_tokens=reps[0].token_ids[:8])
+            out["decode"].append(r)
+            emit({"phase": "rank_decode", **r})
+            check_replies([x.token_ids for x in reps], cfg, N_NEW,
+                          f"rank decode, {route}, effort {effort}")
+            check_launches(launches, only("fused_matvec", steps, L),
+                           f"rank decode ({route}) at effort {effort}")
+            if route == "graph":
+                graph_reps = reps
+            else:
+                same_tokens(graph_reps, reps, f"rank decode {effort}")
+    out["replies"] = graph_reps
     n_new, pad = 4, 8
     for impl in ("stream", "gather"):
         e = Engine(w, cfg, impl=impl, eos_id=-1, pad_to=pad)
@@ -1426,10 +1544,8 @@ def phase_rank_decode(cfg, w, prompts) -> dict:
                 prompts[0], n_new=2, effort=0.25))
             r["profile"]["steps"] = padded(len(prompts[0]), pad) + 1
             emit({"phase": "rank_gather_profile", **r["profile"]})
-    out["profile"] = device_profile(lambda: eng.generate(
-        prompts[0], n_new=8, effort=0.25))
-    emit({"phase": "rank_profile", "steps": padded(len(prompts[0])) + 7,
-          **out["profile"]})
+    out["profile"] = profile_routes("rank_profile", pairs, prompts[0],
+                                    need=())
     return out
 
 
@@ -1563,6 +1679,340 @@ def rank_http(cfg, w, kernel: str = "fused_matvec", per_layer: int = 4,
     return r
 
 
+# ---- the captured decode step ---------------------------------------------
+
+GREEDY = dict(sampled=False, top_k=0, penalized=False, logprobs_k=0)
+GRAPH_EFFORTS = (0.25, 1.0)
+
+
+def phase_graph(what: str, cfg, w, prompt, n_new: int = 8) -> list:
+    """The captured decode step against the eager one on a model at full
+    width and depth, at efforts 0.25 and 1.0: teacher-forced logits of
+    every position of `prompt` (Engine.token_logits: one replay, or one
+    eager step, a position) equal bit for bit, or within what the eager
+    route parts from itself on the same tokens (eager_vs_eager, taken
+    first); a whole generation's launches (prompt and n_new steps) under
+    torch.cuda.set_sync_debug_mode("error"), with no host read before its
+    end; its tokens and launch counts equal the eager route's."""
+    g = Engine(w, cfg, eos_id=-1)
+    x = Engine(w, cfg, eos_id=-1, capture=False)
+    rows = []
+    for effort in GRAPH_EFFORTS:
+        lx = x.token_logits(prompt, effort)
+        eager_eager = float((x.token_logits(prompt, effort) - lx).abs().max())
+        graph_eager = float((g.token_logits(prompt, effort) - lx).abs().max())
+        g.generate(prompt, n_new=n_new, effort=effort)   # warm the key
+        got = []
+        for e in (g, x):
+            torch.cuda.synchronize()
+            reset_launches()
+            if e is g:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                out, _ = e._launch(prompt, n_new, effort, GREEDY, {})
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            launches = {k: n for k, n in LAUNCHES.items() if n}
+            got.append((out["ids"].tolist(), out["preds"].tolist(),
+                        launches))
+        r = dict(model=what, effort=effort, positions=len(prompt),
+                 graph_vs_eager_max_abs=graph_eager,
+                 eager_vs_eager_max_abs=eager_eager,
+                 bit_equal=graph_eager == 0.0, sync_free_generate=True,
+                 tokens_equal=got[0][:2] == got[1][:2],
+                 launches_graph=got[0][2], launches_eager=got[1][2],
+                 graphs=len(g._graphs))
+        rows.append(r)
+        emit({"phase": "graph_vs_eager", **r})
+        if graph_eager > eager_eager or not r["tokens_equal"] \
+                or got[0][2] != got[1][2]:
+            raise AssertionError(f"captured step vs eager ({what}): {r}")
+    return rows
+
+
+def phase_batch_graph(what: str, cfg, w, reqs) -> dict:
+    """BatchEngine's captured step against its eager step on the same four
+    admissions (efforts 0.25, 0.5, 1.0, 0.25), in lockstep for 8 steps:
+    each step's logits [4, vocab] equal bit for bit; the launch counts of
+    the steps equal; one replay under set_sync_debug_mode("error")."""
+    engines = [BatchEngine(w, cfg, batch_size=4, eos_id=-1, capture=c)
+               for c in (True, False)]
+    for be in engines:
+        for b in range(4):
+            be.admit(b, b, reqs[b], 64, SERVE_EFFORTS[b])
+    worst, launches = 0.0, []
+    for be in engines:                  # warm (captures the graph)
+        be.step()
+    for be in engines:
+        for b in range(4):
+            be.admit(b, b, reqs[b], 64, SERVE_EFFORTS[b])
+    for _ in range(8):
+        counts = []
+        for be in engines:
+            torch.cuda.synchronize()
+            reset_launches()
+            be.step()
+            counts.append({k: n for k, n in LAUNCHES.items() if n})
+        launches.append(counts)
+        worst = max(worst, float((engines[0].logits
+                                  - engines[1].logits).abs().max()))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        engines[0]._graph.replay()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    r = dict(model=what, steps=8, max_abs_logits=worst,
+             bit_equal=worst == 0.0, sync_free_replay=True,
+             launches_graph=launches[0][0], launches_eager=launches[0][1],
+             launches_equal=all(a == b for a, b in launches))
+    emit({"phase": "batch_graph_vs_eager", **r})
+    if not (r["bit_equal"] and r["launches_equal"] and launches[0][0]):
+        raise AssertionError(f"captured batched step vs eager: {r}")
+    return r
+
+
+def phase_sampling(cfg, w, prompt) -> dict:
+    """Sampling on the card (Mistral-7B row-prefix, captured steps): the
+    same seed twice gives the same tokens; temperature 0, top_k = 1 and
+    top_p = 1e-9 each give the greedy tokens; new temperature, top_p and
+    penalty values capture no new graph; and 10 000 draws of _pick_token
+    from one logits vector (the model's after the prompt; temperature 0.8,
+    top_k 5, top_p 0.95) fall within 0.02 total variation of the
+    truncated softmax (computed in f64)."""
+    eng = Engine(w, cfg, eos_id=-1)
+    n_new, effort = 16, 0.5
+    greedy = eng.generate(prompt, n_new=n_new, effort=effort).token_ids
+    same = {}
+    for name, kw in (("temperature_0", dict(temperature=0.0)),
+                     ("top_k_1", dict(temperature=1.5, top_k=1, seed=3)),
+                     ("top_p_tiny", dict(temperature=1.5, top_p=1e-9,
+                                         seed=3))):
+        same[name] = eng.generate(prompt, n_new=n_new, effort=effort,
+                                  **kw).token_ids == greedy
+    kw = dict(temperature=0.8, top_p=0.9, seed=5)
+    a = eng.generate(prompt, n_new=n_new, effort=effort, **kw).token_ids
+    b = eng.generate(prompt, n_new=n_new, effort=effort, **kw).token_ids
+    eng.generate(prompt, n_new=n_new, effort=effort, presence_penalty=0.5)
+    n_graphs = len(eng._graphs)
+    for kw in (dict(temperature=1.1, top_p=0.7, seed=6),
+               dict(temperature=0.6, top_p=0.95, seed=7),
+               dict(presence_penalty=0.9, frequency_penalty=0.3)):
+        eng.generate(prompt, n_new=n_new, effort=effort, **kw)
+    n_after = len(eng._graphs)
+    logits = eng.token_logits(prompt, effort)[-1]
+    temp, top_k, top_p, n = 0.8, 5, 0.95, 10000
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    draws = torch.stack([_pick_token(logits, gen, True, top_k, temp, top_p)
+                         for _ in range(n)])
+    freq = torch.bincount(draws.long(), minlength=cfg.vocab_size).double() / n
+    lg = logits.double() / temp
+    lg = torch.where(lg >= torch.topk(lg, top_k).values[-1], lg, -math.inf)
+    srt = torch.sort(lg, descending=True).values
+    pr = torch.softmax(srt, 0)
+    cut = srt[(torch.cumsum(pr, 0) - pr) < top_p].min()
+    want = torch.softmax(torch.where(lg >= cut, lg, -math.inf), 0)
+    tv = 0.5 * float((freq - want).abs().sum())
+    r = dict(same_seed_same_tokens=a == b, greedy_equivalents=same,
+             graphs_before=n_graphs, graphs_after=n_after,
+             draws=n, kept=int((want > 0).sum()), total_variation=tv,
+             tokens=a[:8])
+    emit({"phase": "sampling", **r})
+    if not (r["same_seed_same_tokens"] and all(same.values())
+            and n_graphs == n_after and tv <= 0.02):
+        raise AssertionError(f"sampling: {r}")
+    return r
+
+
+def nudged(w):
+    """w with the attention-norm weights moved by a relative 2^-20 x N(0,
+    1) (about 16 f32 ulps): the noise floor of a logits comparison."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(7)
+    nudge = torch.randn(w.layers.attn_norm.shape, generator=g, device="cuda")
+    return dataclasses.replace(w, layers=dataclasses.replace(
+        w.layers, attn_norm=w.layers.attn_norm * (1 + 2.0**-20 * nudge)))
+
+
+def min_cos(a, b) -> float:
+    return min(cos(x, y) for x, y in zip(a, b))
+
+
+def kv_bytes(kv) -> int:
+    return sum(t.numel() * t.element_size() for side in kv[:2]
+               for t in (side if isinstance(side, tuple) else (side,)))
+
+
+INT8_POSITIONS = 128
+
+
+def build_plain_model(cfg):
+    """The KV-cache phases' model: Mistral-7B width and depth, int8
+    row-prefix buckets, fused projections, dense copies (effort 1.0 takes
+    them, with no selection that a last-bit change could move), exact
+    bf16 LM head, random weights from seed 1 WITHOUT the calibrated
+    outlier imprint. On the calibrated model a cache's own rounding moves
+    the logits by more than the comparison of two caches can tell apart
+    (its bf16 cache against an f32 one parts to cos 0.995 at depth 4;
+    int8_kv prints it), so the caches are held against each other
+    here."""
+    t0 = time.perf_counter()
+    w = init_random_weights(cfg, BucketConfig(bucket_size=1, chunk_rows=128,
+                                              dtype="int8"),
+                            seed=1, fuse=True, keep_dense=True,
+                            device="cuda")
+    torch.cuda.synchronize()
+    emit({"phase": "plain_model", "seconds": time.perf_counter() - t0})
+    return w
+
+
+def f32_cache_logits(cfg, w, toks, effort) -> torch.Tensor:
+    """Teacher-forced logits (exact head) of eager forward_token steps
+    over an f32 KV cache."""
+    kv = make_kv_cache(cfg, "cuda", torch.float32)
+    return torch.stack([head_logits(w, rms_norm(forward_layers(
+        w, cfg, embed(w, t), p, *kv, effort=effort), w.norm, cfg.norm_eps))
+        for p, t in enumerate(toks)])
+
+
+def int8_same_input(cfg, w, toks) -> list:
+    """At every layer and position of a teacher-forced pass (eager steps,
+    effort 1.0) the int8 cache's attention read against the bf16 cache's
+    on the same query and the same new K/V rows (written to both), so no
+    difference carries from one layer or position to the next: the least
+    cos a layer."""
+    kc, vc = make_kv_cache(cfg, "cuda")
+    kq, vq = make_quant_kv_cache(cfg, "cuda")
+    q_upd, q_attn = quant_kv_hooks(cfg)
+    worst = torch.ones(cfg.n_layers, dtype=torch.float64, device="cuda")
+
+    def upd(k_cache, v_cache, l, pos, k, v):
+        write_row(k_cache, l, pos, k)
+        write_row(v_cache, l, pos, v)
+        q_upd(kq, vq, l, pos, k, v)
+
+    def attn(q, k_cache, v_cache, l, pos):
+        a = _attention(q, k_cache[l], v_cache[l], pos, cfg)
+        c = torch.nn.functional.cosine_similarity(
+            a.double(), q_attn(q, kq, vq, l, pos).double(), dim=0)
+        worst[l] = torch.minimum(worst[l], c)
+        return a
+    for p, t in enumerate(toks):
+        forward_token(w, cfg, t, p, kc, vc, effort=1.0, kv_update_fn=upd,
+                      attn_fn=attn)
+    return worst.tolist()
+
+
+def phase_int8_kv(cfg, w, w_plain) -> dict:
+    """The int8 KV cache at Mistral-7B width and depth: its bytes under
+    0.6x the bf16 cache's; required, at each of the 32 layers and 128
+    teacher-forced positions, its attention read against the bf16 cache's
+    on the same inputs (int8_same_input): cos >= 0.999. Printed, through
+    the captured steps: end-to-end logits against the bf16 cache's on the
+    same tokens at efforts 1.0 and 0.25, on the uncalibrated model
+    (build_plain_model), each beside its noise floor (the bf16 cache
+    against itself with the weights nudged, nudged()) and at 1.0 beside
+    the bf16 cache against an f32 one; and the same at 1.0 on the
+    calibrated model (exact head). A random model of this depth carries a
+    last-bit difference into whole logits (the noise floors), so the
+    end-to-end numbers are no gate. Then BatchEngine(kv_dtype="int8") on
+    the calibrated model serves the 8 requests of `serve` through 4 slots
+    (K2 4 * 32 times a step and an admission, K3 32 times an
+    admission)."""
+    g = torch.Generator().manual_seed(13)
+    toks = torch.randint(3, cfg.vocab_size, (INT8_POSITIONS,),
+                         generator=g).tolist()
+    r = dict(positions=INT8_POSITIONS,
+             same_input_min_cos=int8_same_input(cfg, w_plain, toks))
+    q8 = Engine(w_plain, cfg, eos_id=-1, quant_kv=True)
+    bf = Engine(w_plain, cfg, eos_id=-1)
+    for effort in (1.0, 0.25):
+        ref = bf.token_logits(toks, effort)
+        r[f"min_cos_{effort}"] = min_cos(q8.token_logits(toks, effort), ref)
+        r[f"noise_floor_min_cos_{effort}"] = min_cos(Engine(
+            nudged(w_plain), cfg, eos_id=-1).token_logits(toks, effort), ref)
+    r["bf16_vs_f32_cache_min_cos_1.0"] = min_cos(
+        f32_cache_logits(cfg, w_plain, toks, 1.0), bf.token_logits(toks, 1.0))
+    r["bytes_int8"], r["bytes_bf16"] = kv_bytes(q8._kv("int8")), kv_bytes(
+        bf._kv("full"))
+    r["bytes_ratio"] = r["bytes_int8"] / r["bytes_bf16"]
+    w_exact = dataclasses.replace(w, output_q=None, output_qscale=None)
+    cal = Engine(w_exact, cfg, eos_id=-1).token_logits(toks, 1.0)
+    r["calibrated_min_cos_1.0"] = min_cos(Engine(
+        w_exact, cfg, eos_id=-1, quant_kv=True).token_logits(toks, 1.0), cal)
+    r["calibrated_bf16_vs_f32_cache_min_cos_1.0"] = min_cos(
+        f32_cache_logits(cfg, w_exact, toks, 1.0), cal)
+    del q8, bf, cal
+    reqs = serve_requests(cfg)
+    be = BatchEngine(w, cfg, batch_size=4, eos_id=-1, kv_dtype="int8")
+    cb = ContinuousBatcher(be)
+    cb.submit(reqs[0], 2, 0.25, lambda toks: None)        # warm-up
+    cb.run_until_drained()
+    done = {}
+    for i, (q, e) in enumerate(zip(reqs, SERVE_EFFORTS)):
+        cb.submit(q, N_NEW, e, lambda t, i=i: done.__setitem__(i, t))
+    torch.cuda.synchronize()
+    reset_launches()                    # the path's run starts here ...
+    t0 = time.perf_counter()
+    ticks = 0
+    while cb.has_work():
+        cb.tick()
+        ticks += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)           # ... and is read here
+    L, admits = cfg.n_layers, len(reqs)
+    r["serve"] = dict(requests=admits, slots=4, steps=ticks, wall_s=wall,
+                      tokens_per_s=admits * N_NEW / wall,
+                      ms_per_step=wall * 1e3 / ticks, launches=launches)
+    emit({"phase": "int8_kv", **r})
+    check_replies([done.get(i) or [] for i in range(admits)], cfg, N_NEW,
+                  "int8 serve")
+    check_launches(launches, {"mxu_matvec_batch": 4 * L * (ticks + admits),
+                              "flash_attention": L * admits,
+                              "mxu_matvec": 0}, "int8 serve")
+    if not (r["bytes_ratio"] < 0.6
+            and min(r["same_input_min_cos"]) >= 0.999):
+        raise AssertionError(f"int8 KV cache: {r}")
+    return r
+
+
+RING_POSITIONS = 4160
+RING_LAYERS = 32
+
+
+def phase_ring_kv(cfg, w) -> dict:
+    """The ring KV cache at Mistral-7B width and its window (4096 slots),
+    RING_LAYERS layers (captured steps) on the uncalibrated model
+    (build_plain_model): teacher-forced logits of 4160 positions, past the
+    window, against a full cache of
+    max_seq_len 4224 (the same window) on the same tokens, over the
+    positions >= 4096: cos >= 0.999 at every one at effort 1.0, printed at
+    0.25."""
+    W = cfg.sliding_window
+    cfg_r = dataclasses.replace(cfg, n_layers=RING_LAYERS)
+    cfg_f = dataclasses.replace(cfg_r, max_seq_len=RING_POSITIONS + 64)
+    g = torch.Generator().manual_seed(17)
+    toks = torch.randint(3, cfg.vocab_size, (RING_POSITIONS,),
+                         generator=g).tolist()
+    ring = Engine(w, cfg_r, eos_id=-1, ring_kv=True)
+    full = Engine(w, cfg_f, eos_id=-1)
+    r = dict(window=W, positions=RING_POSITIONS, layers=RING_LAYERS,
+             ring_slots=ring._kv("ring")[0].shape[1])
+    for effort in (1.0, 0.25):
+        t0 = time.perf_counter()
+        a = ring.token_logits(toks, effort)[W:]
+        torch.cuda.synchronize()
+        r[f"ring_s_{effort}"] = time.perf_counter() - t0
+        r[f"min_cos_{effort}"] = min_cos(a, full.token_logits(
+            toks, effort)[W:])
+    emit({"phase": "ring_kv", **r})
+    if not (r["ring_slots"] == W and r["min_cos_1.0"] >= 0.999):
+        raise AssertionError(f"ring KV cache: {r}")
+    return r
+
+
 # ---- MoE (Mixtral-8x7B) ---------------------------------------------------
 
 # containers of the K1/K4 instance check
@@ -1676,69 +2126,84 @@ def phase_moe_decode(cfg, w, eng, prompts) -> list:
     ms a token by CUDA events; K1 6 * 32 times a step and no other kernel;
     then one step under set_sync_debug_mode("error")."""
     steps = sum(padded(n, eng.pad_to) + N_NEW - 1 for n in PROMPT_LENS)
-    eng.generate(prompts[0], n_new=2, effort=0.25)       # warm-up
+    pairs = routes(eng, w, cfg)
+    warm([e for _, e in pairs], prompts[0], (0.25,))
     results = []
     for effort in MOE_EFFORTS:
-        torch.cuda.synchronize()
-        reset_launches()                # the path's run starts here ...
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = [eng.generate(p, n_new=N_NEW, effort=effort) for p in prompts]
-        end.record()
-        end.synchronize()
-        launches = dict(LAUNCHES)       # ... and is read here
-        ms = start.elapsed_time(end)
-        r = dict(effort=effort, requests=len(prompts), steps=steps, ms=ms,
-                 ms_per_token=ms / steps, launches=launches,
-                 first_tokens=out[0].token_ids[:8])
-        results.append(r)
-        emit({"phase": "moe_decode", **r})
-        check_replies([x.token_ids for x in out], cfg, N_NEW,
-                      f"moe decode, effort {effort}")
-        check_launches(launches, only("mxu_matvec", steps, cfg.n_layers,
-                                      MOE_PER_LAYER),
-                       f"moe decode at effort {effort}")
+        # eager beside the graph at the profiled effort only (time)
+        for route, e in pairs[:2 if effort == 0.25 else 1]:
+            torch.cuda.synchronize()
+            reset_launches()            # the path's run starts here ...
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = [e.generate(p, n_new=N_NEW, effort=effort)
+                   for p in prompts]
+            end.record()
+            end.synchronize()
+            launches = dict(LAUNCHES)   # ... and is read here
+            ms = start.elapsed_time(end)
+            r = dict(route=route, effort=effort, requests=len(prompts),
+                     steps=steps, ms=ms, ms_per_token=ms / steps,
+                     launches=launches, first_tokens=out[0].token_ids[:8])
+            results.append(r)
+            emit({"phase": "moe_decode", **r})
+            check_replies([x.token_ids for x in out], cfg, N_NEW,
+                          f"moe decode, {route}, effort {effort}")
+            check_launches(launches, only("mxu_matvec", steps, cfg.n_layers,
+                                          MOE_PER_LAYER),
+                           f"moe decode ({route}) at effort {effort}")
+            if route == "graph":
+                graph_out = out
+            else:
+                same_tokens(graph_out, out, f"moe decode {effort}")
     moe_one_step_no_sync(cfg, w)
     emit({"phase": "moe_no_sync", "forward_token_steps": 1,
           "sync_debug_mode": "error", "raised": False})
-    results[0]["replies"] = out
+    results[0]["replies"] = graph_out
     return results
 
 
 def phase_moe_profile(cfg, w, eng, prompt) -> dict:
     """Where one MoE request's time goes: 8 new tokens after a 5-token
-    prompt (39 steps) at effort 0.25: wall and device ms, the busy share
+    prompt (39 steps) at efforts 0.25 and 0.5, through the captured steps
+    and the eager ones: wall and device ms, the busy share
     and K1's parts; the gate's product (the library's matrix kernels) and
     the top-k (every other kernel of route(): the sort, the softmax, the
     casts) from a trace of the routing alone, route() at every layer of
     39 steps on a normed decode input (the decode's shapes; the decode's
     attention products are matrix kernels too, so its own trace cannot
     tell them apart); the rest is the device time left."""
-    n_new = 8
-    steps = padded(len(prompt), eng.pad_to) + n_new - 1
-    r = dict(steps=steps, **device_profile(
-        lambda: eng.generate(prompt, n_new=n_new, effort=0.25),
-        need=K1_PARTS))
+    pairs = routes(eng, w, cfg)
+    out = {f"{route}_{effort}": r for effort in (0.25, 0.5)
+           for route, r in profile_routes("moe_profile", pairs, prompt,
+                                          effort).items()}
+    steps = out["graph_0.25"]["steps"]
     x = rms_norm(embed(w, prompt[0]), w.layers.ffn_norm[0], cfg.norm_eps)
     by_name = device_kernels(lambda: [
         transformer.route(w.layers, l, x, cfg) for _ in range(steps)
         for l in range(cfg.n_layers)])
-    if by_name and r["traced"]:
-        def matrix(name):
-            return any(k in name.lower() for k in (
-                "gemm", "gemv", "nvjet", "xmma", "cutlass", "splitk"))
-        gate = sum(ms for k, (ms, _) in by_name.items() if matrix(k))
-        topk = sum(ms for k, (ms, _) in by_name.items() if not matrix(k))
-        k1 = sum(r["kernel_ms"].get(k, 0.0) for k in K1_PARTS)
-        r.update(gate_ms=gate, topk_ms=topk,
-                 rest_ms=r["device_ms"] - k1 - gate - topk,
-                 routing_kernels=sorted((k[:60], ms, n) for k, (ms, n)
-                                        in by_name.items()))
-    else:
-        r.update(gate_ms=None, topk_ms=None, rest_ms=None)
-    emit({"phase": "moe_profile", **r})
-    return r
+    by_name.pop(UNION, None)
+
+    def matrix(name):
+        return any(k in name.lower() for k in (
+            "gemm", "gemv", "nvjet", "xmma", "cutlass", "splitk"))
+    for r in out.values():
+        if by_name and r["traced"]:
+            gate = sum(ms for k, (ms, _) in by_name.items() if matrix(k))
+            topk = sum(ms for k, (ms, _) in by_name.items()
+                       if not matrix(k))
+            k1 = sum(r["kernel_ms"].get(k, 0.0) for k in K1_PARTS)
+            r.update(gate_ms=gate, topk_ms=topk,
+                     rest_ms=r["device_ms"] - k1 - gate - topk)
+        else:
+            r.update(gate_ms=None, topk_ms=None, rest_ms=None)
+    emit({"phase": "moe_profile_parts",
+          **{k: {q: r[q] for q in ("gate_ms", "topk_ms", "rest_ms")}
+             for k, r in out.items()},
+          "routing_kernels": sorted((k[:60], ms, n) for k, (ms, n)
+                                    in by_name.items())})
+    return out
 
 
 def routes_of(fn, forced=None):
@@ -2100,9 +2565,7 @@ def phase_moe_serve(cfg, w, prompts) -> dict:
     K2 after a host read), one batched step against the single-stream
     route at depth 4, tau = 1 (cos >= 0.999 per slot), make_batch_server
     and make_server answering HTTP."""
-    g = torch.Generator().manual_seed(11)
-    reqs = [torch.randint(3, cfg.vocab_size, (n,), generator=g).tolist()
-            for n in SERVE_LENS]
+    reqs = serve_requests(cfg)
     be = BatchEngine(w, cfg, batch_size=4, eos_id=-1)
     cb = ContinuousBatcher(be)
     cb.submit(reqs[0], 2, 0.25, lambda toks: None)        # warm-up
@@ -2136,7 +2599,10 @@ def phase_moe_serve(cfg, w, prompts) -> dict:
         "mxu_matvec": 4 * be.B * L * steps,
         "mxu_matvec_batch": 2 * L * steps + grouped_k2_launches(groups),
         "flash_attention": L * admits}, "moe serve")
-    # the batched step's MoE FFN two ways, in turns on the same slots
+    # the batched step's MoE FFN two ways, in turns on the same slots, as
+    # eager steps (the captured step holds the FFN it was captured with,
+    # and the grouped FFN reads the routing to the host)
+    be.capture = False
     for b in range(be.B):
         be.admit(b, b, reqs[b], 128, SERVE_EFFORTS[b])
     rows_ffn = transformer._moe_rows
@@ -2348,12 +2814,20 @@ def main() -> int:
     model = build_model()
     replies = run("generate", phase_generate, *model)[1]
     out["generate"] = out["generate"][0]
-    run("profile", phase_profile, model[2], model[3][0])
+    run("profile", phase_profile, *model[:3], model[3][0])
     run("teacher", phase_teacher, *model[:2],
         model[3][0] + replies[0.25][0].token_ids)
     run("prefill", phase_prefill, *model)
     run("prefill_teacher", phase_prefill_teacher, *model)
     run("serve", phase_serve, *model)
+    run("graph", phase_graph, "mistral_row", *model[:2], model[3][3])
+    run("batch_graph", phase_batch_graph, "mistral_row", *model[:2],
+        serve_requests(model[0]))
+    run("sampling", phase_sampling, *model[:2], model[3][1])
+    w_plain = build_plain_model(model[0])
+    run("int8_kv", phase_int8_kv, *model[:2], w_plain)
+    run("ring_kv", phase_ring_kv, model[0], w_plain)
+    del w_plain
     prompts = model[3]
     del model, replies
     free_card()
@@ -2364,6 +2838,7 @@ def main() -> int:
     run("rank_same_input", phase_rank_same_input, cfg, w, prompts[0][:2])
     run("rank_teacher", phase_rank_teacher, cfg, w, prompts[0] + reply[:8])
     run("rank_http", rank_http, cfg, w)
+    run("rank_graph", phase_graph, "mistral_rank", cfg, w, prompts[3])
     del w
     free_card()
 
@@ -2375,6 +2850,9 @@ def main() -> int:
     run("moe_teacher", phase_moe_teacher, cfg, w, prompts[0] + reply[:8])
     run("moe_prefill", phase_moe_prefill, cfg, w, prompts)
     run("moe_serve", phase_moe_serve, cfg, w, prompts)
+    run("moe_graph", phase_graph, "mixtral_row", cfg, w, prompts[3])
+    run("moe_batch_graph", phase_batch_graph, "mixtral_row", cfg, w,
+        serve_requests(cfg))
     del w, eng
     free_card()
     run("moe_rank", phase_moe_rank, prompts)

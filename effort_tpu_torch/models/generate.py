@@ -1,23 +1,38 @@
-"""Generation loop: greedy decode with per-step predictions, optionally
-after a one-pass prefill of the prompt; teacher-forced logits and scores.
+"""Generation loop: decode with per-step predictions, optionally after a
+one-pass prefill of the prompt; sampling, presence/frequency penalties and
+logprobs; the full, ring and int8 KV caches; teacher-forced logits and
+scores.
 
-The decode loop runs on the device end to end: the token ids, the
-predictions and the end-of-sequence flag live in device tensors, and
-nothing is read back until the loop ends, so the host never waits for the
-card inside it. Effort is converted once per call into the kernels' 16.16
-fixed-point device tensor for the decode steps (K1, or K4 and K5 on a
-rank-prefix model), and into an f32 device tensor for the prefill pass (K2
-takes f32 efforts, as on the TPU); the gather route (K6) takes the python
-float, from which it sizes its block list.
+The JAX package runs a whole generation as one jitted lax.scan
+(_decode_scan, _prefill_decode_scan). The port runs the same step body
+(_decode_step, _prefill_step) over state on the device: the ids, the
+position, the end-of-sequence flag, the token counts and the generator
+stay on the card, and nothing is read back until the loop ends. On the
+card each step is one captured CUDA graph (models/graphs.StepGraph),
+replayed once a token. Engine keeps one graph per key (route, dense copy
+or kernel, KV mode, sampled, top_k, penalized, logprobs_k and the
+buffers' capacity), as the JAX Engine keeps one jitted program per key in
+_fn. Effort (below the dense switch), temperature, top_p, penalty values
+and seed are contents of the step's buffers, so new values capture
+nothing.
 
-Sampling, presence/frequency penalties, logprobs and speculative decode
-are not ported yet: Engine.generate raises NotImplementedError when asked
-for them.
+Stays eager: the "gather" route (it sizes its block list from a python
+float effort), the "stream" route on an MoE model (it reads the routed
+instance to the host), the "plain" route on a rank-prefix model (the
+plain versions of K4 and K5 read the coverage to the host), the prefill
+pass itself (one forward_seq a request), and everything on the CPU. Engine(capture=False) runs the same
+step eagerly on the card; it is for tests and chip_smoke.py, as
+jax.disable_jit is.
+
+Effort reaches the kernels of a decode step as a 16.16 device tensor (K1,
+or K4 and K5 on a rank-prefix model), and the prefill pass as an f32
+device tensor (K2 takes f32 efforts, as on the TPU).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from typing import Sequence
 
@@ -25,49 +40,198 @@ import numpy as np
 import torch
 
 from effort_tpu_torch.config import ModelConfig
+from effort_tpu_torch.models.graphs import StepGraph
 from effort_tpu_torch.models.transformer import (ModelWeights, forward_seq,
                                                  forward_token,
                                                  make_kv_cache,
-                                                 resolve_device)
-from effort_tpu_torch.ops.effort import effort_q16
+                                                 make_quant_kv_cache,
+                                                 make_ring_kv_cache,
+                                                 quant_kv_hooks,
+                                                 resolve_device,
+                                                 ring_kv_hooks)
 
 
 @dataclasses.dataclass
 class Reply:
     token_ids: list
-    predictions: list          # argmax id after every consumed position
+    predictions: list          # the step's pick after every consumed position
     text: str = ""
     tokens_per_s: float = 0.0
+    prep_ms: float = 0.0       # time_it: warm-up and capture of a cold key
     eval_ms_per_token: float = 0.0
+    logprobs: list = None      # per emitted token (when asked for):
+    #                            {token_id: logprob} of the top-N
 
 
-def _pick_token(logits: torch.Tensor) -> torch.Tensor:
-    """Greedy choice (first index among ties)."""
-    return torch.argmax(logits).to(torch.int32)
+def _scalar(x, device) -> torch.Tensor:
+    """x as a 0-d f32 tensor: a tensor as it is, a number filled on the
+    device (no copy from the host)."""
+    if isinstance(x, torch.Tensor):
+        return x
+    return torch.full((), float(x), dtype=torch.float32, device=device)
 
 
-def _decode(w: ModelWeights, cfg: ModelConfig, prompt_ids: torch.Tensor,
-            prompt_len: int, n_new: int, effort, impl: str, eos_id: int):
-    """prompt_ids: [P] int32 padded on the device. Feeds the prompt, then
-    writes each prediction at pos >= prompt_len-1 into the id buffer until
-    EOS. Returns (all_ids [P+n_new], preds [P+n_new-1]) on the device."""
-    P = prompt_ids.shape[0]
-    dev = prompt_ids.device
-    total = P + n_new
-    k_cache, v_cache = make_kv_cache(cfg, dev)
-    ids = torch.cat([prompt_ids,
-                     torch.zeros(n_new, dtype=torch.int32, device=dev)])
-    preds = torch.empty(total - 1, dtype=torch.int32, device=dev)
-    done = torch.zeros((), dtype=torch.bool, device=dev)
-    for pos in range(total - 1):
-        logits = forward_token(w, cfg, ids[pos], pos, k_cache, v_cache,
-                               effort=effort, impl=impl)
-        pred = _pick_token(logits)
-        preds[pos] = pred
-        if pos >= prompt_len - 1:          # generating from here on
-            ids[pos + 1] = torch.where(done, ids[pos + 1], pred)
-            done = done | (pred == eos_id)
-    return ids, preds
+def _pick_token(logits: torch.Tensor, generator=None, sampled: bool = False,
+                top_k: int = 0, temperature=0.0, top_p=1.0, counts=None,
+                presence=0.0, frequency=0.0) -> torch.Tensor:
+    """The next token (0-d int32), the JAX package's _pick_token: greedy
+    (first index among ties) when not sampled; else softmax sampling at
+    `temperature`, truncated to the top_k logits (top_k > 0, ties at the
+    k-th kept) and then to the nucleus (the smallest prefix of the sorted
+    distribution whose mass reaches top_p; the argmax is always kept, and
+    top_p >= 1 keeps everything).
+
+    counts [vocab] int32 (when given): the occurrences of each token so
+    far; presence * (count > 0) + frequency * count is taken from the
+    logits first (OpenAI's penalties, greedy included).
+
+    sampled and top_k change the step (they are part of a graph's key);
+    temperature, top_p, presence and frequency may be 0-d device tensors,
+    read at run time. The draw is Gumbel-max over uniforms from
+    `generator`, a torch.Generator on the logits' device: the distribution
+    is JAX's categorical's, but the tokens are not JAX's, since torch's
+    Philox bits are not JAX's threefry bits."""
+    if counts is not None:
+        logits = logits - (presence * (counts > 0)
+                           + frequency * counts.to(torch.float32))
+    if not sampled:
+        return torch.argmax(logits).to(torch.int32)
+    lg = _truncated(logits, temperature, top_k, top_p)
+    u = torch.rand(lg.shape, generator=generator, device=lg.device)
+    return torch.argmax(lg - torch.log(-torch.log(u))).to(torch.int32)
+
+
+def _truncated(logits: torch.Tensor, temperature, top_k: int,
+               top_p) -> torch.Tensor:
+    """The logits _pick_token samples from: f32, over temperature, -inf
+    outside the top_k and then outside the nucleus of mass top_p."""
+    dev = logits.device
+    lg = logits.to(torch.float32) / torch.clamp(_scalar(temperature, dev),
+                                                min=1e-6)
+    if top_k > 0:
+        kth = torch.topk(lg, top_k).values[-1]
+        lg = torch.where(lg >= kth, lg, -math.inf)
+    srt = torch.sort(lg, descending=True).values
+    probs = torch.softmax(srt, dim=-1)
+    keep = torch.cumsum(probs, dim=-1) - probs < top_p
+    cutoff = torch.min(torch.where(keep, srt, math.inf))
+    cutoff = torch.where(_scalar(top_p, dev) >= 1.0, -math.inf, cutoff)
+    return torch.where(lg >= cutoff, lg, -math.inf)
+
+
+def _q16(effort: float) -> int:
+    """The 16.16 effort as ops.effort.effort_q16 rounds it (f32 multiply,
+    round half to even), computed on the host."""
+    return int(np.round(np.float32(effort) * np.float32(65536.0)))
+
+
+def _to_device(ids: list, device) -> torch.Tensor:
+    """int32 ids on `device`; to the card from pinned memory without a
+    wait."""
+    t = torch.tensor(ids, dtype=torch.int32)
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
+# the sampling and penalty values of a step's buffers, at "off"
+_OFF = {"temperature": 0.0, "top_p": 1.0, "presence": 0.0, "frequency": 0.0}
+
+
+@dataclasses.dataclass(frozen=True)
+class _Key:
+    """What a captured step depends on (the JAX Engine._fn key without
+    P, n_new and effort: those are buffer contents here)."""
+    loop: str           # "decode", "logits" (teacher-forced) or "prefill"
+    cap: int            # positions of the id buffers
+    dense: bool         # the dense copies (a python float effort)
+    kv_mode: str
+    sampled: bool = False
+    top_k: int = 0
+    penalized: bool = False
+    logprobs_k: int = 0
+
+
+class _StepState:
+    """The device state a step carries (the JAX scan's carry) and writes
+    (its outputs), at `cap` positions. Decode: ids [cap] (the prompt, then
+    each written pick), preds [cap], the position, prompt length, total and
+    done flag. Prefill: ids holds the generated tokens, pos the cache slot,
+    base the padded prompt length P and offset its left pad."""
+
+    def __init__(self, cfg: ModelConfig, key: _Key, device):
+        def z(*shape, dtype=torch.int32):
+            return torch.zeros(shape, dtype=dtype, device=device)
+        self.ids, self.preds = z(key.cap), z(key.cap)
+        self.pos, self.prompt_len, self.total = z(), z(), z()
+        self.base, self.offset = z(), z()
+        self.done = z(dtype=torch.bool)
+        self.eff = z(1)                                    # 16.16
+        for name in _OFF:                  # temperature, top_p, penalties
+            setattr(self, name, z(dtype=torch.float32))
+        self.counts = z(cfg.vocab_size) if key.penalized else None
+        k = key.logprobs_k
+        self.top_lp = z(key.cap, k, dtype=torch.float32) if k else None
+        self.top_ids = z(key.cap, k) if k else None
+        self.logits = (z(cfg.vocab_size, dtype=torch.float32)
+                       if key.loop == "logits" else None)
+        self.generator = (torch.Generator(device=device) if key.sampled
+                          else None)
+
+
+def _decode_step(w: ModelWeights, cfg: ModelConfig, st: _StepState, kv,
+                 effort, impl: str, eos_id: int, key: _Key) -> None:
+    """One step of the JAX package's _decode_scan on st, in place: consume
+    ids[pos] at pos, pick, and from pos >= prompt_len - 1 on write the pick
+    at pos + 1 until EOS; count it for the penalties; keep the pick, the
+    top-N logprobs (logprobs_k) or the logits (the "logits" loop)."""
+    k_cache, v_cache, kv_up, attn = kv
+    pos = st.pos
+    p1 = pos.reshape(1).long()
+    logits = forward_token(w, cfg, st.ids.index_select(0, p1)[0], pos,
+                           k_cache, v_cache, effort=effort, impl=impl,
+                           kv_update_fn=kv_up, attn_fn=attn)
+    pred = _pick_token(logits, st.generator, key.sampled, key.top_k,
+                       st.temperature, st.top_p, counts=st.counts,
+                       presence=st.presence, frequency=st.frequency)
+    is_gen = pos >= st.prompt_len - 1          # generating from here on
+    nxt = pos + 1
+    write = is_gen & (nxt < st.total) & ~st.done
+    at = torch.minimum(nxt, st.total - 1).reshape(1).long()
+    st.ids.index_copy_(0, at, torch.where(
+        write, pred, st.ids.index_select(0, at)[0]).reshape(1))
+    if st.counts is not None:
+        st.counts.index_add_(0, pred.reshape(1).long(),
+                             write.to(torch.int32).reshape(1))
+    st.done |= is_gen & (pred == eos_id)
+    st.preds.index_copy_(0, p1, pred.reshape(1))
+    if key.logprobs_k:
+        topv, topi = torch.topk(
+            torch.log_softmax(logits.to(torch.float32), dim=-1),
+            key.logprobs_k)
+        st.top_lp.index_copy_(0, p1, topv[None])
+        st.top_ids.index_copy_(0, p1, topi.to(torch.int32)[None])
+    if st.logits is not None:
+        st.logits.copy_(logits)
+    st.pos += 1
+
+
+def _prefill_step(w: ModelWeights, cfg: ModelConfig, st: _StepState, kv,
+                  effort, impl: str, key: _Key) -> None:
+    """One decode step after the prefill pass (the JAX package's
+    _prefill_decode_scan): consume generated token i = pos - P at cache
+    slot pos (rotary position pos - offset, slots < offset masked) and
+    write the pick as token i + 1."""
+    k_cache, v_cache = kv[:2]
+    i = st.pos - st.base
+    logits = forward_token(w, cfg, st.ids.index_select(
+        0, i.reshape(1).long())[0], st.pos, k_cache, v_cache,
+        effort=effort, impl=impl, rope_offset=st.offset,
+        mask_from=st.offset)
+    pred = _pick_token(logits, st.generator, key.sampled, key.top_k,
+                       st.temperature, st.top_p)
+    st.ids.index_copy_(0, (i + 1).reshape(1).long(), pred.reshape(1))
+    st.pos += 1
 
 
 def _left_pad(prompt_ids: Sequence[int], P: int) -> list:
@@ -76,52 +240,47 @@ def _left_pad(prompt_ids: Sequence[int], P: int) -> list:
     return [0] * (P - len(prompt_ids)) + list(prompt_ids)
 
 
-def _prefill_decode(w: ModelWeights, cfg: ModelConfig, ids_lp: torch.Tensor,
-                    offset: int, n_new: int, eff_seq, eff_tok, impl: str,
-                    prefill_impl: str):
-    """The left-padded prompt ids_lp [P] through forward_seq in one pass,
-    then n_new - 1 greedy decode steps (the last token consumed needs no
-    step: its prediction is not returned). Rotary positions are slot -
-    offset and attention masks slots < offset. Returns (gen_ids [n_new],
-    prefill_preds [P], left-pad layout) on the device."""
-    P = ids_lp.shape[0]
-    k_cache, v_cache = make_kv_cache(cfg, ids_lp.device)
-    logits = forward_seq(w, cfg, ids_lp, k_cache, v_cache, start_slot=0,
-                         rope_offset=offset, mask_from=offset,
-                         effort=eff_seq, impl=prefill_impl)
-    prefill_preds = torch.argmax(logits, dim=-1).to(torch.int32)
-    gen = [prefill_preds[-1]]
-    for i in range(n_new - 1):
-        logits = forward_token(w, cfg, gen[-1], P + i, k_cache, v_cache,
-                               effort=eff_tok, impl=impl,
-                               rope_offset=offset, mask_from=offset)
-        gen.append(_pick_token(logits))
-    return torch.stack(gen), prefill_preds
-
-
-# Engine.generate's options of the JAX engine that the port does not run
-# yet, with the value that means "off"
-_NOT_PORTED = {"temperature": 0.0, "top_k": 0, "top_p": 1.0, "seed": 0,
-               "presence_penalty": 0.0, "frequency_penalty": 0.0,
-               "logprobs": 0, "spec_k": 0}
-
-
 class Engine:
-    """Holds the weights and runs greedy generation on one device.
+    """Holds the weights and runs generation on one device.
 
     impl: "auto" (dense copy at effort >= 0.999 when present, the kernel
     otherwise), "kernel", "plain", "reference" or "dense", and on a
     rank-prefix model "stream" (K5) or "gather" (K6) (ops/bucketmul.py).
-    prefill=True runs the prompt through forward_seq
-    in one pass (projections routed by prefill_impl; attention by K3 on
-    the card, by materialized scores on the CPU) before the decode
-    steps.
+    prefill=True runs the prompt through forward_seq in one pass
+    (projections routed by prefill_impl; attention by K3 on the card, by
+    materialized scores on the CPU) before the decode steps.
+
+    ring_kv=True decodes over a cache of cfg.sliding_window slots, so
+    decode runs past max_seq_len; quant_kv=True over the int8 cache (the
+    token-loop engine only, one of the two, as in the JAX package).
+
+    dynamic_effort=True passes the effort as the 16.16 device tensor at
+    every value, 1.0 included, so "auto" never takes the dense copies (a
+    traced effort cannot take the JAX package's static dense path either)
+    and one captured step serves every effort. Below the dense switch it
+    changes nothing: there the effort already rides in a device buffer.
+
+    capture: each decode step as a replayed CUDA graph; the default on the
+    card. capture=False runs the same steps eagerly there, for tests and
+    chip_smoke.py. On the CPU nothing is captured.
     device: the card unless named; weights are moved there."""
 
     def __init__(self, weights: ModelWeights, cfg: ModelConfig,
                  tokenizer=None, impl: str = "auto", eos_id: int = 2,
                  pad_to: int = 32, prefill: bool = False,
-                 prefill_impl: str = "auto", device=None):
+                 prefill_impl: str = "auto", dynamic_effort: bool = False,
+                 ring_kv: bool = False, quant_kv: bool = False,
+                 device=None, capture=None):
+        if dynamic_effort and prefill:
+            raise ValueError("dynamic_effort works with the token-loop "
+                             "engine")
+        if (ring_kv or quant_kv) and prefill:
+            raise ValueError("ring_kv/quant_kv work with the token-loop "
+                             "engine")
+        if ring_kv and quant_kv:
+            raise ValueError("pick one KV-cache mode")
+        if ring_kv and not cfg.sliding_window:
+            raise ValueError("ring_kv requires cfg.sliding_window")
         self.device = resolve_device(device)
         self.w = weights.to(self.device)
         self.cfg = cfg
@@ -131,35 +290,306 @@ class Engine:
         self.pad_to = pad_to
         self.prefill = prefill
         self.prefill_impl = prefill_impl
+        self.dynamic_effort = dynamic_effort
+        self.kv_mode = "ring" if ring_kv else ("int8" if quant_kv
+                                               else "full")
+        on_card = self.device.type == "cuda"
+        self.capture = on_card if capture is None else bool(capture)
+        if self.capture and not on_card:
+            raise ValueError("capture=True needs a CUDA device")
+        self._caches = {}
+        self._states = {}
+        self._graphs = {}
+        self._pool = None
+
+    # ---------------- routes and buffers ----------------
 
     def _dense(self, effort: float, impl: str) -> bool:
-        return impl == "dense" or (effort >= 0.999 and impl == "auto"
-                                   and self.w.layers.wo.dense is not None)
+        return impl == "dense" or (
+            effort >= 0.999 and impl == "auto" and not self.dynamic_effort
+            and self.w.layers.wo.dense is not None)
 
-    def _effort_arg(self, effort: float):
-        """For the decode steps: a python float where the dense fast path
-        may take it, or the gather route, which sizes its block list from
-        it; else the 16.16 device tensor, made once per call."""
-        if self._dense(effort, self.impl) or self.impl == "gather":
-            return float(effort)
-        return effort_q16(float(effort), self.device)
+    def _eager_route(self) -> bool:
+        """Routes whose step reads host values: "gather" (its capacity
+        from a python float), "stream" on an MoE model (the routed
+        instance read to the host), and "plain" on a rank-prefix model
+        (K4's and K5's plain versions size their sums from the coverage
+        read to the host)."""
+        rank = self.w.layers.wo.bucket_size > 1
+        return (self.impl == "gather"
+                or (self.impl == "stream" and self.cfg.n_experts > 1)
+                or (self.impl == "plain" and rank))
 
     def _effort_seq(self, effort: float):
         """For the prefill pass: a python float where the dense fast path
         may take it, else an f32 device tensor (K2's per-slot effort)."""
         if self._dense(effort, self.prefill_impl):
             return float(effort)
-        return torch.tensor(float(effort), dtype=torch.float32,
-                            device=self.device)
+        return _scalar(effort, self.device)
 
     def _padded_len(self, n: int) -> int:
         return max(self.pad_to, -(-n // self.pad_to) * self.pad_to)
 
+    def _cap(self, needed: int) -> int:
+        """Positions of a step's id buffers: max_seq_len, or on the ring
+        cache (which decodes past it) the next power of two that holds
+        `needed`."""
+        if needed <= self.cfg.max_seq_len:
+            return self.cfg.max_seq_len
+        if self.kv_mode != "ring":
+            raise ValueError(f"{needed} positions exceed max_seq_len "
+                             f"{self.cfg.max_seq_len}")
+        return 1 << (needed - 1).bit_length()
+
+    def _kv(self, mode: str):
+        """(k_cache, v_cache, kv_update_fn, attn_fn) of a KV mode, made once
+        an engine: each call writes every slot it reads before reading it,
+        so the caches are reused as they are."""
+        if mode not in self._caches:
+            cfg, dev = self.cfg, self.device
+            if mode == "ring":
+                kv = make_ring_kv_cache(cfg, dev) + ring_kv_hooks(cfg)
+            elif mode == "int8":
+                kv = make_quant_kv_cache(cfg, dev) + quant_kv_hooks(cfg)
+            else:
+                kv = make_kv_cache(cfg, dev) + (None, None)
+            self._caches[mode] = kv
+        return self._caches[mode]
+
+    def _state(self, key: _Key) -> _StepState:
+        if key not in self._states:
+            self._states[key] = _StepState(self.cfg, key, self.device)
+        return self._states[key]
+
+    def _run(self, key: _Key, st: _StepState, step, fill, n_steps: int,
+             eager: bool = False) -> float:
+        """fill(), then n_steps steps: replays of key's captured graph
+        (captured first on a cold key, then fill() again), or step() itself
+        when the engine does not capture or the route is eager. Returns the
+        seconds spent capturing."""
+        fill()
+        if not self.capture or eager:
+            for _ in range(n_steps):
+                step()
+            return 0.0
+        prep = 0.0
+        graph = self._graphs.get(key)
+        if graph is None:
+            t0 = time.perf_counter()
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            graph = StepGraph(step, key, self.device, self._pool,
+                              st.generator)
+            self._graphs[key] = graph
+            prep = time.perf_counter() - t0
+            fill()
+        for _ in range(n_steps):
+            graph.replay()
+        return prep
+
+    # ---------------- the two loops ----------------
+
+    def _decode(self, prompt_ids: Sequence[int], n_new: int, effort: float,
+                key_opts: dict, values: dict, loop: str = "decode"):
+        """The token loop over the prompt, padded at the tail to P, and
+        n_new steps more (the JAX package's _decode_scan): P + n_new - 1
+        steps. loop="logits" feeds the prompt alone (n_new = 0, P = its
+        length) and keeps each step's logits. Returns (state, total,
+        logits or None, capture seconds)."""
+        n = len(prompt_ids)
+        P = n if loop == "logits" else self._padded_len(n)
+        total = P + n_new
+        dense = self._dense(effort, self.impl)
+        key = _Key(loop, self._cap(total), dense, self.kv_mode, **key_opts)
+        st = self._state(key)
+        eff = (float(effort) if dense or self.impl == "gather" else st.eff)
+        kv = self._kv(self.kv_mode)
+        ids = _to_device(list(prompt_ids) + [0] * (P - n), self.device)
+
+        def fill():
+            st.ids[:P].copy_(ids)
+            st.ids[P:].zero_()
+            st.pos.zero_()
+            st.prompt_len.fill_(n)
+            st.total.fill_(total)
+            st.done.zero_()
+            st.eff.fill_(_q16(effort))
+            for name, off in _OFF.items():
+                getattr(st, name).fill_(values.get(name, off))
+            if st.counts is not None:
+                st.counts.zero_()
+                st.counts.index_add_(0, st.ids[:n].long(),
+                                     torch.ones_like(st.ids[:n]))
+            if st.generator is not None:
+                st.generator.manual_seed(values.get("seed", 0))
+
+        def step():
+            _decode_step(self.w, self.cfg, st, kv, eff, self.impl,
+                         self.eos_id, key)
+
+        if loop != "logits":
+            return st, total, None, self._run(key, st, step, fill,
+                                              total - 1, self._eager_route())
+        out = torch.empty((n, self.cfg.vocab_size),
+                          dtype=torch.float32, device=self.device)
+        graph = None
+        if self.capture and not self._eager_route():
+            self._run(key, st, step, fill, 0)
+            graph = self._graphs[key]
+        else:
+            fill()
+        for p in range(n):
+            graph.replay() if graph is not None else step()
+            out[p].copy_(st.logits)
+        return st, total, out, 0.0
+
+    def _prefill_decode(self, prompt_ids: Sequence[int], n_new: int,
+                        effort: float, key_opts: dict, values: dict):
+        """The left-padded prompt through forward_seq in one pass (eager),
+        the first token picked from its last logits, then n_new - 1 decode
+        steps (the JAX package's _prefill_decode_scan; its last step's pick
+        is not returned, so the port does not run it). Rotary positions are
+        slot - offset and attention masks slots < offset. Returns (state,
+        the prefill pass's argmax ids [P] in left-pad layout, capture
+        seconds)."""
+        n = len(prompt_ids)
+        P = self._padded_len(n)
+        offset = P - n
+        dense = self._dense(effort, self.impl)
+        key = _Key("prefill", self._cap(P + n_new), dense, "full",
+                   **key_opts)
+        st = self._state(key)
+        eff = (float(effort) if dense or self.impl == "gather" else st.eff)
+        kv = self._kv("full")
+        logits = forward_seq(self.w, self.cfg,
+                             _to_device(_left_pad(prompt_ids, P),
+                                        self.device),
+                             kv[0], kv[1], start_slot=0, rope_offset=offset,
+                             mask_from=offset,
+                             effort=self._effort_seq(effort),
+                             impl=self.prefill_impl)
+        prefill_preds = torch.argmax(logits, dim=-1).to(torch.int32)
+
+        def fill():
+            st.pos.fill_(P)
+            st.base.fill_(P)
+            st.offset.fill_(offset)
+            st.eff.fill_(_q16(effort))
+            st.temperature.fill_(values.get("temperature", 0.0))
+            st.top_p.fill_(values.get("top_p", 1.0))
+            if st.generator is not None:
+                st.generator.manual_seed(values.get("seed", 0))
+            st.ids[:1].copy_(_pick_token(
+                logits[-1], st.generator, key.sampled, key.top_k,
+                st.temperature, st.top_p).reshape(1))
+
+        def step():
+            _prefill_step(self.w, self.cfg, st, kv, eff, self.impl, key)
+
+        prep = self._run(key, st, step, fill, n_new - 1, self._eager_route())
+        return st, prefill_preds, prep
+
+    # ---------------- entry points ----------------
+
+    def _launch(self, prompt_ids: Sequence[int], n_new: int, effort: float,
+                key_opts: dict, values: dict):
+        """Every launch of one generation, with no host read: (device
+        tensors to read, capture seconds)."""
+        if self.prefill:
+            st, pre, prep = self._prefill_decode(prompt_ids, n_new, effort,
+                                                 key_opts, values)
+            return {"gen": st.ids[:n_new], "pre": pre}, prep
+        st, total, _, prep = self._decode(prompt_ids, n_new, effort,
+                                          key_opts, values)
+        out = {"ids": st.ids[:total], "preds": st.preds[:total - 1]}
+        if st.top_lp is not None:
+            out["top_lp"], out["top_ids"] = (st.top_lp[:total - 1],
+                                             st.top_ids[:total - 1])
+        return out, prep
+
+    def generate(self, prompt_ids: Sequence[int], n_new: int = 30,
+                 effort: float = 1.0, temperature: float = 0.0,
+                 top_k: int = 0, top_p: float = 1.0, seed: int = 0,
+                 presence_penalty: float = 0.0,
+                 frequency_penalty: float = 0.0, logprobs: int = 0,
+                 time_it: bool = False, spec_k: int = 0) -> Reply:
+        """Continuation of prompt_ids by n_new tokens at `effort` (stops
+        early at eos_id). The prompt is padded to a multiple of pad_to, as
+        the JAX engine pads it: at the tail (token loop) or, with prefill,
+        at the head.
+
+        temperature = 0 is greedy; temperature > 0 samples, truncated by
+        top_k and top_p (see _pick_token); seed fixes the draws (same seed,
+        same tokens on one device). presence/frequency penalties (the
+        token loop only) apply to greedy too. logprobs = N (the token loop
+        only) returns the top-N log-probabilities of each emitted token's
+        step. top_k, and whether sampling, penalties or logprobs are on,
+        select the captured step; the values do not.
+
+        time_it=False: one run; its times include a cold key's capture.
+        time_it=True: a second, timed run, and prep_ms the first run's
+        capture time. spec_k (speculative decode) is not ported yet."""
+        if spec_k:
+            raise NotImplementedError(
+                "spec_k: speculative decode is not ported yet (ROADMAP.md, "
+                "modules to port, item 3)")
+        n = len(prompt_ids)
+        P = self._padded_len(n)
+        if self.kv_mode != "ring" and P + n_new > self.cfg.max_seq_len:
+            raise ValueError(f"{P} + {n_new} positions exceed max_seq_len "
+                             f"{self.cfg.max_seq_len} (ring_kv decodes past "
+                             f"it)")
+        sampled = temperature > 0.0
+        penalized = presence_penalty != 0.0 or frequency_penalty != 0.0
+        if self.prefill and (penalized or logprobs):
+            raise ValueError("penalties and logprobs run in the token-loop "
+                             "engine only, as in the JAX package")
+        key_opts = dict(sampled=sampled, top_k=top_k if sampled else 0,
+                        penalized=penalized, logprobs_k=logprobs)
+        values = dict(temperature=temperature, top_p=top_p, seed=seed,
+                      presence=presence_penalty,
+                      frequency=frequency_penalty)
+
+        def run():
+            out, prep = self._launch(prompt_ids, n_new, effort, key_opts,
+                                     values)
+            return {k: v.cpu() for k, v in out.items()}, prep
+
+        t0 = time.perf_counter()
+        host, prep = run()
+        dt = time.perf_counter() - t0
+        if time_it:
+            t0 = time.perf_counter()
+            host, _ = run()
+            dt = time.perf_counter() - t0
+        if self.prefill:
+            new_ids = host["gen"].tolist()
+            preds = host["pre"].tolist()[P - n:] + new_ids[1:]
+        else:
+            ids, preds = host["ids"].tolist(), host["preds"].tolist()
+            new_ids = ids[n:n + n_new]
+        if self.eos_id in new_ids:
+            new_ids = new_ids[:new_ids.index(self.eos_id) + 1]
+        lp_out = None
+        if logprobs:
+            # step i predicts the token consumed at i + 1: the emitted
+            # tokens were picked at steps n - 1, n, ...
+            lp = host["top_lp"].tolist()
+            ti = host["top_ids"].tolist()
+            lp_out = [dict(zip(ti[n - 1 + i], lp[n - 1 + i]))
+                      for i in range(len(new_ids))]
+        text = (self.tokenizer.decode(new_ids)
+                if self.tokenizer is not None else "")
+        n_steps = P + n_new - 1
+        return Reply(token_ids=new_ids, predictions=preds, text=text,
+                     tokens_per_s=n_steps / dt,
+                     prep_ms=prep * 1e3 if time_it else 0.0,
+                     eval_ms_per_token=dt / n_steps * 1e3, logprobs=lp_out)
+
     def _forward_seq(self, prompt_ids: Sequence[int], effort: float):
         """Prefill logits [P, vocab] of the left-padded prompt."""
         P = self._padded_len(len(prompt_ids))
-        ids = torch.tensor(_left_pad(prompt_ids, P), dtype=torch.int32,
-                           device=self.device)
+        ids = _to_device(_left_pad(prompt_ids, P), self.device)
         k_cache, v_cache = make_kv_cache(self.cfg, self.device)
         off = P - len(prompt_ids)
         return forward_seq(self.w, self.cfg, ids, k_cache, v_cache,
@@ -167,66 +597,15 @@ class Engine:
                            effort=self._effort_seq(effort),
                            impl=self.prefill_impl)
 
-    def _token_logits(self, prompt_ids: Sequence[int], effort: float):
-        """Logits [len, vocab] of the prompt, one forward_token a
-        position."""
-        ids = torch.tensor(list(prompt_ids), dtype=torch.int32,
-                           device=self.device)
-        k_cache, v_cache = make_kv_cache(self.cfg, self.device)
-        eff = self._effort_arg(effort)
-        return torch.stack([forward_token(self.w, self.cfg, ids[p], p,
-                                          k_cache, v_cache, effort=eff,
-                                          impl=self.impl)
-                            for p in range(len(prompt_ids))])
-
-    def generate(self, prompt_ids: Sequence[int], n_new: int = 30,
-                 effort: float = 1.0, **options) -> Reply:
-        """Greedy continuation of prompt_ids by n_new tokens at `effort`
-        (stops early at eos_id). The prompt is padded to a multiple of
-        pad_to, as the JAX engine pads it: at the tail (token loop) or,
-        with prefill, at the head. options: the JAX engine's sampling,
-        penalty, logprobs and speculative options, accepted at their "off"
-        values only."""
-        for name, value in options.items():
-            if name not in _NOT_PORTED:
-                raise TypeError(f"unexpected option {name!r}")
-            if value != _NOT_PORTED[name]:
-                raise NotImplementedError(f"{name}={value!r}: sampling, "
-                                          f"penalties, logprobs and "
-                                          f"speculative decode are not "
-                                          f"ported yet")
-        n = len(prompt_ids)
-        P = self._padded_len(n)
-        if P + n_new > self.cfg.max_seq_len:
-            raise ValueError(f"{P} + {n_new} positions exceed max_seq_len "
-                             f"{self.cfg.max_seq_len}")
-        t0 = time.perf_counter()
-        if self.prefill:
-            ids = torch.tensor(_left_pad(prompt_ids, P), dtype=torch.int32,
-                               device=self.device)
-            gen, pre = _prefill_decode(
-                self.w, self.cfg, ids, P - n, n_new,
-                self._effort_seq(effort), self._effort_arg(effort),
-                self.impl, self.prefill_impl)
-            gen, pre = gen.cpu().tolist(), pre.cpu().tolist()
-            new_ids, preds = gen, pre[P - n:] + gen[1:]
-        else:
-            ids = torch.tensor(list(prompt_ids) + [0] * (P - n),
-                               dtype=torch.int32, device=self.device)
-            ids, preds = _decode(self.w, self.cfg, ids, n, n_new,
-                                 self._effort_arg(effort), self.impl,
-                                 self.eos_id)
-            ids, preds = ids.cpu().tolist(), preds.cpu().tolist()
-            new_ids = ids[n:n + n_new]
-        dt = time.perf_counter() - t0
-        if self.eos_id in new_ids:
-            new_ids = new_ids[:new_ids.index(self.eos_id) + 1]
-        text = (self.tokenizer.decode(new_ids)
-                if self.tokenizer is not None else "")
-        n_steps = P + n_new - 1
-        return Reply(token_ids=new_ids, predictions=preds, text=text,
-                     tokens_per_s=n_steps / dt,
-                     eval_ms_per_token=dt / n_steps * 1e3)
+    def token_logits(self, prompt_ids: Sequence[int],
+                     effort: float = 1.0) -> torch.Tensor:
+        """Teacher-forced logits [len, vocab] on the device,
+        one decode step a position (replays of the captured step on the
+        card), through the engine's KV mode: the full cache, or the ring
+        or int8 cache (JAX's position_logits always takes the full
+        cache)."""
+        return self._decode(prompt_ids, 0, effort, {}, {},
+                            loop="logits")[2]
 
     def position_logits(self, prompt_ids: Sequence[int],
                         effort: float = 1.0) -> np.ndarray:
@@ -236,7 +615,7 @@ class Engine:
         if self.prefill:
             logits = self._forward_seq(prompt_ids, effort)[-n:]
         else:
-            logits = self._token_logits(prompt_ids, effort)
+            logits = self.token_logits(prompt_ids, effort)
         return logits.cpu().numpy()
 
     def prompt_logits(self, prompt_ids: Sequence[int], effort: float = 1.0):

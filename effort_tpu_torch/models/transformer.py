@@ -22,6 +22,12 @@ random-weight synthesis.
   - GQA is a reshape of the query heads, KV-head major, not a repeat.
   - KV cache: [n_layers, max_seq, n_kv_heads, head_dim] bf16, written in
     place (the JAX package returns updated copies; in place saves the copy).
+    The decode step's position may be a 0-d int device tensor: its rows
+    are written by index, so a step holds no host value and can be
+    captured in a CUDA graph. Two other caches ride on forward_token's
+    kv_update_fn / attn_fn hooks, as in the JAX package: a ring of
+    sliding_window slots (ring_kv_hooks) and int8 rows with one f32 scale
+    a (slot, kv head) (quant_kv_hooks; forward_token_batch's kv_quant).
   - The residual h stays f32 between layers; attention runs in f32.
 """
 
@@ -236,6 +242,98 @@ def make_kv_cache(cfg: ModelConfig, device, dtype=torch.bfloat16):
             torch.zeros(shape, dtype=dtype, device=device))
 
 
+def write_row(cache: torch.Tensor, l: int, pos, row: torch.Tensor) -> None:
+    """cache[l, pos] = row, in place. pos: an int, or a 0-d int device
+    tensor, written by index with no host read."""
+    if isinstance(pos, torch.Tensor):
+        cache[l].index_copy_(0, pos.reshape(1).long(),
+                             row[None].to(cache.dtype))
+    else:
+        cache[l, pos] = row.to(cache.dtype)
+
+
+def make_ring_kv_cache(cfg: ModelConfig, device, dtype=torch.bfloat16):
+    """The KV cache of ring_kv_hooks: [n_layers, sliding_window, KV, D] per
+    side. It holds the last sliding_window positions only, so decode runs
+    past max_seq_len (which then only sizes the prompt buffer)."""
+    if not cfg.sliding_window:
+        raise ValueError("a ring KV cache needs cfg.sliding_window")
+    shape = (cfg.n_layers, cfg.sliding_window, cfg.n_kv_heads,
+             cfg.head_dim)
+    return (torch.zeros(shape, dtype=dtype, device=device),
+            torch.zeros(shape, dtype=dtype, device=device))
+
+
+def ring_kv_hooks(cfg: ModelConfig):
+    """(kv_update_fn, attn_fn) of the rolling cache (the JAX package's
+    ring_kv_hooks): position pos lands at slot pos % W over the row that
+    just left the window; slots <= pos are live, and every slot once pos
+    >= W (the softmax does not care about slot order). Decode only: no
+    left-pad mask. The caches are written in place."""
+    W = cfg.sliding_window
+    if not W:
+        raise ValueError("ring KV hooks need cfg.sliding_window")
+
+    def upd(k_cache, v_cache, l, pos, k, v):
+        write_row(k_cache, l, pos % W, k)
+        write_row(v_cache, l, pos % W, v)
+
+    def attn(q, k_cache, v_cache, l, pos):
+        live = (torch.arange(W, device=q.device) <= pos) | (pos >= W)
+        return _attn_core(q, k_cache[l].to(torch.float32),
+                          v_cache[l].to(torch.float32), live, cfg)
+
+    return upd, attn
+
+
+def quantize_kv_rows(x: torch.Tensor):
+    """x [..., D] f32 -> (int8 [..., D], f32 scale [...]): symmetric absmax
+    scales over the last axis, round half to even (the JAX package's
+    quantize_kv_rows)."""
+    s = torch.clamp(x.abs().amax(dim=-1), min=1e-30) / 127.0
+    q = torch.clamp(torch.round(x / s[..., None]), -127, 127)
+    return q.to(torch.int8), s.to(torch.float32)
+
+
+def make_quant_kv_cache(cfg: ModelConfig, device, batch_size: int = 0):
+    """The int8 KV cache: per side (data [L, S, KV, D] int8, scale
+    [L, S, KV] f32), with a slot axis B after L when batch_size > 0; about
+    half the bf16 cache's bytes."""
+    lead = (cfg.n_layers,) + ((batch_size,) if batch_size else ())
+    lead += (cfg.max_seq_len, cfg.n_kv_heads)
+
+    def side():
+        return (torch.zeros(lead + (cfg.head_dim,), dtype=torch.int8,
+                            device=device),
+                torch.zeros(lead, dtype=torch.float32, device=device))
+    return side(), side()
+
+
+def _attention_q8(q, kd, ks, vd, vs, pos, cfg: ModelConfig, mask_from=0):
+    """int8 attention read (leading axes are slots): kd/vd [..., S, KV, D]
+    int8, ks/vs [..., S, KV] f32, dequantized in f32."""
+    live = _live_slots(pos, mask_from, kd.shape[-3], cfg, q.device)
+    return _attn_core(q, kd.to(torch.float32) * ks[..., None],
+                      vd.to(torch.float32) * vs[..., None], live, cfg)
+
+
+def quant_kv_hooks(cfg: ModelConfig):
+    """(kv_update_fn, attn_fn) of the int8 cache (the JAX package's
+    quant_kv_hooks): each new row quantized per kv head, the read
+    dequantized. Decode only (mask_from 0); written in place."""
+    def upd(k_cache, v_cache, l, pos, k, v):
+        for (data, scale), x in ((k_cache, k), (v_cache, v)):
+            xq, xs = quantize_kv_rows(x.to(torch.float32))
+            write_row(data, l, pos, xq)
+            write_row(scale, l, pos, xs)
+
+    def attn(q, k_cache, v_cache, l, pos):
+        (kd, ks), (vd, vs) = k_cache, v_cache
+        return _attention_q8(q, kd[l], ks[l], vd[l], vs[l], pos, cfg)
+
+    return upd, attn
+
+
 def _attn_core(q, kf, vf, live, cfg: ModelConfig):
     """Masked-softmax attention read for one query token per slot; leading
     axes are slots. q [..., H*D]; kf/vf [..., S, KV, D] f32;
@@ -260,8 +358,9 @@ def active_window(cfg: ModelConfig) -> int:
 def _live_slots(pos, mask_from, S: int, cfg: ModelConfig, device):
     """Cache slots a query at slot pos sees: [mask_from, pos], within the
     sliding window. pos/mask_from: ints, or device tensors [...] ->
-    [..., S]. Ints stay python numbers: making a CUDA tensor of one would
-    copy it from the host and wait for the card."""
+    [..., S] (a 0-d tensor, the decode step's position, gives [S]). Ints
+    stay python numbers: making a CUDA tensor of one would copy it from
+    the host and wait for the card."""
     t_ids = torch.arange(S, device=device)
     if isinstance(pos, torch.Tensor):
         pos = pos[..., None]
@@ -273,8 +372,7 @@ def _live_slots(pos, mask_from, S: int, cfg: ModelConfig, device):
     return live
 
 
-def _attention(q, k_cache, v_cache, pos: int, cfg: ModelConfig,
-               mask_from: int = 0):
+def _attention(q, k_cache, v_cache, pos, cfg: ModelConfig, mask_from=0):
     """q: [n_heads*head_dim]; caches: [S, n_kv, hd]. Returns [n_heads*hd]."""
     live = _live_slots(pos, mask_from, k_cache.shape[0], cfg, q.device)
     return _attn_core(q, k_cache.to(torch.float32),
@@ -462,11 +560,14 @@ def _qkv(lw: LayerWeights, l: int, x, pe: dict, cfg: ModelConfig,
             mv(lw.wv, x, pe["wv"], l, impl))
 
 
-def forward_layers(w: ModelWeights, cfg: ModelConfig, h, pos: int, k_cache,
+def forward_layers(w: ModelWeights, cfg: ModelConfig, h, pos, k_cache,
                    v_cache, effort=1.0, impl: str = "auto",
-                   rope_offset: int = 0, mask_from: int = 0):
+                   rope_offset=0, mask_from=0, kv_update_fn=None,
+                   attn_fn=None):
     """The layer stack only: h [dim] f32 through cfg.n_layers blocks,
-    writing this position's K/V rows into the caches in place. Returns h."""
+    writing this position's K/V rows into the caches in place. Returns h.
+    pos, rope_offset, mask_from: ints or 0-d int device tensors. The hooks
+    (see forward_token) replace the row write and the attention read."""
     KV, D = cfg.n_kv_heads, cfg.head_dim
     pe = proj_efforts(effort, cfg)
     lw = w.layers
@@ -476,9 +577,17 @@ def forward_layers(w: ModelWeights, cfg: ModelConfig, h, pos: int, k_cache,
         q, k, v = _qkv(lw, l, h_norm, pe, cfg, impl)
         q = rope_apply(q.reshape(cfg.n_heads, D), cos, sin).reshape(-1)
         k = rope_apply(k.reshape(KV, D), cos, sin)
-        k_cache[l, pos] = k.to(k_cache.dtype)
-        v_cache[l, pos] = v.reshape(KV, D).to(v_cache.dtype)
-        attn = _attention(q, k_cache[l], v_cache[l], pos, cfg, mask_from)
+        v = v.reshape(KV, D)
+        if kv_update_fn is not None:
+            kv_update_fn(k_cache, v_cache, l, pos, k, v)
+        else:
+            write_row(k_cache, l, pos, k)
+            write_row(v_cache, l, pos, v)
+        if attn_fn is not None:
+            attn = attn_fn(q, k_cache, v_cache, l, pos)
+        else:
+            attn = _attention(q, k_cache[l], v_cache[l], pos, cfg,
+                              mask_from)
         h = h + bucket_matvec(lw.wo, attn, pe["wo"], l, impl)
         f_norm = rms_norm(h, lw.ffn_norm[l], cfg.norm_eps)
         h = h + _ffn(lw, l, f_norm, pe, cfg, impl)
@@ -538,7 +647,8 @@ def forward_seq(w: ModelWeights, cfg: ModelConfig, token_ids: torch.Tensor,
 
 def make_batch_kv_cache(cfg: ModelConfig, batch_size: int, device,
                         dtype=torch.bfloat16):
-    """The batch KV cache: [L, B, S, KV, D] per side."""
+    """The batch KV cache: [L, B, S, KV, D] per side (the int8 one is
+    make_quant_kv_cache(cfg, device, batch_size))."""
     shape = (cfg.n_layers, batch_size, cfg.max_seq_len, cfg.n_kv_heads,
              cfg.head_dim)
     return (torch.zeros(shape, dtype=dtype, device=device),
@@ -549,7 +659,8 @@ def forward_token_batch(w: ModelWeights, cfg: ModelConfig,
                         toks: torch.Tensor, pos: torch.Tensor, k_cache,
                         v_cache, efforts: torch.Tensor,
                         offs: Optional[torch.Tensor] = None,
-                        impl: str = "auto") -> torch.Tensor:
+                        impl: str = "auto",
+                        kv_quant: bool = False) -> torch.Tensor:
     """Batched decode step: B slots advance together.
 
     toks/pos/offs: [B] int device tensors (token, cache slot, left-pad
@@ -561,7 +672,9 @@ def forward_token_batch(w: ModelWeights, cfg: ModelConfig,
     launch. An MoE FFN runs slot by slot (_moe_rows: the JAX package's
     vmap; K1 a slot and expert on the kernel route, with device
     instances, so the step waits on no host read of the routing).
-    Returns logits [B, vocab] f32."""
+    kv_quant: the caches are int8 (data [L, B, S, KV, D], scale
+    [L, B, S, KV]) pairs per side (make_quant_kv_cache), each new row
+    quantized per kv head. Returns logits [B, vocab] f32."""
     B = toks.shape[0]
     dev = w.device
     KV, D, H = cfg.n_kv_heads, cfg.head_dim, cfg.n_heads
@@ -570,7 +683,8 @@ def forward_token_batch(w: ModelWeights, cfg: ModelConfig,
     X = w.tok_embeddings.index_select(0, toks.long()).to(torch.float32)
     cos, sin = rope_angles(pos - offs, D, cfg.rope_theta, dev)
     cos, sin = cos[:, None], sin[:, None]
-    live = _live_slots(pos, offs, k_cache.shape[2], cfg, dev)     # [B, S]
+    S = (k_cache[0] if kv_quant else k_cache).shape[2]
+    live = _live_slots(pos, offs, S, cfg, dev)                    # [B, S]
     bidx, pidx = torch.arange(B, device=dev), pos.long()
     lw = w.layers
     for l in range(cfg.n_layers):
@@ -578,10 +692,21 @@ def forward_token_batch(w: ModelWeights, cfg: ModelConfig,
         Q, K, V = _qkv(lw, l, Xn, pe, cfg, impl, mv=bucket_matmul)
         Q = rope_apply(Q.reshape(B, H, D), cos, sin).reshape(B, H * D)
         K = rope_apply(K.reshape(B, KV, D), cos, sin)
-        k_cache[l, bidx, pidx] = K.to(k_cache.dtype)
-        v_cache[l, bidx, pidx] = V.reshape(B, KV, D).to(v_cache.dtype)
-        attn = _attn_core(Q, k_cache[l].to(torch.float32),
-                          v_cache[l].to(torch.float32), live, cfg)
+        V = V.reshape(B, KV, D)
+        if kv_quant:
+            for (data, scale), x in ((k_cache, K), (v_cache, V)):
+                xq, xs = quantize_kv_rows(x.to(torch.float32))
+                data[l, bidx, pidx] = xq
+                scale[l, bidx, pidx] = xs
+            (kd, ks), (vd, vs) = k_cache, v_cache
+            attn = _attn_core(Q, kd[l].to(torch.float32) * ks[l][..., None],
+                              vd[l].to(torch.float32) * vs[l][..., None],
+                              live, cfg)
+        else:
+            k_cache[l, bidx, pidx] = K.to(k_cache.dtype)
+            v_cache[l, bidx, pidx] = V.to(v_cache.dtype)
+            attn = _attn_core(Q, k_cache[l].to(torch.float32),
+                              v_cache[l].to(torch.float32), live, cfg)
         X = X + bucket_matmul(lw.wo, attn, pe["wo"], l, impl)
         Fn = rms_norm(X, lw.ffn_norm[l], cfg.norm_eps)
         X = X + (_ffn_seq(lw, l, Fn, pe, cfg, impl) if cfg.n_experts == 1
@@ -598,19 +723,29 @@ def embed(w: ModelWeights, token_id) -> torch.Tensor:
     return w.tok_embeddings[token_id].to(torch.float32)
 
 
-def forward_token(w: ModelWeights, cfg: ModelConfig, token_id, pos: int,
+def forward_token(w: ModelWeights, cfg: ModelConfig, token_id, pos,
                   k_cache, v_cache, effort=1.0, impl: str = "auto",
-                  rope_offset: int = 0, mask_from: int = 0):
+                  rope_offset=0, mask_from=0, kv_update_fn=None,
+                  attn_fn=None):
     """One autoregressive step: embeds token_id at position pos, runs all
     layers, returns logits [vocab] f32 (the caches are updated in place).
 
+    token_id, pos, rope_offset, mask_from: ints, or 0-d int device
+    tensors (then the step reads no host value, and can be captured).
     rope_offset/mask_from support left-padded prompts: pos is the cache
     slot, pos - rope_offset the rotary position, and attention ignores
-    slots < mask_from."""
+    slots < mask_from.
+
+    kv_update_fn(k_cache, v_cache, l, pos, k [KV, D], v [KV, D]) and
+    attn_fn(q, k_cache, v_cache, l, pos) -> [H*D] replace the row write
+    and the attention read, with the JAX package's signatures; the port's
+    hooks write in place and return nothing (ring_kv_hooks,
+    quant_kv_hooks, whose caches are their own layouts)."""
     h = embed(w, token_id)
     h = forward_layers(w, cfg, h, pos, k_cache, v_cache, effort=effort,
                        impl=impl, rope_offset=rope_offset,
-                       mask_from=mask_from)
+                       mask_from=mask_from, kv_update_fn=kv_update_fn,
+                       attn_fn=attn_fn)
     return head_logits(w, rms_norm(h, w.norm, cfg.norm_eps))
 
 

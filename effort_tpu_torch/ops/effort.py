@@ -87,22 +87,27 @@ def compute_cutoff(v_probe_sample: torch.Tensor, probes: torch.Tensor,
     m = torch.max(scores) + 1e-30
     ratios = _ratio_table(dev)
 
+    def at(x, i):
+        # x[i] for a 0-d index tensor, read on the device (indexing with
+        # it would read it to the host and wait for the card)
+        return x.index_select(0, i.reshape(1))[0]
+
     def first_hit(t):
         counts = (scores[None, :] > t[:, None]).sum(dim=1)
         hits = counts >= k
         # first threshold whose count reaches k (counts grow as t falls)
         idx = torch.argmax(hits.to(torch.int32))
-        return idx, hits[idx]
+        return idx, at(hits, idx)
 
     t = m * ratios
     idx, hit = first_hit(t)
-    lo = torch.where(hit, t[idx], torch.zeros_like(m))
-    hi = torch.where(hit & (idx > 0), t[torch.clamp(idx - 1, min=0)], m)
+    lo = torch.where(hit, at(t, idx), torch.zeros_like(m))
+    hi = torch.where(hit & (idx > 0), at(t, torch.clamp(idx - 1, min=0)), m)
     # refine linearly inside [lo, hi]
     fr = torch.arange(1, _NL + 1, dtype=torch.float32, device=dev) / _NL
     t2 = hi - (hi - lo) * fr
     idx2, hit2 = first_hit(t2)
-    return torch.where(hit2, t2[idx2], lo)
+    return torch.where(hit2, at(t2, idx2), lo)
 
 
 def compute_cutoff_exact(v_probe_sample: torch.Tensor, probes: torch.Tensor,

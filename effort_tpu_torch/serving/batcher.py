@@ -1,8 +1,9 @@
 """Continuous batching: slot-based batched decode with per-request effort.
 
-  - B decode slots share one [L, B, S, KV, D] bf16 KV cache; each slot has
-    its own cache position, left-pad offset, effort and end-of-sequence
-    state;
+  - B decode slots share one [L, B, S, KV, D] KV cache, bf16 or int8
+    (kv_dtype="int8": one f32 scale a slot, position and kv head, about
+    half the bytes); each slot has its own cache position, left-pad
+    offset, effort and end-of-sequence state;
   - a new request is admitted into a free slot between decode steps: its
     prompt runs through one forward_seq pass (K2 per projection, K3 for
     attention) that writes only its slot's cache, then the slot joins the
@@ -10,12 +11,17 @@
   - one batched decode step (forward_token_batch) advances every slot:
     each projection is one K2 launch over the B slots, each slot selecting
     at its own effort (an MoE FFN runs slot by slot: K1 a slot and
-    routed expert). Slots without a request run at effort 0.
+    routed expert). Slots without a request run at effort 0. On the card
+    (row-prefix weights) the step is one captured CUDA graph a (batch size,
+    KV mode), replayed
+    once a step over static buffers (tokens, positions, offsets, efforts,
+    live slots); the host reads the step's picks after it, as the JAX
+    package's does.
 
 ContinuousBatcher is the scheduler loop the HTTP server drives.
 
-Not ported yet: the int8 batch KV cache (kv_dtype="int8") and speculative
-batching (spec_k > 0); BatchEngine raises NotImplementedError for them.
+Not ported yet: speculative batching (spec_k > 0); BatchEngine raises
+NotImplementedError for it.
 """
 
 from __future__ import annotations
@@ -26,9 +32,14 @@ from typing import Dict, List, Sequence
 import torch
 
 from effort_tpu_torch.config import ModelConfig
+from effort_tpu_torch.models.generate import _to_device
+from effort_tpu_torch.models.graphs import StepGraph
 from effort_tpu_torch.models.transformer import (ModelWeights, forward_seq,
                                                  forward_token_batch,
                                                  make_batch_kv_cache,
+                                                 make_kv_cache,
+                                                 make_quant_kv_cache,
+                                                 quantize_kv_rows,
                                                  resolve_device)
 
 
@@ -49,19 +60,24 @@ class BatchEngine:
     admission pass's (ops/bucketmul.py). The default "auto" takes K2 on
     the card and its plain version on the CPU, so the batched step reaches
     the kernel; the JAX package's BatchEngine defaults to its "jnp" route,
-    which is the port's "reference" (every weight read). device: the card
-    unless named; weights are moved there."""
+    which is the port's "reference" (every weight read).
+    kv_dtype: "bf16" or "int8" (the cache quantized per row and kv head).
+    capture: the step as a replayed CUDA graph, the default on the card
+    for row-prefix weights; capture=False runs it eagerly there (tests,
+    chip_smoke.py).
+    device: the card unless named; weights are moved there."""
 
     def __init__(self, weights: ModelWeights, cfg: ModelConfig,
                  batch_size: int = 4, pad_to: int = 32, eos_id: int = 2,
                  impl: str = "auto", prefill_impl: str = "auto",
-                 kv_dtype: str = "bf16", spec_k: int = 0, device=None):
-        if kv_dtype != "bf16":
-            raise NotImplementedError(f"kv_dtype={kv_dtype!r}: the int8 "
-                                      f"batch KV cache is not ported yet")
+                 kv_dtype: str = "bf16", spec_k: int = 0, device=None,
+                 capture=None):
+        if kv_dtype not in ("bf16", "int8"):
+            raise ValueError(f"kv_dtype {kv_dtype!r}: bf16 or int8")
         if spec_k:
-            raise NotImplementedError("spec_k: speculative batching is not "
-                                      "ported yet")
+            raise NotImplementedError(
+                "spec_k: speculative batching is not ported yet (ROADMAP.md, "
+                "modules to port, item 3)")
         self.device = resolve_device(device)
         self.w = weights.to(self.device)
         self.cfg = cfg
@@ -70,14 +86,37 @@ class BatchEngine:
         self.eos_id = eos_id
         self.impl = impl
         self.prefill_impl = prefill_impl
-        self.k_cache, self.v_cache = make_batch_kv_cache(cfg, batch_size,
-                                                         self.device)
-        # per-slot state on the device, and the positions on the host too
-        # (the end-of-sequence test reads them every step)
+        self.kv_quant = kv_dtype == "int8"
+        if self.kv_quant:
+            self.k_cache, self.v_cache = make_quant_kv_cache(
+                cfg, self.device, batch_size)
+            # admissions prefill into one bf16 slot, then quantize its rows
+            self._scratch = make_kv_cache(cfg, self.device)
+        else:
+            self.k_cache, self.v_cache = make_batch_kv_cache(
+                cfg, batch_size, self.device)
+        # the step is captured on the card for row-prefix weights; a
+        # rank-prefix model's step takes the per-row reference semantics
+        # (bucket_matmul), which is not captured
+        on_card = self.device.type == "cuda"
+        row = self.w.layers.wo.bucket_size == 1
+        self.capture = on_card and row if capture is None else bool(capture)
+        if self.capture and not on_card:
+            raise ValueError("capture=True needs a CUDA device")
+        self._graph = None
+        # the step's static buffers on the device (picks, tokens,
+        # positions, offsets, efforts, live slots, the last step's logits),
+        # and the positions on the host too (the end-of-sequence test
+        # reads them every step)
         z = torch.zeros(batch_size, dtype=torch.int32, device=self.device)
-        self.tokens, self.pos, self.offs = z, z.clone(), z.clone()
+        self.preds, self.tokens, self.pos, self.offs = (z, z.clone(),
+                                                        z.clone(), z.clone())
         self.efforts = torch.ones(batch_size, dtype=torch.float32,
                                   device=self.device)
+        self.live = torch.zeros(batch_size, dtype=torch.bool,
+                                device=self.device)
+        self.logits = torch.zeros((batch_size, cfg.vocab_size),
+                                  dtype=torch.float32, device=self.device)
         self.pos_host = [0] * batch_size
         self.slots = [SlotState() for _ in range(batch_size)]
 
@@ -100,14 +139,23 @@ class BatchEngine:
             raise ValueError(f"{P} + {n_new} positions exceed max_seq_len "
                              f"{self.cfg.max_seq_len}")
         offset = P - len(prompt_ids)
-        ids_lp = torch.tensor([0] * offset + list(prompt_ids),
-                              dtype=torch.int32, device=self.device)
-        eff = torch.tensor(float(effort), dtype=torch.float32,
-                           device=self.device)
-        logits = forward_seq(self.w, self.cfg, ids_lp, self.k_cache[:, b],
-                             self.v_cache[:, b], start_slot=0,
+        ids_lp = _to_device([0] * offset + list(prompt_ids), self.device)
+        eff = torch.full((), float(effort), dtype=torch.float32,
+                         device=self.device)
+        if self.kv_quant:
+            kc, vc = self._scratch
+        else:
+            kc, vc = self.k_cache[:, b], self.v_cache[:, b]
+        logits = forward_seq(self.w, self.cfg, ids_lp, kc, vc, start_slot=0,
                              rope_offset=offset, mask_from=offset,
                              effort=eff, impl=self.prefill_impl)
+        if self.kv_quant:
+            # only the P rows written: rows >= P are masked until rewritten
+            for (data, scale), rows in ((self.k_cache, kc),
+                                        (self.v_cache, vc)):
+                xq, xs = quantize_kv_rows(rows[:, :P].to(torch.float32))
+                data[:, b, :P] = xq
+                scale[:, b, :P] = xs
         first = int(torch.argmax(logits[-1]))
         st = self.slots[b]
         st.request_id = request_id
@@ -120,23 +168,45 @@ class BatchEngine:
         self.pos[b] = P
         self.offs[b] = offset
         self.efforts[b] = float(effort)
+        self.live[b] = not st.done
         self.pos_host[b] = P
 
+    def _step(self) -> None:
+        """The batched step on the static buffers, in place: slots without
+        a request decode at effort 0 (near-zero weight reads) and keep
+        their token; every position advances (idle slots harmlessly: their
+        stale cache rows are rewritten by a later occupant before they are
+        read)."""
+        logits = forward_token_batch(
+            self.w, self.cfg, self.tokens, self.pos, self.k_cache,
+            self.v_cache, torch.where(self.live, self.efforts, 0.0),
+            offs=self.offs, impl=self.impl, kv_quant=self.kv_quant)
+        self.logits.copy_(logits)
+        self.preds.copy_(torch.argmax(logits, dim=-1))
+        self.tokens.copy_(torch.where(self.live, self.preds, self.tokens))
+        self.pos.copy_(torch.clamp(self.pos + 1,
+                                   max=self.cfg.max_seq_len - 1))
+
     def step(self) -> List[int]:
-        """One batched decode step; returns the slots that finished."""
+        """One batched decode step (a replay of the captured step on the
+        card); returns the slots that finished."""
         act = self.active()
         if not act:
             return []
-        live = torch.tensor([not s.done for s in self.slots],
-                            device=self.device)
-        # slots without a request decode at effort 0: near-zero weight reads
-        logits = forward_token_batch(
-            self.w, self.cfg, self.tokens, self.pos, self.k_cache,
-            self.v_cache, torch.where(live, self.efforts, 0.0),
-            offs=self.offs, impl=self.impl)
-        preds = torch.argmax(logits, dim=-1).to(torch.int32)
-        self.tokens = torch.where(live, preds, self.tokens)
-        preds_host = preds.tolist()
+        if not self.capture:
+            self._step()
+        else:
+            if self._graph is None:
+                # the capture's warm-up step changes the buffers: keep them
+                saved = [t.clone() for t in (self.preds, self.tokens,
+                                             self.pos)]
+                self._graph = StepGraph(
+                    self._step, ("batch", self.B, self.kv_quant),
+                    self.device)
+                for t, s in zip((self.preds, self.tokens, self.pos), saved):
+                    t.copy_(s)
+            self._graph.replay()
+        preds_host = self.preds.tolist()
         finished = []
         last = self.cfg.max_seq_len - 1
         for b in act:
@@ -146,10 +216,8 @@ class BatchEngine:
             if (tok == self.eos_id or len(st.generated) >= st.n_new
                     or self.pos_host[b] + 1 >= last):
                 st.done = True
+                self.live[b] = False
                 finished.append(b)
-        # idle slots advance harmlessly: their stale cache rows are
-        # rewritten by any later occupant before they are read
-        self.pos = torch.clamp(self.pos + 1, max=last)
         self.pos_host = [min(p + 1, last) for p in self.pos_host]
         return finished
 

@@ -17,10 +17,11 @@ Requests are serialized through a single worker task, or, when constructed
 with a ContinuousBatcher (make_batch_server), admitted into batched decode
 slots so concurrent requests share each decode step (serving/batcher.py).
 
-Sampling, penalties, logprobs and speculative decode are not ported yet:
-in single-flight mode a request that sets them reaches Engine.generate,
-which raises NotImplementedError (a 500); batch mode refuses them with a
-400, as the JAX package's server does.
+In single-flight mode the sampling, penalty and logprobs parameters reach
+Engine.generate, and a /q reply carries "logprobs" when asked for, as the
+JAX package's does. Batch mode refuses them with a 400: the batched step is
+argmax-only, as in the JAX package. Speculative decode is not ported yet:
+spec_k reaches Engine.generate, which raises NotImplementedError (a 500).
 """
 
 from __future__ import annotations
@@ -148,6 +149,9 @@ class EffortServer:
                "tokens_per_s": round(reply.tokens_per_s, 2)}
         if finish:
             out["finish_reason"] = finish
+        if reply.logprobs is not None:
+            out["logprobs"] = [{str(t): v for t, v in d.items()}
+                               for d in reply.logprobs]
         return out
 
     async def _handle(self, reader: asyncio.StreamReader,
@@ -378,7 +382,8 @@ def make_batch_server(weights, cfg, tokenizer=None, batch_size: int = 4,
     """Server in continuous-batching mode: concurrent /q requests share
     batched decode steps. impl "auto" runs K2 on the card (the JAX
     package's default is its "jnp" route, the port's "reference").
-    device: the card unless named."""
+    kv_dtype "int8" quantizes the batch KV cache. device: the card unless
+    named."""
     from effort_tpu_torch.models.generate import Engine
     from effort_tpu_torch.serving.batcher import (BatchEngine,
                                                   ContinuousBatcher)
@@ -403,7 +408,8 @@ def parse_args(argv=None):
     p.add_argument("--batch", type=int, default=0,
                    help="continuous-batching slots (0 = single-flight)")
     p.add_argument("--kv-dtype", default="bf16", choices=["bf16", "int8"],
-                   help="batch KV cache dtype (int8 = half the memory)")
+                   help="KV cache dtype (int8 = about half the memory): the "
+                        "batch cache, or the single-flight engine's")
     p.add_argument("--spec-k", type=int, default=0,
                    help="speculative batching: drafted tokens per slot "
                         "per step (0 = off)")
@@ -415,18 +421,18 @@ def parse_args(argv=None):
 def build_server(args) -> EffortServer:
     """The server main() runs, from its parsed arguments: the synthetic
     tiny model with BucketConfig(bucket_size=4, chunk_rows=8), as the JAX
-    package's, single-flight or with --batch slots. Options whose modules
-    are not ported raise NotImplementedError naming the ROADMAP item that
-    ports them."""
+    package's, single-flight or with --batch slots; --kv-dtype int8 gives
+    the batch engine, or the single-flight Engine (quant_kv), the int8 KV
+    cache. Options whose modules are not ported raise
+    NotImplementedError naming the ROADMAP item that ports them."""
     if args.ckpt or args.tokenizer:
         raise NotImplementedError(
             "--ckpt/--tokenizer: the checkpoint loader and tokenizer are not "
-            "ported yet (ROADMAP.md, modules to port, item 5: checkpoints)")
-    if args.kv_dtype != "bf16" or args.spec_k:
+            "ported yet (ROADMAP.md, modules to port, item 4: checkpoints)")
+    if args.spec_k:
         raise NotImplementedError(
-            "--kv-dtype int8/--spec-k: the int8 KV cache and speculative "
-            "decode are not ported yet (ROADMAP.md, modules to port, item "
-            "2: batched decode and serving)")
+            "--spec-k: speculative decode is not ported yet (ROADMAP.md, "
+            "modules to port, item 3: serving and decode extras)")
     from effort_tpu_torch.config import BucketConfig, tiny_test_model
     from effort_tpu_torch.models.generate import Engine
     from effort_tpu_torch.models.transformer import init_random_weights
@@ -435,8 +441,10 @@ def build_server(args) -> EffortServer:
                             device=args.device)
     if args.batch > 0:
         return make_batch_server(w, cfg, batch_size=args.batch,
-                                 port=args.port, device=args.device)
-    return EffortServer(Engine(w, cfg, device=args.device), port=args.port)
+                                 port=args.port, kv_dtype=args.kv_dtype,
+                                 device=args.device)
+    return EffortServer(Engine(w, cfg, quant_kv=args.kv_dtype == "int8",
+                               device=args.device), port=args.port)
 
 
 def main(argv=None):

@@ -196,12 +196,13 @@ def test_batch_matches_single_with_window(model, full_tau):
 
 
 def test_batch_engine_guards(model):
-    """Options not ported yet raise, a request longer than the cache is
+    """kv_dtype="int8" builds the int8 cache; speculative batching
+    (spec_k), not ported yet, raises; a request longer than the cache is
     refused, and an idle engine's step is a no-op."""
     _, tw = model
-    with pytest.raises(NotImplementedError):
-        BatchEngine(tw, _cfg(), kv_dtype="int8", device="cpu")
-    with pytest.raises(NotImplementedError):
+    be8 = BatchEngine(tw, _cfg(), kv_dtype="int8", device="cpu")
+    assert be8.kv_quant and be8.k_cache[0].dtype == torch.int8
+    with pytest.raises(NotImplementedError, match="not ported yet"):
         BatchEngine(tw, _cfg(), spec_k=4, device="cpu")
     be = BatchEngine(tw, _cfg(), batch_size=2, pad_to=PAD, device="cpu")
     assert be.step() == [] and be.free_slots() == [0, 1]

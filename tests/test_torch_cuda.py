@@ -796,7 +796,9 @@ def test_moe_kernel_route_matches_plain_route(B):
                 seen.append(idx)
                 return gates, idx
             tf.route = record
-            out[impl] = Engine(w, cfg, impl=impl, pad_to=8).position_logits(
+            # eager steps: a captured step would run record once
+            out[impl] = Engine(w, cfg, impl=impl, pad_to=8,
+                               capture=False).position_logits(
                 prompt, effort=0.5)
             picks[impl] = torch.stack(seen).tolist()
         if B == 1:
@@ -838,3 +840,91 @@ def test_instance_wrappers_raise_on_what_they_do_not_take():
                                  torch.tensor(1, dtype=torch.int32,
                                               device="cuda"))
     assert LAUNCHES == before
+
+
+def _tiny_dense(device="cuda"):
+    from effort_tpu_torch.config import tiny_test_model
+    from effort_tpu_torch.models import transformer as tf
+    cfg = tiny_test_model(max_seq_len=64, sliding_window=16)
+    w = tf.quantize_head(tf.init_random_weights(
+        cfg, BucketConfig(bucket_size=1, chunk_rows=128, dtype="int8"),
+        calibrate=True, fuse=True, keep_dense=True, device=device))
+    return cfg, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opts", [
+    {}, {"temperature": 0.8, "top_k": 20, "top_p": 0.9, "seed": 3},
+    {"presence_penalty": 0.5, "frequency_penalty": 0.2, "logprobs": 3}])
+def test_engine_captures_the_decode_step(opts):
+    """On the card Engine runs each decode step as a replayed CUDA graph,
+    one a key: its tokens, predictions and logprobs equal the eager
+    steps' (capture=False) bit for bit at efforts 0.25, 0.5 and 1.0
+    (dense copies), sampling included (the generator is the graph's), and
+    a replayed run counts the launches the eager run counts; new effort
+    and sampling values capture nothing; the ring and int8 caches and the
+    prefill engine capture too."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from effort_tpu_torch.models.generate import Engine
+    cfg, w = _tiny_dense()
+    prompt = [1, 5, 9, 13]
+    for kw in ({}, {"ring_kv": True}, {"quant_kv": True},
+               {"prefill": True}):
+        if kw.get("prefill") and ("logprobs" in opts
+                                  or "presence_penalty" in opts):
+            continue
+        eng = Engine(w, cfg, pad_to=8, eos_id=-1, **kw)
+        eager = Engine(w, cfg, pad_to=8, eos_id=-1, capture=False, **kw)
+        assert eng.capture and not eager.capture
+        for effort in (0.25, 0.5, 1.0):
+            eng.generate(prompt, n_new=6, effort=effort, **opts)  # warm
+            runs = []
+            for e in (eng, eager):
+                before = dict(LAUNCHES)
+                r = e.generate(prompt, n_new=6, effort=effort, **opts)
+                torch.cuda.synchronize()
+                runs.append((r, {k: LAUNCHES[k] - before[k]
+                                 for k in LAUNCHES}))
+            (rg, lg), (re, le) = runs
+            what = (kw, effort)
+            assert rg.token_ids == re.token_ids, what
+            assert rg.predictions == re.predictions, what
+            assert rg.logprobs == re.logprobs, what
+            assert lg == le, what
+        n_graphs = len(eng._graphs)
+        assert n_graphs == 2, kw            # kernel route, dense copies
+        vary = dict(opts)
+        for k in ("temperature", "top_p", "presence_penalty"):
+            if k in vary:
+                vary[k] = vary[k] * 0.5
+        eng.generate(prompt, n_new=6, effort=0.3, **vary)
+        assert len(eng._graphs) == n_graphs, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+def test_batch_engine_captures_its_step(kv_dtype):
+    """BatchEngine's step runs as one replayed graph: the same requests
+    give the eager step's tokens and launch counts."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from effort_tpu_torch.serving.batcher import (BatchEngine,
+                                                  ContinuousBatcher)
+    cfg, w = _tiny_dense()
+    prompts = [[1, 5, 9], [4, 8, 15, 16, 23], [7, 7, 3], [2, 9]]
+    efforts = [1.0, 0.5, 0.25, 0.5]
+    got = []
+    for capture in (True, False):
+        be = BatchEngine(w, cfg, batch_size=2, pad_to=8, eos_id=-1,
+                         kv_dtype=kv_dtype, capture=capture)
+        cb = ContinuousBatcher(be)
+        out = {}
+        for i, (p, e) in enumerate(zip(prompts, efforts)):
+            cb.submit(p, 6, e, lambda t, i=i: out.__setitem__(i, t))
+        before = dict(LAUNCHES)
+        cb.run_until_drained()
+        torch.cuda.synchronize()
+        got.append((out, {k: LAUNCHES[k] - before[k] for k in LAUNCHES}))
+        assert (be._graph is not None) == capture
+    assert got[0] == got[1]

@@ -223,15 +223,28 @@ def test_prefill_then_decode_equals_token_loop(model):
 
 
 def test_engine_options_not_ported(model):
-    """Sampling, penalties, logprobs and speculative decode raise
-    NotImplementedError until they are ported; their "off" values pass."""
+    """The JAX engine's options run: sampling, penalties and logprobs in
+    the token loop, sampling after a prefill (which refuses penalties and
+    logprobs, as the JAX engine asserts); their "off" values are greedy.
+    Speculative decode (spec_k) still raises NotImplementedError, and an
+    unknown option a TypeError."""
     _, tw = model
     te = Engine(tw, tiny_test_model(), pad_to=PAD, device="cpu")
-    te.generate(PROMPT, n_new=2, temperature=0.0, top_p=1.0, seed=0,
-                logprobs=0)
+    greedy = te.generate(PROMPT, n_new=4).token_ids
+    assert te.generate(PROMPT, n_new=4, temperature=0.0, top_p=1.0, seed=0,
+                       logprobs=0).token_ids == greedy
     for opt in (dict(temperature=0.7), dict(presence_penalty=0.5),
-                dict(logprobs=2), dict(spec_k=4)):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            te.generate(PROMPT, n_new=2, **opt)
+                dict(logprobs=2)):
+        r = te.generate(PROMPT, n_new=4, **opt)
+        assert len(r.token_ids) == 4, opt
+    assert len(te.generate(PROMPT, n_new=4, logprobs=2).logprobs) == 4
+    tp = Engine(tw, tiny_test_model(), pad_to=PAD, prefill=True,
+                device="cpu")
+    assert len(tp.generate(PROMPT, n_new=4, temperature=0.7).token_ids) == 4
+    for opt in (dict(presence_penalty=0.5), dict(logprobs=2)):
+        with pytest.raises(ValueError, match="token-loop"):
+            tp.generate(PROMPT, n_new=4, **opt)
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        te.generate(PROMPT, n_new=2, spec_k=4)
     with pytest.raises(TypeError):
         te.generate(PROMPT, n_new=2, beams=2)

@@ -185,9 +185,10 @@ def test_batched_kernel_routes_refuse_rank_prefix(model):
 def test_server_main_arguments():
     """server.main()'s arguments: --synthetic, --port and --batch build the
     tiny B = 4 model's server (on the named device; the card by default),
-    single-flight or batched, which answers /q; --ckpt, --tokenizer,
-    --kv-dtype int8 and --spec-k raise NotImplementedError naming the
-    ROADMAP item that ports them."""
+    single-flight or batched, which answers /q; --kv-dtype int8 builds
+    the int8 KV cache (the batch engine's, or the single-flight Engine's
+    quant_kv); --ckpt, --tokenizer and --spec-k raise NotImplementedError
+    naming the ROADMAP item that ports them."""
     args = port_server.parse_args([])
     assert (args.port, args.batch, args.device) == (8089, 0, None)
     srv = port_server.build_server(port_server.parse_args(
@@ -197,10 +198,16 @@ def test_server_main_arguments():
     bsrv = port_server.build_server(port_server.parse_args(
         ["--batch", "2", "--port", "0", "--device", "cpu"]))
     assert bsrv.batcher.eng.B == 2
-    for argv, item in ((["--ckpt", "x"], "item 5"),
-                       (["--tokenizer", "x"], "item 5"),
-                       (["--kv-dtype", "int8"], "item 2"),
-                       (["--spec-k", "2"], "item 2")):
+    q8 = port_server.build_server(port_server.parse_args(
+        ["--kv-dtype", "int8", "--port", "0", "--device", "cpu"]))
+    assert q8.engine.kv_mode == "int8"
+    bq8 = port_server.build_server(port_server.parse_args(
+        ["--batch", "2", "--kv-dtype", "int8", "--port", "0", "--device",
+         "cpu"]))
+    assert bq8.batcher.eng.kv_quant
+    for argv, item in ((["--ckpt", "x"], "item 4"),
+                       (["--tokenizer", "x"], "item 4"),
+                       (["--spec-k", "2"], "item 3")):
         with pytest.raises(NotImplementedError, match=item):
             port_server.build_server(port_server.parse_args(
                 argv + ["--device", "cpu"]))
@@ -214,7 +221,7 @@ def test_server_main_arguments():
             return json.loads(body)
         finally:
             await s.stop()
-    for s in (srv, bsrv):
+    for s in (srv, bsrv, q8, bq8):
         reply = asyncio.run(ask(s))["reply"]
         assert len(json.loads(reply)) <= 3 and reply.startswith("[")
     if not torch.cuda.is_available():

@@ -1,7 +1,8 @@
 """The port's HTTP server end to end on the CPU, on the tiny model with the
 row-prefix layout (bucket_size=1): the five cases of tests/test_server.py,
-each server on a free port (port=0), plus the single-flight answer to
-options that are not ported yet.
+each server on a free port (port=0), plus the single-flight answers to
+sampling and logprobs and to speculative decode, which is not ported
+yet.
 """
 
 import asyncio
@@ -78,10 +79,22 @@ def test_server_endpoints(weights):
         assert st == 200 and len(body["predictions"]) == 3
         st, body = _get(port, "/stats")
         assert body["requests"] >= 3
-        # sampling is not ported: the engine raises, the server answers 500
+        # sampling and logprobs reach the engine; /q carries the logprobs
         st, body = _get(port, "/q?query=hi&numtokens=2&temperature=0.9")
-        assert st == 500 and "not ported yet" in body["error"]
+        assert st == 200 and "logprobs" not in body
+        st, body = _get(port, "/q?query=hi&numtokens=2&logprobs=3")
+        assert st == 200 and len(body["logprobs"]) <= 2
+        assert all(len(d) == 3 for d in body["logprobs"])
     _run(srv, client)
+
+    # speculative decode is not ported: the engine raises, a 500
+    spec = EffortServer(Engine(w, cfg, pad_to=8, device="cpu"), port=0,
+                        spec_k=2)
+
+    def client_spec(port):
+        st, body = _get(port, "/q?query=hi&numtokens=2&effort=100")
+        assert st == 500 and "not ported yet" in body["error"]
+    _run(spec, client_spec)
 
 
 def test_batch_server_concurrent_requests(weights):
