@@ -35,6 +35,11 @@ Phases, one JSON line each (a failure raises and exits non-zero):
             live key exactly 0; times beside the bound and torch's SDPA
             with the same boolean mask (timed only, never called by the
             port)
+  k3_device_slots
+            K3 with start_slot and mask_from as 0-d int32 CUDA tensors,
+            read on the card, against the int call: T in {4, 8, 64} x
+            start slots {0, 37, 448} and a 128-slot window, Mistral-7B
+            heads, y bit for bit; ms of both forms
   generate  Mistral-7B width, 32 layers, int8 row-prefix buckets, fused
             projections, int8 LM head: Engine.generate answers four
             requests at efforts 0.25 and 0.5 (K1) and 1.0 (dense copies),
@@ -90,6 +95,22 @@ Phases, one JSON line each (a failure raises and exits non-zero):
             are greedy; new sampling and penalty values capture no graph;
             10 000 draws of _pick_token within 0.02 total variation of the
             truncated softmax
+  spec      Engine.generate_speculative on the KV-cache phases' model
+            (Mistral-7B, 32 layers, uncalibrated, dense copies): prompt of
+            32, 64 new tokens, k in {4, 8} x draft efforts {0.25, 0.5,
+            1.0}; tokens a round, ms a token, host reads a round, beside
+            the captured greedy decode at 1.0. Gates: its tokens (a first
+            divergence only at a near tie: the reference's top two logits
+            within NEAR_TIE and the spec token its runner-up); at draft
+            1.0 at least k - 1 tokens a round; one status read a round;
+            exact launches; a generation's rounds replayed bit for bit
+            against eager ones; one round under
+            set_sync_debug_mode("error")
+  batch_spec
+            BatchEngine(batch_size=4, spec_k=4) on the same model, the 8
+            serving requests at mixed efforts: ms and tokens a step; the
+            requests at effort 1.0 give plain batched decode's tokens
+            (near-tie rule); the others' first divergence printed
   int8_kv   the int8 KV cache: under 0.6x the bf16 cache's bytes; its
             attention read against the bf16 cache's on the same inputs
             at every layer and position (128 teacher-forced, depth 32,
@@ -169,6 +190,11 @@ Phases, one JSON line each (a failure raises and exits non-zero):
             (K1) and grouped by expert (K2) timed in turns, a batched step
             against the single stream at depth 4 (cos >= 0.999),
             make_batch_server and make_server answering HTTP
+  moe_spec  speculative decode on the MoE model, one request, k = 4, drafts
+            at 0.25: tokens a round, ms, one status read a round and no
+            routing read, exact launches (the verify's experts through
+            K1), graph against eager; its tokens against the MoE greedy
+            at 1.0 gated at depth 4, tau = 1 (printed at depth 32)
   moe_rank  the row-prefix MoE model freed, Mixtral-8x7B width and depth
             with int8 rank-prefix buckets: "auto" decode (K4, 6 * 32
             launches a step, the instance read on the card), one step
@@ -201,7 +227,8 @@ from effort_tpu_torch.kernels.flash_attention import flash_attention_seq
 from effort_tpu_torch.models import transformer
 from effort_tpu_torch.models.generate import Engine, _pick_token
 from effort_tpu_torch.ops import bucketmul
-from effort_tpu_torch.models.transformer import (_attention, embed,
+from effort_tpu_torch.models.transformer import (HOST_READS, _attention,
+                                                 embed,
                                                  forward_layers,
                                                  forward_seq, forward_token,
                                                  forward_token_batch,
@@ -1979,7 +2006,10 @@ def phase_int8_kv(cfg, w, w_plain) -> dict:
 
 
 RING_POSITIONS = 4160
-RING_LAYERS = 32
+# 28 of Mistral-7B's 32 layers: the phase steps 4 x 4160 positions (220 s
+# of the run at 32 layers), and the cut keeps the whole run, with the
+# speculative phases, within the time it had before them
+RING_LAYERS = 28
 
 
 def phase_ring_kv(cfg, w) -> dict:
@@ -2682,6 +2712,366 @@ def phase_moe_rank(prompts) -> dict:
     return out
 
 
+# ---- speculative decode -----------------------------------------------------
+
+K3_SLOT_TS = (4, 8, 64)
+K3_SLOT_STARTS = (0, 37, 448)
+K3_SLOT_RUNS = 5
+SPEC_KS = (4, 8)
+SPEC_DRAFTS = (0.25, 0.5, 1.0)
+SPEC_PROMPT = 32
+SPEC_NEW = 64
+# a first divergence from the reference tokens passes only where the
+# reference step's top two logits lie within NEAR_TIE of each other
+# (absolute, in logits) and the spec token is the reference's runner-up
+NEAR_TIE = 0.05
+
+
+def phase_k3_device_slots(flush: torch.Tensor) -> list:
+    """K3 with start_slot and mask_from as 0-d int32 CUDA tensors (read on
+    the card) against the same launch with ints, at T in K3_SLOT_TS x
+    start slots K3_SLOT_STARTS and a 128-slot window (start 448),
+    Mistral-7B heads over a 512-slot cache: y bit for bit, K3's gate
+    against its plain version, and each form's device ms (L2 flushed,
+    medians of K3_SLOT_RUNS queries)."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(101)
+    H, KV, D, S = 32, 8, 128, ATTN_SLOTS
+    kc = torch.randn((S, KV, D), generator=g, device="cuda").to(
+        torch.bfloat16)
+    vc = torch.randn((S, KV, D), generator=g, device="cuda").to(
+        torch.bfloat16)
+    zero = torch.zeros((), dtype=torch.int32, device="cuda")
+    points = []
+    for T in K3_SLOT_TS:
+        Qs = [torch.randn((T, H * D), generator=g, device="cuda") * 2.0
+              for _ in range(K3_SLOT_RUNS)]
+        for start, win in [(s, 0) for s in K3_SLOT_STARTS] + [(448, 128)]:
+            dev = torch.full((), start, dtype=torch.int32, device="cuda")
+
+            def run(q, s, m, plain=False):
+                return flash_attention_seq(q, kc, vc, s, m, H, D,
+                                           window=win, plain=plain)
+            equal = all(torch.equal(run(q, start, 0), run(q, dev, zero))
+                        for q in Qs)
+            agree = attention_agreement((T, start, 0, win, H, KV, D),
+                                        run(Qs[0], dev, zero),
+                                        run(Qs[0], start, 0, plain=True))
+            p = dict(T=T, start_slot=start, window=win, bit_equal=equal,
+                     min_row_cos=agree["min_row_cos"],
+                     max_abs_err=agree["max_abs_err"],
+                     ms_int=median([gpu_ms(run, (q, start, 0), flush)
+                                    for q in Qs]),
+                     ms_device=median([gpu_ms(run, (q, dev, zero), flush)
+                                       for q in Qs]))
+            points.append(p)
+            emit({"phase": "k3_device_slots", **p})
+            if not (equal and agree["ok"]):
+                raise AssertionError(f"K3 with device slots: {p}, {agree}")
+    return points
+
+
+def timed_ms(fn):
+    """(fn(), device-queue milliseconds between CUDA events around it)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def first_divergence(ref: list, got: list, gaps) -> dict:
+    """Where `got` first parts from the reference tokens `ref`, or None;
+    gaps(i) gives the reference step's (top-1 minus top-2 logit, its
+    runner-up token) at index i. A near tie passes (NEAR_TIE)."""
+    i = next((j for j, (a, b) in enumerate(zip(ref, got)) if a != b), None)
+    if i is None:
+        return None if len(ref) == len(got) else dict(
+            index=min(len(ref), len(got)), near_tie=False,
+            why="lengths differ")
+    gap, runner = gaps(i)
+    return dict(index=i, ref=ref[i], got=got[i], gap=gap,
+                got_is_runner_up=got[i] == runner,
+                near_tie=got[i] == runner and gap <= NEAR_TIE)
+
+
+def top2_gap(logits: torch.Tensor):
+    top = torch.topk(logits.float(), 2)
+    v, i = top.values.tolist(), top.indices.tolist()
+    return v[0] - v[1], i[1]
+
+
+def spec_launches_want(cfg, eng, k: int, draft: float, rounds: int,
+                       n: int) -> dict:
+    """The kernels' launches of one speculative generation: n prompt steps
+    at 1.0, then per round k drafts (K1 per projection unless the dense
+    copies take the draft) and one verify (K3 a layer; K2 per attention
+    projection, and the dense FFN's, unless the dense copies take effort
+    1.0; an MoE FFN's experts through K1, a row and expert at a time)."""
+    L, moe = cfg.n_layers, cfg.n_experts > 1
+    per_step = (2 + 2 * cfg.n_experts_per_tok) * L if moe else 4 * L
+    dense_1 = eng._dense(1.0, eng.impl)
+    k1 = 0 if dense_1 else n * per_step
+    k1 += 0 if eng._dense(draft, eng.impl) else rounds * k * per_step
+    k2 = 0
+    if not dense_1:
+        k2 = rounds * (2 if moe else 4) * L
+        if moe:
+            k1 += rounds * k * 2 * cfg.n_experts_per_tok * L
+    return {"mxu_matvec": k1, "mxu_matvec_batch": k2,
+            "flash_attention": rounds * L}
+
+
+def phase_spec(what: str, cfg, w, prompt, ks=SPEC_KS, drafts=SPEC_DRAFTS,
+               n_new: int = SPEC_NEW, gate_tokens: bool = True) -> dict:
+    """Engine.generate_speculative on one model: for each k and draft
+    effort, tokens a round, ms a token (CUDA events around the call; and
+    the rounds' own, the prompt pass taken off), host reads a round,
+    launches; beside it the captured greedy decode at 1.0. Gates: the
+    tokens are that decode's (a first divergence only at a near tie,
+    NEAR_TIE; printed only with gate_tokens=False); at draft 1.0 at least
+    k - 1 tokens a round; one status read a round, no routing read, exact
+    launch counts; a generation's rounds replayed equal the eager rounds
+    (capture=False) bit for bit (ids, status, the last verify logits) with
+    equal launches; one round's replay under
+    set_sync_debug_mode("error")."""
+    eng = Engine(w, cfg, eos_id=-1)
+    n = len(prompt)
+    steps = padded(n, eng.pad_to) + n_new - 1
+    eng.generate(prompt, n_new=2, effort=1.0)               # warm the key
+    ref, ref_ms = timed_ms(lambda: eng.generate(prompt, n_new=n_new,
+                                                effort=1.0).token_ids)
+    _, prompt_ms = timed_ms(lambda: eng._decode(prompt, n_new, 1.0, {}, {},
+                                                steps=n))
+    gap_cache = {}
+
+    def gaps(i):
+        if i not in gap_cache:
+            gap_cache[i] = top2_gap(eng.token_logits(prompt + ref[:i],
+                                                     1.0)[-1])
+        return gap_cache[i]
+    out = dict(model=what, prompt=n, new_tokens=n_new,
+               decode_ms_per_token=ref_ms / steps, prompt_pass_ms=prompt_ms,
+               rows=[])
+    emit({"phase": "spec_reference", **out})
+    for k in ks:
+        for de in drafts:
+            eng.generate_speculative(prompt, n_new=4, draft_effort=de, k=k)
+            reset_launches()
+            HOST_READS["spec_status"] = 0
+            HOST_READS["moe_routing"] = 0
+            rep, ms = timed_ms(lambda: eng.generate_speculative(
+                prompt, n_new=n_new, draft_effort=de, k=k))
+            launches = dict(LAUNCHES)
+            reads = dict(HOST_READS)
+            rounds = round(n_new / rep.spec_tokens_per_iter)
+            loop_ms = ms - prompt_ms
+            div = first_divergence(ref, rep.token_ids, gaps)
+            r = dict(model=what, k=k, draft_effort=de,
+                     tokens_per_round=rep.spec_tokens_per_iter,
+                     rounds=rounds, ms=ms, ms_per_token=ms / n_new,
+                     rounds_ms_per_token=loop_ms / (n_new - 1),
+                     ms_per_round=loop_ms / rounds,
+                     k_decode_steps_ms=k * ref_ms / steps,
+                     decode_ms_per_token=ref_ms / steps,
+                     host_reads_per_round=reads["spec_status"] / rounds,
+                     routing_reads=reads["moe_routing"],
+                     launches={x: c for x, c in launches.items() if c},
+                     divergence=div)
+            out["rows"].append(r)
+            emit({"phase": "spec", **r})
+            if gate_tokens and div is not None and not div["near_tie"]:
+                raise AssertionError(f"spec tokens part from greedy at 1.0 "
+                                     f"({what}): {r}")
+            if de == 1.0:
+                r["short_rounds"] = short_rounds(eng, prompt, n_new, k)
+                emit({"phase": "spec_short_rounds", "model": what, "k": k,
+                      **r["short_rounds"]})
+                if rep.spec_tokens_per_iter < k - 1 \
+                        and not r["short_rounds"]["all_near_ties"]:
+                    raise AssertionError(f"a draft at 1.0 accepted too "
+                                         f"few, not at near ties: {r}")
+            if reads["spec_status"] != rounds or reads["moe_routing"]:
+                raise AssertionError(f"host reads in the rounds: {r}")
+            check_launches(launches, spec_launches_want(
+                cfg, eng, k, de, rounds, n), f"spec ({what}) k={k} {de}")
+    out["graph"] = spec_graph_vs_eager(what, cfg, w, eng, prompt)
+    return out
+
+
+def short_rounds(eng, prompt, n_new: int, k: int) -> dict:
+    """The rounds of a speculative generation with drafts at 1.0 that
+    accept fewer than k - 1 drafts before n_new: a draft at 1.0 (the
+    decode step: f32 attention) and the verify (K3: queries rounded to
+    bf16) part only where the verify's top two logits nearly tie, so each
+    such round must stop at a near tie (NEAR_TIE) with the draft the
+    verify's runner-up. One status read more a round (inspection, not
+    the timed run)."""
+    rounds, gaps = [], []
+    last = [1]
+
+    def on_round(sp):
+        n_gen = int(sp.status[0])
+        emitted, last[0] = n_gen - last[0], n_gen
+        rounds.append(emitted)
+        if emitted >= k or n_gen >= n_new:
+            return
+        j = emitted - 1                 # the verify's pick the draft missed
+        gap, runner = top2_gap(sp.logits[j])
+        gaps.append(dict(at=j, gap=gap,
+                         draft_is_runner_up=int(sp.consumed[j + 1])
+                         == runner))
+    eng._spec_launch(prompt, n_new, 1.0, k, on_round=on_round)
+    return dict(rounds=len(rounds), short=len(gaps),
+                max_gap=max((g["gap"] for g in gaps), default=0.0),
+                all_near_ties=all(g["draft_is_runner_up"]
+                                  and g["gap"] <= NEAR_TIE for g in gaps))
+
+
+def spec_graph_vs_eager(what: str, cfg, w, eng, prompt, k: int = 4,
+                        de: float = 0.25, n_new: int = 16) -> dict:
+    """A speculative generation's rounds replayed against the same rounds
+    run eagerly: ids, status and the last round's verify logits bit for
+    bit, launches equal; then one replay with no host read."""
+    x = Engine(w, cfg, eos_id=-1, capture=False)
+    got = []
+    for e in (eng, x):
+        torch.cuda.synchronize()
+        reset_launches()
+        st, sp, _ = e._spec_launch(prompt, n_new, de, k)
+        torch.cuda.synchronize()
+        got.append((st.ids[:len(prompt) + n_new].clone(), sp.status.clone(),
+                    sp.logits.clone(),
+                    {c: n for c, n in LAUNCHES.items() if n}))
+    (ig, sg, lg, cg), (ie, se, le, ce) = got
+    graph = eng._graphs[next(key for key in eng._graphs
+                             if key.loop == "spec" and key.spec_k == k
+                             and key.dense == eng._dense(de, eng.impl))]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        graph.replay()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    r = dict(model=what, k=k, draft_effort=de, new_tokens=n_new,
+             rounds=int(sg[2]), ids_equal=torch.equal(ig, ie),
+             status_equal=torch.equal(sg, se),
+             verify_logits_max_abs=float((lg - le).abs().max()),
+             bit_equal=torch.equal(lg, le), launches_graph=cg,
+             launches_eager=ce, sync_free_round=True)
+    emit({"phase": "spec_graph_vs_eager", **r})
+    if not (r["ids_equal"] and r["status_equal"] and r["bit_equal"]
+            and cg == ce):
+        raise AssertionError(f"spec rounds, graph vs eager ({what}): {r}")
+    return r
+
+
+def serve_with_gaps(be, reqs, efforts, n_new: int):
+    """Requests through a ContinuousBatcher over `be`; returns (tokens by
+    request, {(request, index): (top-2 gap, runner-up)} of each plain
+    step's logits, steps, wall ms)."""
+    cb, done, gaps = ContinuousBatcher(be), {}, {}
+    step = be.step
+
+    def recorded():
+        act = be.active()
+        finished = step()
+        if not be.spec_k:
+            for b in act:
+                st = be.slots[b]
+                gaps[(st.request_id, len(st.generated) - 1)] = top2_gap(
+                    be.logits[b])
+        return finished
+    be.step = recorded
+    for i, (p, e) in enumerate(zip(reqs, efforts)):
+        cb.submit(p, n_new, e, lambda toks, i=i: done.__setitem__(i, toks))
+    steps, t0 = 0, time.perf_counter()
+    while cb.has_work():
+        cb.tick()
+        steps += 1
+    torch.cuda.synchronize()
+    return done, gaps, steps, (time.perf_counter() - t0) * 1e3
+
+
+def phase_batch_spec(what: str, cfg, w, k: int = 4,
+                     draft: float = 0.25) -> dict:
+    """BatchEngine(batch_size=4, spec_k=k) serving the 8 serving requests
+    (efforts 0.25/0.5/1.0, N_NEW tokens) against plain batched decode at
+    the same efforts; ms and tokens a step (host clock; the spec steps
+    warm first), launches. Gates: the requests at effort 1.0 give the
+    plain tokens, a first divergence only at a near tie of the plain step
+    (NEAR_TIE); every request's first divergence is printed. Below 1.0
+    the verify's attention (K3, queries rounded to bf16) against the
+    plain step's (f32) moves which rows the next selection takes, so the
+    tokens part there at this depth (PERF.md §6); those are printed
+    only."""
+    reqs = serve_requests(cfg)
+    plain, gaps, p_steps, _ = serve_with_gaps(
+        BatchEngine(w, cfg, batch_size=4, eos_id=-1), reqs, SERVE_EFFORTS,
+        N_NEW)
+    be = BatchEngine(w, cfg, batch_size=4, eos_id=-1, spec_k=k,
+                     spec_draft_effort=draft)
+    serve_with_gaps(be, reqs[:1], (0.25,), 2)                # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    spec, _, steps, ms = serve_with_gaps(be, reqs, SERVE_EFFORTS, N_NEW)
+    launches = dict(LAUNCHES)
+    divs = {i: first_divergence(plain[i], spec[i],
+                                lambda j, i=i: gaps.get((i, j),
+                                                        (math.inf, -1)))
+            for i in range(len(reqs))}
+    r = dict(model=what, spec_k=k, draft_effort=draft, requests=len(reqs),
+             new_tokens=N_NEW, steps=steps, ms_per_step=ms / steps,
+             tokens_per_step=len(reqs) * N_NEW / steps,
+             plain_steps=p_steps,
+             launches={x: c for x, c in launches.items() if c},
+             divergences={i: d for i, d in divs.items() if d})
+    emit({"phase": "batch_spec", **r})
+    check_replies([spec.get(i) or [] for i in range(len(reqs))], cfg, N_NEW,
+                  "batch_spec")
+    if any(d and not d["near_tie"] for i, d in divs.items()
+           if SERVE_EFFORTS[i] >= 1.0):
+        raise AssertionError(f"batched spec tokens part from plain batched "
+                             f"decode at effort 1.0: {r}")
+    if not launches.get("mxu_matvec_batch") or not launches.get(
+            "flash_attention"):
+        raise AssertionError(f"batched spec skipped K2 or K3: {r}")
+    return r
+
+
+def phase_moe_spec(cfg, w, prompt) -> dict:
+    """Speculative decode on Mixtral-8x7B, one request, k = 4, drafts at
+    0.25. At full depth (the loaded 32-layer model): tokens a round, ms a
+    token, one status read a round, no routing read, exact launches (the
+    verify's experts through K1 a row, _moe_rows), graph against eager
+    bit for bit, a round with no host read; the tokens against the
+    captured greedy decode at 1.0 are printed. The token gate runs at
+    depth 4 (the same seed's first 4 layers) at tau = 1: at 1.0 without
+    dense copies the verify streams K2's longest-row prefix and the
+    decode step K1's own, which part at tau < 1, and at 32 layers the
+    verify's K3 (queries in bf16) against the decode step's f32 attention
+    moves the routing (PERF.md §6)."""
+    out = phase_spec("mixtral_row", cfg, w, prompt, ks=(4,),
+                     drafts=(0.25,), gate_tokens=False)
+    cfg4 = dataclasses.replace(cfg, n_layers=4)
+    w4 = quantize_head(init_random_weights(
+        cfg4, BucketConfig(bucket_size=1, chunk_rows=128, dtype="int8"),
+        seed=0, calibrate=True, fuse=True, device="cuda"))
+    tau = fused_stream._TAU
+    fused_stream._TAU = 1.0
+    try:
+        gate = phase_spec("mixtral_row_depth4_tau1", cfg4, w4, prompt,
+                          ks=(4,), drafts=(0.25,))
+    finally:
+        fused_stream._TAU = tau
+    out["rows"] += gate["rows"]
+    out["depth4_graph"] = gate["graph"]
+    return out
+
+
 def free_card() -> None:
     """Release what the last model left on the card: collect unreachable
     objects first (the servers' and batchers' reference cycles keep their
@@ -2725,9 +3115,10 @@ def k1_row(points: list, launches: int) -> dict:
     return row
 
 
-def k3_row(points: list, launches: int) -> dict:
+def k3_row(points: list, launches: int, slots: list) -> dict:
     """K3's entry: one 64-query prefill call (SUMMARY_ATTN), and each
-    case's ms, library ms and bound beside it (by_case)."""
+    case's ms, library ms and bound beside it (by_case); the device-slot
+    cases' ms with int and with device slots (device_slots)."""
     row = summary_row(
         "flash_attention", "effort_tpu_torch/csrc/flash_attention.cu",
         "effort_tpu/kernels/flash_attention.py:36", points, launches,
@@ -2736,6 +3127,8 @@ def k3_row(points: list, launches: int) -> dict:
                                                     "library_ms",
                                                     "bound_ms")}
                       for p in points}
+    row["device_slots"] = {f"T{p['T']}_at{p['start_slot']}_w{p['window']}":
+                           [p["ms_int"], p["ms_device"]] for p in slots}
     return row
 
 
@@ -2808,6 +3201,7 @@ def main() -> int:
     run("points", phase_kernels, flush)
     run("points_batch", phase_kernels_batch, flush)
     run("attention", phase_attention, flush)
+    run("k3_device_slots", phase_k3_device_slots, flush)
     run("points_rank", phase_kernels_rank, flush)
     del flush
     torch.cuda.empty_cache()
@@ -2825,6 +3219,8 @@ def main() -> int:
         serve_requests(model[0]))
     run("sampling", phase_sampling, *model[:2], model[3][1])
     w_plain = build_plain_model(model[0])
+    run("spec", phase_spec, "mistral_plain", model[0], w_plain, model[3][2])
+    run("batch_spec", phase_batch_spec, "mistral_plain", model[0], w_plain)
     run("int8_kv", phase_int8_kv, *model[:2], w_plain)
     run("ring_kv", phase_ring_kv, model[0], w_plain)
     del w_plain
@@ -2853,6 +3249,7 @@ def main() -> int:
     run("moe_graph", phase_graph, "mixtral_row", cfg, w, prompts[3])
     run("moe_batch_graph", phase_batch_graph, "mixtral_row", cfg, w,
         serve_requests(cfg))
+    run("moe_spec", phase_moe_spec, cfg, w, prompts[2])
     del w, eng
     free_card()
     run("moe_rank", phase_moe_rank, prompts)
@@ -2866,18 +3263,23 @@ def main() -> int:
                                "gather_matvec_dma", "gather_bucket_matvec")}
     serve_runs = (out["serve"] + out["moe_prefill"]["runs"]
                   + [out["moe_serve"]])
+    spec_runs = (out["spec"]["rows"] + [out["batch_spec"]]
+                 + out["moe_spec"]["rows"])
     k1_runs = (out["generate"] + out["prefill"] + out["moe_decode"]
-               + [out["moe_serve"], out["moe_serve"]["http_single"]])
+               + [out["moe_serve"], out["moe_serve"]["http_single"]]
+               + spec_runs)
+    serve_runs += spec_runs
     summary_rank = lambda p: (p["dtype"], p["effort"],   # noqa: E731
                               p.get("tau", 0.97)) == SUMMARY_RANK
     out["kernels"] = kernels = [
-        k1_row(out["points"], sum(r["launches"]["mxu_matvec"]
+        k1_row(out["points"], sum(r["launches"].get("mxu_matvec", 0)
                                   for r in k1_runs)),
         k2_row(out["points_batch"],
-               sum(r["launches"]["mxu_matvec_batch"]
+               sum(r["launches"].get("mxu_matvec_batch", 0)
                    for r in out["prefill"] + serve_runs)),
-        k3_row(out["attention"], sum(r["launches"]["flash_attention"]
-                                     for r in out["prefill"] + serve_runs)),
+        k3_row(out["attention"], sum(r["launches"].get("flash_attention", 0)
+                                     for r in out["prefill"] + serve_runs),
+               out["k3_device_slots"]),
         k4_row(out["points_rank"]["k4"], rank_launches["fused_matvec"]),
         summary_row(
             "stream_matvec", "effort_tpu_torch/csrc/stream_matvec.cu",

@@ -10,6 +10,14 @@
 //   live     = k <= slot(t) and k >= mask_from
 //              and (window == 0 or k > slot(t) - window),
 //              slot(t) = start_slot + t
+//
+// start_slot and mask_from are read from device memory (int32, each
+// through its own pointer), as the TPU kernel reads them from its
+// scalar-prefetch array: a caller's 0-d tensor (a decode position that
+// lives on the card) and a python int (an entry of the wrapper's per-card
+// table of ints) take one code path, and a captured launch reads new
+// values at every replay. Each block reads both before it computes its
+// key range, and clamps them at 0.
 //   out[t]   = sum_k softmax_live(s[t])[k] v[k], P@V with the
 //              probabilities kept to about 24 bits (pv_f32) or rounded to
 //              bf16
@@ -172,7 +180,9 @@ struct Args {
   float* out;
   long long o_skv, o_srep, o_st;
   int rep, T, S, D, BQ;
-  int start_slot, mask_from, window, pv_f32;
+  const int* start_slot;  // device int32, read by every block
+  const int* mask_from;   // likewise
+  int window, pv_f32;
   int kw;       // key warps a row warp
   float scale;  // D^-0.5
 };
@@ -196,10 +206,12 @@ __global__ void __launch_bounds__(32 * kMaxWarps) flash_kernel(Args a) {
   __nv_bfloat16* Qs = smem;                 // [R][RE]
   __nv_bfloat16* ring = smem + R * RE;      // stage: K [GK][RE], V [GK][RE]
 
-  // the keys any row of this block can see
-  const int q_min = a.start_slot + qb * BQ;
-  const int q_max = a.start_slot + min(qb * BQ + BQ, a.T) - 1;
-  int k_lo = a.mask_from;
+  // the slots on the card; the keys any row of this block can see
+  const int start_slot = max(__ldg(a.start_slot), 0);
+  const int mask_from = max(__ldg(a.mask_from), 0);
+  const int q_min = start_slot + qb * BQ;
+  const int q_max = start_slot + min(qb * BQ + BQ, a.T) - 1;
+  int k_lo = mask_from;
   if (a.window > 0) k_lo = max(k_lo, q_min - a.window + 1);
   k_lo = max(k_lo, 0);
   const int k_hi = min(q_max, a.S - 1);
@@ -261,9 +273,9 @@ __global__ void __launch_bounds__(32 * kMaxWarps) flash_kernel(Args a) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = rw * 16 + g + 8 * h, t = qb * BQ + r % BQ;
-    const int slot = a.start_slot + t;
+    const int slot = start_slot + t;
     valid[h] = r < n_rows && t < a.T;
-    key_lo[h] = max(a.mask_from, a.window > 0 ? slot - a.window + 1 : 0);
+    key_lo[h] = max(mask_from, a.window > 0 ? slot - a.window + 1 : 0);
     key_hi[h] = valid[h] ? min(slot, a.S - 1) : -1;
     m[h] = kNegInf;
     l[h] = 0.f;
@@ -479,7 +491,8 @@ extern "C" {
 // out starts 16-byte aligned (D and the strides multiples of 8; q and out
 // 16-byte aligned). The launch plan (the wrapper's flash_plan): rw row
 // warps (1, 2 or 4) and kw key warps (2 or 4) a block, rw * kw <= 8, BQ
-// queries a block, rep * BQ <= 16 * rw.
+// queries a block, rep * BQ <= 16 * rw. start_slot and mask_from point to
+// one int32 each on the card, read when the kernel runs (clamped at 0).
 // Returns the CUDA error of the launch (0 = none).
 int effort_flash_attention(const float* q, long long q_skv, long long q_srep,
                            long long q_st, const void* k, long long k_skv,
@@ -487,11 +500,12 @@ int effort_flash_attention(const float* q, long long q_skv, long long q_srep,
                            long long v_ss, float* out, long long o_skv,
                            long long o_srep, long long o_st, int KV, int rep,
                            int T, int S, int D, int rw, int kw, int BQ,
-                           int start_slot, int mask_from, int window,
+                           const int* start_slot, const int* mask_from,
+                           int window,
                            int pv_f32, float scale, int device,
                            void* stream) {
   if (KV < 1 || rep < 1 || T < 1 || S < 1 || D < 8 || D > kMaxD ||
-      D % 8 != 0 || mask_from < 0 || window < 0 || start_slot < 0 ||
+      D % 8 != 0 || !start_slot || !mask_from || window < 0 ||
       (rw != 1 && rw != 2 && rw != 4) || (kw != 2 && kw != 4) ||
       rw * kw > kMaxWarps || BQ < 1 || rep * BQ > 16 * rw || device < 0 ||
       device >= 64)

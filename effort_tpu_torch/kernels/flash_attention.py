@@ -12,6 +12,15 @@ three bf16 parts) or takes them rounded to bf16; a query with no live key
 gets 0. Both products run on the tensor cores; the launch shape comes from
 flash_plan.
 
+start_slot and mask_from are ints or 0-d int32 tensors on the card. The
+kernel reads both from device memory, as the TPU kernel reads them from its
+scalar-prefetch array: a tensor through its own address, an int through its
+entry of the card's table of ints (prefix_stream.instance_ptr), so the two
+forms run one code path, and a captured launch reads a device position anew
+at every replay. Ints are checked on the host; a tensor is not read (the
+kernel clamps it at 0; callers check lengths on the host). The launch shape
+depends only on T, rep, KV and the card.
+
 The public functions keep the JAX package's layouts: flash_attention takes
 Q [KV, rep, T, D] and K, V [KV, S, D]; flash_attention_seq is the
 forward_seq adapter, Q2 [T, H*D] against the layer's caches [S, KV, D]. On
@@ -26,6 +35,7 @@ from typing import NamedTuple
 import torch
 
 from effort_tpu_torch.kernels import LAUNCHES, _build
+from effort_tpu_torch.kernels.prefix_stream import instance_ptr
 
 LAUNCHES["flash_attention"] = 0
 _MAX_D = 256
@@ -79,11 +89,12 @@ def flash_limits(D: int):
 
 
 def flash_attention_ref(Q: torch.Tensor, K: torch.Tensor, V: torch.Tensor,
-                        start_slot: int, mask_from: int = 0, window: int = 0,
+                        start_slot, mask_from=0, window: int = 0,
                         pv_f32: bool = True) -> torch.Tensor:
     """Plain PyTorch version: Q [KV, rep, T, D] (rounded to bf16), K and V
     [KV, S, D] -> [KV, rep, T, D] f32. Masked softmax in f32, fully masked
-    rows 0."""
+    rows 0. start_slot, mask_from: ints or 0-d int tensors (read on the
+    device, the same result)."""
     T, D = Q.shape[2], Q.shape[3]
     S = K.shape[1]
     dev = Q.device
@@ -106,11 +117,27 @@ def flash_attention_ref(Q: torch.Tensor, K: torch.Tensor, V: torch.Tensor,
     return out / torch.clamp(l, min=1e-30)
 
 
+def _slot_ptr(name: str, x, dev) -> int:
+    """The device address the kernel reads `name` from: a 0-d int32
+    tensor's on `dev` (not read), or a non-negative int's entry of the
+    card's table of ints."""
+    if isinstance(x, torch.Tensor):
+        if x.dtype != torch.int32 or x.numel() != 1 or x.device != dev:
+            raise ValueError(f"flash_attention: {name} {x.dtype} "
+                             f"{tuple(x.shape)} on {x.device}: want one "
+                             f"int32 on {dev}")
+        return x.data_ptr()
+    if int(x) < 0:
+        raise ValueError(f"flash_attention: negative {name}")
+    return instance_ptr(int(x), dev)
+
+
 def _launch(q, q_strides, k, k_strides, v, v_strides, out, o_strides,
-            KV: int, rep: int, T: int, S: int, D: int, start_slot: int,
-            mask_from: int, window: int, pv_f32: bool) -> None:
+            KV: int, rep: int, T: int, S: int, D: int, start_slot,
+            mask_from, window: int, pv_f32: bool) -> None:
     """Checks what the kernel takes, then one launch on the current stream.
-    Strides are element strides: q/out (kv, rep, t), k/v (kv, s)."""
+    Strides are element strides: q/out (kv, rep, t), k/v (kv, s).
+    start_slot, mask_from: ints or 0-d int32 tensors on the card."""
     dev = q.device
     why = flash_limits(D)
     if why:
@@ -132,26 +159,28 @@ def _launch(q, q_strides, k, k_strides, v, v_strides, out, o_strides,
         if t.device != dev:
             raise ValueError(f"flash_attention: tensors on {t.device} and "
                              f"{dev}")
-    if min(start_slot, mask_from, window) < 0:
-        raise ValueError("flash_attention: negative slot argument")
+    if window < 0:
+        raise ValueError("flash_attention: negative window")
+    slots = (_slot_ptr("start_slot", start_slot, dev),
+             _slot_ptr("mask_from", mask_from, dev))
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     plan = flash_plan(T, rep, KV, sms)
     _build.kernel_fn("flash_attention", "effort_flash_attention",
-                     "plllpllpllplll" + "i" * 12 + "fip")(
+                     "plllpllpllplll" + "i" * 8 + "ppii" + "fip")(
         q.data_ptr(), *q_strides, k.data_ptr(), *k_strides, v.data_ptr(),
         *v_strides, out.data_ptr(), *o_strides, KV, rep, T, S, D,
-        plan.rw, plan.kw, plan.bq, int(start_slot), int(mask_from),
-        int(window),
+        plan.rw, plan.kw, plan.bq, *slots, int(window),
         int(bool(pv_f32)), float(D) ** -0.5, dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     LAUNCHES["flash_attention"] += 1
 
 
 def flash_attention(Q: torch.Tensor, K: torch.Tensor, V: torch.Tensor,
-                    start_slot: int, mask_from: int = 0, window: int = 0,
+                    start_slot, mask_from=0, window: int = 0,
                     pv_f32: bool = True) -> torch.Tensor:
     """Q [KV, rep, T, D]; K, V [KV, S, D] bf16. Returns [KV, rep, T, D]
     f32. window > 0 limits each query to the last `window` slots.
+    start_slot, mask_from: ints or 0-d int32 tensors on Q's device.
 
     CPU tensors run the plain version (flash_attention_ref); CUDA tensors
     launch the kernel, on the current stream without synchronising, or
@@ -170,13 +199,14 @@ def flash_attention(Q: torch.Tensor, K: torch.Tensor, V: torch.Tensor,
 
 
 def flash_attention_seq(Q2: torch.Tensor, k_cache: torch.Tensor,
-                        v_cache: torch.Tensor, start_slot: int,
-                        mask_from: int, n_heads: int, head_dim: int,
+                        v_cache: torch.Tensor, start_slot, mask_from,
+                        n_heads: int, head_dim: int,
                         window: int = 0, pv_f32: bool = True,
                         plain: bool = False) -> torch.Tensor:
     """Adapter for forward_seq: Q2 [T, H*D] (RoPE'd; q head h uses kv head
     h // rep), caches [S, KV, D] -> [T, H*D] f32. plain=True runs the plain
-    version on any device (the kernel's semantics without the kernel)."""
+    version on any device (the kernel's semantics without the kernel).
+    start_slot, mask_from: ints or 0-d int32 tensors on Q2's device."""
     T = Q2.shape[0]
     S, KV, D = k_cache.shape
     rep = n_heads // KV

@@ -232,16 +232,18 @@ def check_instance(bm: BucketedMatrix, expert, *tensors):
                              f"{t.device}")
 
 
-# a card's instance ids 0, 1, ... as int32: an int instance reaches the
-# kernels that read their instance on the device (K1, K4) as a pointer
-# into this table, so both forms of the instance run one code path
+# a card's ints 0, 1, ... as int32: an int instance reaches the kernels
+# that read their instance on the device (K1, K4) as a pointer into this
+# table, and so do K3's start slot and mask start, so both forms of each
+# run one code path
 _INSTANCE_IDS: dict = {}
 
 
 def instance_ptr(expert, device) -> int:
-    """The device address of the instance: a tensor's own, or an int's
-    entry of the card's id table (grown as larger instances come; a
-    replaced table is kept, since launches still queued may read it)."""
+    """The device address of the instance (or of any int32 a kernel reads
+    on the card): a tensor's own, or an int's entry of the card's table
+    of ints (grown as larger ints come; a replaced table is kept, since
+    launches still queued may read it)."""
     if isinstance(expert, torch.Tensor):
         return expert.data_ptr()
     tables = _INSTANCE_IDS.setdefault(device, [])

@@ -1,7 +1,7 @@
 """Generation loop: decode with per-step predictions, optionally after a
 one-pass prefill of the prompt; sampling, presence/frequency penalties and
 logprobs; the full, ring and int8 KV caches; teacher-forced logits and
-scores.
+scores; self-speculative greedy decode (generate_speculative).
 
 The JAX package runs a whole generation as one jitted lax.scan
 (_decode_scan, _prefill_decode_scan). The port runs the same step body
@@ -15,6 +15,12 @@ buffers' capacity), as the JAX Engine keeps one jitted program per key in
 _fn. Effort (below the dense switch), temperature, top_p, penalty values
 and seed are contents of the step's buffers, so new values capture
 nothing.
+
+A speculative round (_spec_round: k draft steps at a low effort, one
+forward_seq verify of the k tokens at effort 1.0 with its start slot on the
+card, the acceptance) is one captured graph too, under the loop "spec";
+the host reads one small status tensor after each round to decide whether
+to replay again (the JAX package's while_loop cond runs on its device).
 
 Stays eager: the "gather" route (it sizes its block list from a python
 float effort), the "stream" route on an MoE model (it reads the routed
@@ -41,8 +47,8 @@ import torch
 
 from effort_tpu_torch.config import ModelConfig
 from effort_tpu_torch.models.graphs import StepGraph
-from effort_tpu_torch.models.transformer import (ModelWeights, forward_seq,
-                                                 forward_token,
+from effort_tpu_torch.models.transformer import (HOST_READS, ModelWeights,
+                                                 forward_seq, forward_token,
                                                  make_kv_cache,
                                                  make_quant_kv_cache,
                                                  make_ring_kv_cache,
@@ -59,6 +65,8 @@ class Reply:
     tokens_per_s: float = 0.0
     prep_ms: float = 0.0       # time_it: warm-up and capture of a cold key
     eval_ms_per_token: float = 0.0
+    spec_tokens_per_iter: float = 0.0  # speculative decode: mean tokens
+    #                                    emitted a draft/verify round
     logprobs: list = None      # per emitted token (when asked for):
     #                            {token_id: logprob} of the top-N
 
@@ -142,14 +150,17 @@ _OFF = {"temperature": 0.0, "top_p": 1.0, "presence": 0.0, "frequency": 0.0}
 class _Key:
     """What a captured step depends on (the JAX Engine._fn key without
     P, n_new and effort: those are buffer contents here)."""
-    loop: str           # "decode", "logits" (teacher-forced) or "prefill"
+    loop: str           # "decode", "logits" (teacher-forced), "prefill"
+    #                     or "spec" (a speculative round)
     cap: int            # positions of the id buffers
-    dense: bool         # the dense copies (a python float effort)
+    dense: bool         # the dense copies (a python float effort; for
+    #                     "spec", the draft's)
     kv_mode: str
     sampled: bool = False
     top_k: int = 0
     penalized: bool = False
     logprobs_k: int = 0
+    spec_k: int = 0     # "spec": tokens drafted a round
 
 
 class _StepState:
@@ -234,6 +245,74 @@ def _prefill_step(w: ModelWeights, cfg: ModelConfig, st: _StepState, kv,
     st.pos += 1
 
 
+class _SpecState:
+    """A speculative round's own buffers, beside the decode state it
+    shares (ids, pos, done): the tokens to generate n_new, the tokens
+    emitted so far n_gen (the first from the prompt pass included), the
+    rounds n_it, the draft effort (16.16) and the verify's (f32 1.0), the
+    last round's consumed tokens [k] (the last token, then the drafts) and
+    verify logits [k, vocab], and status = (n_gen, done, n_it), the one
+    tensor the host reads a round."""
+
+    def __init__(self, cfg: ModelConfig, k: int, device):
+        def z(*shape, dtype=torch.int32):
+            return torch.zeros(shape, dtype=dtype, device=device)
+        self.k = k
+        self.n_new, self.n_gen, self.n_it = z(), z(), z()
+        self.d_eff = z(1)                                  # 16.16
+        self.one = torch.ones((), dtype=torch.float32, device=device)
+        self.consumed = z(k)
+        self.logits = z(k, cfg.vocab_size, dtype=torch.float32)
+        self.status = z(3)
+
+
+def _spec_round(w: ModelWeights, cfg: ModelConfig, st: _StepState,
+                sp: _SpecState, kv, d_eff, v_eff, impl: str,
+                eos_id: int) -> None:
+    """One round of the JAX package's _spec_decode (its while_loop body,
+    guarded by its cond, so a round past the end changes nothing but the
+    cache rows past the last token), in place on st and sp. The last token
+    is ids[pos]: k forward_token drafts at d_eff from it (cache rows pos ..
+    pos+k-1), one forward_seq verify of the k consumed tokens at v_eff
+    (effort 1.0) that rewrites those rows, and the acceptance: the prefix
+    where the drafts agreed with the verifier, plus the verifier's next
+    token, cut at the first EOS and at n_new; those tokens are written at
+    ids[pos+1 ..], and pos, n_gen, done and n_it advance."""
+    k_cache, v_cache = kv[:2]
+    k, dev = sp.k, st.pos.device
+    pos = st.pos
+    active = (sp.n_gen < sp.n_new) & ~st.done        # the while_loop cond
+    toks = [st.ids.index_select(0, pos.reshape(1).long())]
+    for i in range(k):
+        lg = forward_token(w, cfg, toks[-1][0], pos + i, k_cache, v_cache,
+                           effort=d_eff, impl=impl)
+        toks.append(torch.argmax(lg).to(torch.int32).reshape(1))
+    consumed, dtoks = torch.cat(toks[:k]), torch.cat(toks[1:])
+    logits = forward_seq(w, cfg, consumed, k_cache, v_cache, start_slot=pos,
+                         effort=v_eff, impl=impl, moe_grouped=False)
+    sp.consumed.copy_(consumed)
+    sp.logits.copy_(logits)
+    vtoks = torch.argmax(logits, dim=-1).to(torch.int32)            # [k]
+    acc = torch.cumprod((dtoks[:-1] == vtoks[:-1]).to(torch.int32),
+                        dim=0).sum().to(torch.int32)                # 0..k-1
+    iota = torch.arange(k, dtype=torch.int32, device=dev)
+    is_eos = (vtoks == eos_id) & (iota <= acc)
+    has_eos = is_eos.any()
+    first_eos = torch.argmax(is_eos.to(torch.int32)).to(torch.int32)
+    n_emit = torch.where(has_eos, first_eos + 1, acc + 1)
+    n_emit = torch.clamp(torch.minimum(n_emit, sp.n_new - sp.n_gen), min=1)
+    n_emit = n_emit * active.to(torch.int32)
+    at = (pos + 1 + iota).long()
+    st.ids.index_copy_(0, at, torch.where(iota < n_emit, vtoks,
+                                          st.ids.index_select(0, at)))
+    st.pos += n_emit
+    sp.n_gen += n_emit
+    st.done |= has_eos & active
+    sp.n_it += active.to(torch.int32)
+    sp.status.copy_(torch.stack([sp.n_gen, st.done.to(torch.int32),
+                                 sp.n_it]))
+
+
 def _left_pad(prompt_ids: Sequence[int], P: int) -> list:
     """The prompt at the tail of a [P] buffer (prefill layout): slots
     0..P-len hold pad id 0, masked out by mask_from = P - len."""
@@ -299,6 +378,7 @@ class Engine:
             raise ValueError("capture=True needs a CUDA device")
         self._caches = {}
         self._states = {}
+        self._spec_states = {}
         self._graphs = {}
         self._pool = None
 
@@ -390,12 +470,14 @@ class Engine:
     # ---------------- the two loops ----------------
 
     def _decode(self, prompt_ids: Sequence[int], n_new: int, effort: float,
-                key_opts: dict, values: dict, loop: str = "decode"):
+                key_opts: dict, values: dict, loop: str = "decode",
+                steps: int = None):
         """The token loop over the prompt, padded at the tail to P, and
         n_new steps more (the JAX package's _decode_scan): P + n_new - 1
-        steps. loop="logits" feeds the prompt alone (n_new = 0, P = its
-        length) and keeps each step's logits. Returns (state, total,
-        logits or None, capture seconds)."""
+        steps, or `steps` (the speculative prompt pass). loop="logits"
+        feeds the prompt alone (n_new = 0, P = its length) and keeps each
+        step's logits. Returns (state, total, logits or None, capture
+        seconds)."""
         n = len(prompt_ids)
         P = n if loop == "logits" else self._padded_len(n)
         total = P + n_new
@@ -428,8 +510,9 @@ class Engine:
                          self.eos_id, key)
 
         if loop != "logits":
-            return st, total, None, self._run(key, st, step, fill,
-                                              total - 1, self._eager_route())
+            return st, total, None, self._run(
+                key, st, step, fill, total - 1 if steps is None else steps,
+                self._eager_route())
         out = torch.empty((n, self.cfg.vocab_size),
                           dtype=torch.float32, device=self.device)
         graph = None
@@ -512,7 +595,7 @@ class Engine:
                  top_k: int = 0, top_p: float = 1.0, seed: int = 0,
                  presence_penalty: float = 0.0,
                  frequency_penalty: float = 0.0, logprobs: int = 0,
-                 time_it: bool = False, spec_k: int = 0) -> Reply:
+                 time_it: bool = False) -> Reply:
         """Continuation of prompt_ids by n_new tokens at `effort` (stops
         early at eos_id). The prompt is padded to a multiple of pad_to, as
         the JAX engine pads it: at the tail (token loop) or, with prefill,
@@ -528,11 +611,7 @@ class Engine:
 
         time_it=False: one run; its times include a cold key's capture.
         time_it=True: a second, timed run, and prep_ms the first run's
-        capture time. spec_k (speculative decode) is not ported yet."""
-        if spec_k:
-            raise NotImplementedError(
-                "spec_k: speculative decode is not ported yet (ROADMAP.md, "
-                "modules to port, item 3)")
+        capture time."""
         n = len(prompt_ids)
         P = self._padded_len(n)
         if self.kv_mode != "ring" and P + n_new > self.cfg.max_seq_len:
@@ -585,6 +664,113 @@ class Engine:
                      tokens_per_s=n_steps / dt,
                      prep_ms=prep * 1e3 if time_it else 0.0,
                      eval_ms_per_token=dt / n_steps * 1e3, logprobs=lp_out)
+
+    # ---------------- speculative decode ----------------
+
+    def _spec_launch(self, prompt_ids: Sequence[int], n_new: int,
+                     draft_effort: float, k: int, on_round=None):
+        """Every launch of one speculative generation: the prompt pass (the
+        decode key of generate(effort=1.0), n steps: each writes its cache
+        row, and step n - 1 writes the first token at ids[n]), then rounds
+        until the status read after one says n_new tokens or EOS;
+        on_round(spec state), when given, after each read (chip_smoke.py
+        inspects rounds with it). Returns (state, spec state, capture
+        seconds)."""
+        n = len(prompt_ids)
+        P = self._padded_len(n)
+        cap = self._cap(P + n_new + k)
+        d_dense = self._dense(draft_effort, self.impl)
+        key = _Key("spec", cap, d_dense, "full", spec_k=k)
+        st = self._state(_Key("decode", cap, self._dense(1.0, self.impl),
+                              "full"))
+        if key not in self._spec_states:
+            self._spec_states[key] = _SpecState(self.cfg, k, self.device)
+        sp = self._spec_states[key]
+        kv = self._kv("full")
+        d_eff = (float(draft_effort) if d_dense or self.impl == "gather"
+                 else sp.d_eff)
+        v_eff = 1.0 if self._dense(1.0, self.impl) else sp.one
+
+        def round_():
+            _spec_round(self.w, self.cfg, st, sp, kv, d_eff, v_eff,
+                        self.impl, self.eos_id)
+
+        eager = not self.capture or self._eager_route()
+        prep = 0.0
+        graph = self._graphs.get(key)
+        if graph is None and not eager:
+            # the capture's warm-up round runs on this state: a round past
+            # the end (n_gen = n_new = 0) at pos 0, which writes cache rows
+            # 0 .. k-1 only (the prompt pass below rewrites them)
+            t0 = time.perf_counter()
+            st.pos.zero_()
+            sp.n_new.zero_()
+            sp.n_gen.zero_()
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            graph = StepGraph(round_, key, self.device, self._pool)
+            self._graphs[key] = graph
+            prep = time.perf_counter() - t0
+        _, _, _, p2 = self._decode(prompt_ids, n_new, 1.0, {}, {}, steps=n)
+        sp.n_new.fill_(n_new)
+        sp.n_gen.fill_(1)
+        sp.n_it.zero_()
+        sp.d_eff.fill_(_q16(draft_effort))
+        while True:
+            graph.replay() if not eager else round_()
+            n_gen, done, _ = sp.status.tolist()
+            HOST_READS["spec_status"] += 1
+            if on_round is not None:
+                on_round(sp)
+            if n_gen >= n_new or done:
+                return st, sp, prep + p2
+
+    def generate_speculative(self, prompt_ids: Sequence[int],
+                             n_new: int = 30, draft_effort: float = 0.25,
+                             k: int = 8, time_it: bool = False) -> Reply:
+        """Self-speculative greedy decode (the JAX package's
+        generate_speculative): the greedy continuation at effort 1.0, with
+        each round drafting k tokens at draft_effort and verifying all k in
+        one forward_seq pass at effort 1.0 (every emitted token is the
+        verifier's pick, and the verify rewrites the drafted cache rows).
+        On the card a round is one replayed graph, and the host reads one
+        status tensor a round (HOST_READS["spec_status"]). The prompt runs
+        through the token loop, on a prefill engine too, as in the JAX
+        package. The full bf16 cache only, as in the JAX package.
+        spec_tokens_per_iter: tokens emitted a round."""
+        if self.kv_mode != "full":
+            raise ValueError("generate_speculative runs on the full bf16 "
+                             "cache: the verify pass (forward_seq) writes "
+                             "the cache rows itself")
+        n = len(prompt_ids)
+        P = self._padded_len(n)
+        if k < 1 or P + n_new + k > self.cfg.max_seq_len:
+            raise ValueError(f"{P} + {n_new} + k={k} positions exceed "
+                             f"max_seq_len {self.cfg.max_seq_len}")
+
+        def run():
+            st, sp, prep = self._spec_launch(prompt_ids, n_new,
+                                             draft_effort, k)
+            n_gen, _, n_it = sp.status.tolist()
+            return st.ids[n:n + min(n_gen, n_new)].tolist(), n_gen, n_it, \
+                prep
+
+        t0 = time.perf_counter()
+        toks, n_gen, n_it, prep = run()
+        dt = time.perf_counter() - t0
+        if time_it:
+            t0 = time.perf_counter()
+            toks, n_gen, n_it, _ = run()
+            dt = time.perf_counter() - t0
+        if self.eos_id in toks:
+            toks = toks[:toks.index(self.eos_id) + 1]
+        text = (self.tokenizer.decode(toks)
+                if self.tokenizer is not None else "")
+        return Reply(token_ids=toks, predictions=[], text=text,
+                     tokens_per_s=len(toks) / max(dt, 1e-9),
+                     prep_ms=prep * 1e3 if time_it else 0.0,
+                     eval_ms_per_token=dt * 1e3 / max(len(toks), 1),
+                     spec_tokens_per_iter=n_gen / max(n_it, 1))
 
     def _forward_seq(self, prompt_ids: Sequence[int], effort: float):
         """Prefill logits [P, vocab] of the left-padded prompt."""

@@ -6,6 +6,12 @@ random-weight synthesis.
   - forward_seq: prefill, T tokens of one sequence in one pass (K2 per
     projection, K3 for attention; a rank-prefix model's projections take
     the per-row reference semantics, as the JAX package's take "jnp").
+    Its start slot, rotary offset and mask start may be 0-d device
+    tensors (K3 reads them on the card), so the speculative verify pass
+    at a device position is captured with the decode steps.
+  - forward_seq_batch: T tokens of each of B slots in one pass (the
+    batched speculative verify; the JAX package's vmap of forward_seq):
+    K2 over the B*T rows, K3 once a slot.
   - forward_token_batch: one decode step of B slots, each with its own
     position, left-pad offset and effort (K2 per projection, or the
     reference on a rank-prefix model).
@@ -49,9 +55,11 @@ from effort_tpu_torch.ops.bucketmul import (bucket_matmul, bucket_matvec,
 from effort_tpu_torch.ops.layouts import BucketedMatrix, concat_bucketed
 
 PROJ_FIELDS = ("wq", "wk", "wv", "wo", "w1", "w2", "w3", "wqkv", "w13")
-# host reads of the MoE routing (_moe_grouped: one a layer of a prefill
-# pass); a run zeroes the count and reads it after, as it does LAUNCHES
-HOST_READS = {"moe_routing": 0}
+# host reads: of the MoE routing (_moe_grouped: one a layer of a prefill
+# pass) and of a speculative round's status (Engine.generate_speculative:
+# one a round); a run zeroes the counts and reads them after, as it does
+# LAUNCHES
+HOST_READS = {"moe_routing": 0, "spec_status": 0}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -533,16 +541,18 @@ def _moe_grouped(layer: LayerWeights, l: int, X, pe: dict,
 
 
 def _ffn_seq(layer: LayerWeights, l: int, X, pe: dict, cfg: ModelConfig,
-             impl: str):
+             impl: str, moe_grouped: bool = True):
     """Batched FFN for prefill (and a dense model's batched decode): X
     [T, dim]. Dense models run one bucket_matmul a projection; MoE models
     token by token on the "reference" route (as the JAX package vmaps its
     per-token FFN, on "jnp" whatever its impl) and grouped by expert on
     the others (K2 on the kernel route, where the JAX package's "auto"
-    takes "jnp")."""
+    takes "jnp"). moe_grouped=False runs an MoE FFN token by token on
+    every route (_moe_rows: no host read, so a captured pass can hold
+    it)."""
     if cfg.n_experts == 1:
         return _expert_ffn(layer, l, X, pe, cfg, impl, mv=bucket_matmul)
-    if impl == "reference":
+    if impl == "reference" or not moe_grouped:
         return _moe_rows(layer, l, X, pe, cfg, impl)
     return _moe_grouped(layer, l, X, pe, cfg, impl)
 
@@ -594,28 +604,54 @@ def forward_layers(w: ModelWeights, cfg: ModelConfig, h, pos, k_cache,
     return h
 
 
-def forward_seq(w: ModelWeights, cfg: ModelConfig, token_ids: torch.Tensor,
-                k_cache, v_cache, start_slot: int = 0, rope_offset: int = 0,
-                mask_from: int = 0, effort=1.0, impl: str = "auto",
-                attn_impl: str = "auto") -> torch.Tensor:
-    """Prefill: T tokens of one sequence through all layers in one pass.
-
-    token_ids: [T] int device tensor occupying cache slots start_slot ..
-    start_slot+T-1; rope_offset/mask_from as in forward_token (left-padded
-    prompts). The caches [L, S, KV, D] (or views of them) are written in
-    place. effort: a python float or an f32 tensor (each projection is one
-    bucket_matmul: K2 on the kernel route). attn_impl: "flash" (K3, its
-    plain version on CPU tensors), "plain" (K3's plain version on any
-    device), "xla" (materialized f32 scores, _attention_seq) or "auto"
-    (flash on the card, where K3 raises for heads it does not take; xla
-    on the CPU). Returns logits [T, vocab] f32 through the bf16 head."""
-    T = token_ids.shape[0]
-    dev = w.device
+def _attn_impl(attn_impl: str, dev) -> str:
     if attn_impl == "auto":
         attn_impl = "flash" if dev.type == "cuda" else "xla"
     if attn_impl not in ("flash", "plain", "xla"):
         raise ValueError(f"attn_impl {attn_impl!r}")
+    return attn_impl
+
+
+def _write_slots(k_cache: torch.Tensor, v_cache: torch.Tensor, slots, K,
+                 V) -> None:
+    """k_cache[slots] = K and v_cache[slots] = V by index (rows [T, KV, D]
+    into a layer's [S, KV, D]), with no host slice, so a device start slot
+    needs no host read; slots past the cache are clamped to its last row
+    (the callers check lengths on the host)."""
+    idx = slots.clamp(max=k_cache.shape[0] - 1).long()
+    k_cache.index_copy_(0, idx, K.to(k_cache.dtype))
+    v_cache.index_copy_(0, idx, V.to(v_cache.dtype))
+
+
+def forward_seq(w: ModelWeights, cfg: ModelConfig, token_ids: torch.Tensor,
+                k_cache, v_cache, start_slot=0, rope_offset=0, mask_from=0,
+                effort=1.0, impl: str = "auto", attn_impl: str = "auto",
+                moe_grouped: bool = True) -> torch.Tensor:
+    """Prefill: T tokens of one sequence through all layers in one pass.
+
+    token_ids: [T] int device tensor occupying cache slots start_slot ..
+    start_slot+T-1; rope_offset/mask_from as in forward_token (left-padded
+    prompts). start_slot, rope_offset, mask_from: ints, or 0-d int32
+    device tensors (the speculative verify's position): the pass then
+    reads no host value and can be captured; ints give what they gave
+    before, bit for bit. The caches [L, S, KV, D] (or views of them) are
+    written in place, by index. effort: a python float or an f32 tensor
+    (each projection is one bucket_matmul: K2 on the kernel route).
+    attn_impl: "flash" (K3, its plain version on CPU tensors), "plain"
+    (K3's plain version on any device), "xla" (materialized f32 scores,
+    _attention_seq) or "auto" (flash on the card, where K3 raises for
+    heads it does not take; xla on the CPU). moe_grouped: an MoE FFN
+    grouped by expert (_moe_grouped, one host read of the routing a
+    layer) or, False, token by token (_moe_rows, no host read). Returns
+    logits [T, vocab] f32 through the bf16 head."""
+    T = token_ids.shape[0]
+    dev = w.device
+    attn_impl = _attn_impl(attn_impl, dev)
     KV, D, H = cfg.n_kv_heads, cfg.head_dim, cfg.n_heads
+    if not isinstance(start_slot, torch.Tensor) \
+            and start_slot + T > k_cache.shape[1]:
+        raise ValueError(f"slots {start_slot}..{start_slot + T - 1} past "
+                         f"the cache's {k_cache.shape[1]}")
     X = w.tok_embeddings.index_select(0, token_ids.long()).to(torch.float32)
     slots = start_slot + torch.arange(T, device=dev)
     cos, sin = rope_angles(slots - rope_offset, D, cfg.rope_theta, dev)
@@ -627,9 +663,7 @@ def forward_seq(w: ModelWeights, cfg: ModelConfig, token_ids: torch.Tensor,
         Q, K, V = _qkv(lw, l, Xn, pe, cfg, impl, mv=bucket_matmul)
         Q = rope_apply(Q.reshape(T, H, D), cos, sin).reshape(T, H * D)
         K = rope_apply(K.reshape(T, KV, D), cos, sin)
-        k_cache[l, start_slot:start_slot + T] = K.to(k_cache.dtype)
-        v_cache[l, start_slot:start_slot + T] = V.reshape(T, KV, D).to(
-            v_cache.dtype)
+        _write_slots(k_cache[l], v_cache[l], slots, K, V.reshape(T, KV, D))
         if attn_impl == "xla":
             attn = _attention_seq(Q, k_cache[l], v_cache[l], slots,
                                   mask_from, cfg)
@@ -640,9 +674,69 @@ def forward_seq(w: ModelWeights, cfg: ModelConfig, token_ids: torch.Tensor,
                                        plain=attn_impl == "plain")
         X = X + bucket_matmul(lw.wo, attn, pe["wo"], l, impl)
         Fn = rms_norm(X, lw.ffn_norm[l], cfg.norm_eps)
-        X = X + _ffn_seq(lw, l, Fn, pe, cfg, impl)
+        X = X + _ffn_seq(lw, l, Fn, pe, cfg, impl, moe_grouped)
     X = rms_norm(X, w.norm, cfg.norm_eps)
     return mm_f32(X.to(torch.bfloat16), w.output)
+
+
+def forward_seq_batch(w: ModelWeights, cfg: ModelConfig,
+                      token_ids: torch.Tensor, k_cache, v_cache,
+                      pos: torch.Tensor, offs: torch.Tensor,
+                      efforts: torch.Tensor, impl: str = "auto",
+                      attn_impl: str = "auto") -> torch.Tensor:
+    """T tokens of each of B slots through all layers in one pass: the
+    batched speculative verify (the JAX package's vmap of forward_seq over
+    the slots of its batch cache).
+
+    token_ids [B, T] int; pos, offs [B] int32 device tensors: slot b's
+    tokens occupy its cache slots pos[b] .. pos[b]+T-1 (clamped to the
+    cache's last row), rotary positions slot - offs[b], and attend to
+    slots [offs[b], slot]. efforts [B] f32: each slot's effort. Every
+    projection is one bucket_matmul over the B*T rows, each row at its
+    slot's effort (K2 on the kernel route: the weights are read once for
+    every slot, where the JAX package's vmap maps one pass a slot);
+    attention runs once a slot (K3 reading pos[b] and offs[b] on the
+    card, or materialized scores, as forward_seq's attn_impl); an MoE FFN
+    token by token (_moe_rows). The caches [L, B, S, KV, D] are written
+    in place. Returns logits [B, T, vocab] f32 through the bf16 head."""
+    B, T = token_ids.shape
+    dev = w.device
+    attn_impl = _attn_impl(attn_impl, dev)
+    KV, D, H = cfg.n_kv_heads, cfg.head_dim, cfg.n_heads
+    X = w.tok_embeddings.index_select(0, token_ids.reshape(-1).long()).to(
+        torch.float32)                                         # [B*T, dim]
+    slots = pos[:, None] + torch.arange(T, device=dev)         # [B, T]
+    cos, sin = rope_angles((slots - offs[:, None]).reshape(-1), D,
+                           cfg.rope_theta, dev)
+    cos, sin = cos[:, None], sin[:, None]
+    pe = proj_efforts(efforts.to(torch.float32).repeat_interleave(T), cfg)
+    bidx = torch.arange(B, device=dev).repeat_interleave(T)
+    widx = slots.clamp(max=k_cache.shape[2] - 1).reshape(-1).long()
+    lw = w.layers
+    for l in range(cfg.n_layers):
+        Xn = rms_norm(X, lw.attn_norm[l], cfg.norm_eps)
+        Q, K, V = _qkv(lw, l, Xn, pe, cfg, impl, mv=bucket_matmul)
+        Q = rope_apply(Q.reshape(B * T, H, D), cos, sin).reshape(B * T,
+                                                                 H * D)
+        K = rope_apply(K.reshape(B * T, KV, D), cos, sin)
+        k_cache[l, bidx, widx] = K.to(k_cache.dtype)
+        v_cache[l, bidx, widx] = V.reshape(B * T, KV, D).to(v_cache.dtype)
+        parts = []
+        for b in range(B):
+            Qb = Q[b * T:(b + 1) * T]
+            if attn_impl == "xla":
+                parts.append(_attention_seq(Qb, k_cache[l, b], v_cache[l, b],
+                                            slots[b], offs[b], cfg))
+            else:
+                parts.append(flash_attention_seq(
+                    Qb, k_cache[l, b], v_cache[l, b], pos[b], offs[b], H, D,
+                    window=active_window(cfg), plain=attn_impl == "plain"))
+        attn = torch.cat(parts)
+        X = X + bucket_matmul(lw.wo, attn, pe["wo"], l, impl)
+        Fn = rms_norm(X, lw.ffn_norm[l], cfg.norm_eps)
+        X = X + _ffn_seq(lw, l, Fn, pe, cfg, impl, moe_grouped=False)
+    X = rms_norm(X, w.norm, cfg.norm_eps)
+    return mm_f32(X.to(torch.bfloat16), w.output).reshape(B, T, -1)
 
 
 def make_batch_kv_cache(cfg: ModelConfig, batch_size: int, device,

@@ -15,7 +15,10 @@ Execution paths of bucket_matvec, selected by `impl`:
                  (kernels/prefix_stream.stream_matvec). On CPU tensors a
                  kernel runs its plain version, so the CPU tests exercise
                  the kernel's semantics.
-  - "stream":    select_stream + K5 (bucket_size >= 2).
+  - "stream":    select_stream + K5 (bucket_size >= 2); on the row-prefix
+                 layout, which has no positions to stream by rank, the
+                 reference route (as the JAX package's "stream" takes
+                 bucket_matvec_jnp(exact_cutoff=False) there).
   - "gather":    select_blocks + K6 (kernels/gather_dma.gather_matvec_dma),
                  the exact-coverage block gather (bucket_size >= 2, bf16
                  or int8); the block list's capacity comes from a python
@@ -200,6 +203,9 @@ def bucket_matvec(bm: BucketedMatrix, v: torch.Tensor, effort,
     elif impl in ("kernel", "plain"):
         fn = mxu_matvec if impl == "kernel" else mxu_matvec_ref
         y = fn(bm, v, effort, expert)
+    elif impl == "stream":
+        # the reference adds the outliers itself
+        return bucket_matvec_ref(bm, v, effort, expert, exact_cutoff=False)
     else:
         raise ValueError(f"impl {impl!r} needs bucket_size >= 2 (the "
                          f"row-prefix layout has no positions)")
@@ -221,9 +227,11 @@ def bucket_matmul(bm: BucketedMatrix, V: torch.Tensor, effort,
     its per-row "jnp" semantics there); "kernel" is K2 on CUDA tensors and
     its plain version on CPU tensors (no padding of T: the kernel takes any
     T; K2 takes an int instance); "plain" is K2's plain version on any
-    device; "reference" is the
-    per-row bucketMul semantics (every weight read); "dense" the bf16
-    matmul on the dense copy."""
+    device; "reference" is the per-row bucketMul semantics (every weight
+    read), and so are "stream" and "gather" on either layout (the JAX
+    package's bucket_matmul takes its per-row "jnp" semantics for every
+    impl but "dense" and "pallas"); "dense" the bf16 matmul on the dense
+    copy."""
     if impl == "auto":
         if (isinstance(effort, (int, float)) and effort >= 0.999
                 and bm.dense is not None):
@@ -238,7 +246,7 @@ def bucket_matmul(bm: BucketedMatrix, V: torch.Tensor, effort,
                              "keep_dense")
         return mm_f32(bm.permute_v(V, expert).to(torch.bfloat16),
                       take(bm.dense, expert))
-    if impl == "reference":
+    if impl in ("reference", "stream", "gather"):
         effs = ([effort] * V.shape[0] if isinstance(effort, (int, float))
                 else slot_efforts(effort, V.shape[0], V.device))
         return torch.stack([

@@ -16,12 +16,19 @@
     KV mode), replayed
     once a step over static buffers (tokens, positions, offsets, efforts,
     live slots); the host reads the step's picks after it, as the JAX
-    package's does.
+    package's does;
+  - spec_k > 0 makes each step speculative (the JAX package's
+    _spec_step_fn): every slot drafts spec_k tokens through the batched
+    step at the draft effort (idle slots at 0), then one verify pass
+    (forward_seq_batch) scores all of them at each slot's own effort,
+    each projection one K2 launch over the B * spec_k rows and K3 once a
+    slot, reading the slot's position and offset on the card; a slot
+    emits the agreeing prefix of its drafts plus the verifier's next
+    token (1 .. spec_k tokens a step). On the card the whole step is one
+    captured graph, and the host reads the verified tokens and their
+    counts after it.
 
 ContinuousBatcher is the scheduler loop the HTTP server drives.
-
-Not ported yet: speculative batching (spec_k > 0); BatchEngine raises
-NotImplementedError for it.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ from effort_tpu_torch.config import ModelConfig
 from effort_tpu_torch.models.generate import _to_device
 from effort_tpu_torch.models.graphs import StepGraph
 from effort_tpu_torch.models.transformer import (ModelWeights, forward_seq,
+                                                 forward_seq_batch,
                                                  forward_token_batch,
                                                  make_batch_kv_cache,
                                                  make_kv_cache,
@@ -62,6 +70,8 @@ class BatchEngine:
     the kernel; the JAX package's BatchEngine defaults to its "jnp" route,
     which is the port's "reference" (every weight read).
     kv_dtype: "bf16" or "int8" (the cache quantized per row and kv head).
+    spec_k > 0: speculative steps (the module docstring), drafts at
+    spec_draft_effort; the bf16 cache only, as in the JAX package.
     capture: the step as a replayed CUDA graph, the default on the card
     for row-prefix weights; capture=False runs it eagerly there (tests,
     chip_smoke.py).
@@ -70,14 +80,18 @@ class BatchEngine:
     def __init__(self, weights: ModelWeights, cfg: ModelConfig,
                  batch_size: int = 4, pad_to: int = 32, eos_id: int = 2,
                  impl: str = "auto", prefill_impl: str = "auto",
-                 kv_dtype: str = "bf16", spec_k: int = 0, device=None,
-                 capture=None):
+                 kv_dtype: str = "bf16", spec_k: int = 0,
+                 spec_draft_effort: float = 0.25, device=None, capture=None):
         if kv_dtype not in ("bf16", "int8"):
             raise ValueError(f"kv_dtype {kv_dtype!r}: bf16 or int8")
-        if spec_k:
-            raise NotImplementedError(
-                "spec_k: speculative batching is not ported yet (ROADMAP.md, "
-                "modules to port, item 3)")
+        if spec_k < 0:
+            raise ValueError(f"spec_k {spec_k} < 0")
+        if spec_k and kv_dtype == "int8":
+            raise ValueError("speculative batching verifies through "
+                             "forward_seq_batch, which writes bf16 cache "
+                             "rows: kv_dtype='bf16' only")
+        self.spec_k = spec_k
+        self.spec_draft_effort = spec_draft_effort
         self.device = resolve_device(device)
         self.w = weights.to(self.device)
         self.cfg = cfg
@@ -117,6 +131,14 @@ class BatchEngine:
                                 device=self.device)
         self.logits = torch.zeros((batch_size, cfg.vocab_size),
                                   dtype=torch.float32, device=self.device)
+        # speculative steps: tokens each slot may still emit, the draft
+        # effort, and the step's output: the verified tokens [B, spec_k]
+        # with each slot's count of emitted ones in the last column
+        self.remaining = z.clone()
+        self.draft_eff = torch.full((), float(spec_draft_effort),
+                                    dtype=torch.float32, device=self.device)
+        self.spec_out = torch.zeros((batch_size, spec_k + 1),
+                                    dtype=torch.int32, device=self.device)
         self.pos_host = [0] * batch_size
         self.slots = [SlotState() for _ in range(batch_size)]
 
@@ -135,8 +157,9 @@ class BatchEngine:
         pass takes K2 at every effort, 1.0 included."""
         P = max(self.pad_to,
                 -(-len(prompt_ids) // self.pad_to) * self.pad_to)
-        if P + n_new > self.cfg.max_seq_len:
-            raise ValueError(f"{P} + {n_new} positions exceed max_seq_len "
+        if P + n_new + self.spec_k > self.cfg.max_seq_len:
+            raise ValueError(f"{P} + {n_new} (+ spec_k {self.spec_k}) "
+                             f"positions exceed max_seq_len "
                              f"{self.cfg.max_seq_len}")
         offset = P - len(prompt_ids)
         ids_lp = _to_device([0] * offset + list(prompt_ids), self.device)
@@ -169,6 +192,7 @@ class BatchEngine:
         self.offs[b] = offset
         self.efforts[b] = float(effort)
         self.live[b] = not st.done
+        self.remaining[b] = max(1, n_new - 1)
         self.pos_host[b] = P
 
     def _step(self) -> None:
@@ -187,25 +211,64 @@ class BatchEngine:
         self.pos.copy_(torch.clamp(self.pos + 1,
                                    max=self.cfg.max_seq_len - 1))
 
+    def _spec_step(self) -> None:
+        """The speculative step on the static buffers, in place: spec_k
+        batched draft steps at the draft effort (0 for idle slots; cache
+        positions clamped to the last row), one forward_seq_batch verify
+        of the consumed tokens at each slot's own effort (0 for idle
+        slots), and the JAX package's acceptance: while the next consumed
+        token equals the verifier's pick, clipped to the slot's remaining
+        tokens. Every slot's token and position advance (idle slots
+        harmlessly); spec_out gets the verified tokens and the counts."""
+        k, last = self.spec_k, self.cfg.max_seq_len - 1
+        effs = torch.where(self.live, self.efforts, 0.0)
+        d_eff = torch.where(effs > 0, self.draft_eff, 0.0)
+        t, consumed = self.tokens, []
+        for i in range(k):
+            consumed.append(t)
+            logits = forward_token_batch(
+                self.w, self.cfg, t, torch.clamp(self.pos + i, max=last),
+                self.k_cache, self.v_cache, d_eff, offs=self.offs,
+                impl=self.impl)
+            t = torch.argmax(logits, dim=-1).to(torch.int32)
+        consumed = torch.stack(consumed, dim=1)                   # [B, k]
+        vtoks = torch.argmax(forward_seq_batch(
+            self.w, self.cfg, consumed, self.k_cache, self.v_cache,
+            self.pos, self.offs, effs, impl=self.prefill_impl),
+            dim=-1).to(torch.int32)                               # [B, k]
+        acc = torch.cumprod((consumed[:, 1:] == vtoks[:, :-1]).to(
+            torch.int32), dim=1).sum(dim=1).to(torch.int32)
+        n_emit = torch.clamp(torch.minimum(acc + 1, self.remaining), min=1)
+        self.spec_out.copy_(torch.cat([vtoks, n_emit[:, None]], dim=1))
+        self.tokens.copy_(vtoks.gather(1, (n_emit - 1).long()[:, None])[:, 0])
+        self.pos.copy_(torch.clamp(self.pos + n_emit, max=last))
+        self.remaining.copy_(torch.clamp(self.remaining - n_emit, min=1))
+
+    def _replay(self, step, key, saved) -> None:
+        """step() as a replay of its captured graph on the card (captured
+        on the first call; its warm-up changes the buffers `saved`, which
+        are restored), or step() itself."""
+        if not self.capture:
+            step()
+            return
+        if self._graph is None:
+            keep = [t.clone() for t in saved]
+            self._graph = StepGraph(step, key, self.device)
+            for t, s in zip(saved, keep):
+                t.copy_(s)
+        self._graph.replay()
+
     def step(self) -> List[int]:
         """One batched decode step (a replay of the captured step on the
-        card); returns the slots that finished."""
+        card), speculative when spec_k > 0; returns the slots that
+        finished."""
         act = self.active()
         if not act:
             return []
-        if not self.capture:
-            self._step()
-        else:
-            if self._graph is None:
-                # the capture's warm-up step changes the buffers: keep them
-                saved = [t.clone() for t in (self.preds, self.tokens,
-                                             self.pos)]
-                self._graph = StepGraph(
-                    self._step, ("batch", self.B, self.kv_quant),
-                    self.device)
-                for t, s in zip((self.preds, self.tokens, self.pos), saved):
-                    t.copy_(s)
-            self._graph.replay()
+        if self.spec_k:
+            return self._step_spec(act)
+        self._replay(self._step, ("batch", self.B, self.kv_quant),
+                     (self.preds, self.tokens, self.pos))
         preds_host = self.preds.tolist()
         finished = []
         last = self.cfg.max_seq_len - 1
@@ -219,6 +282,32 @@ class BatchEngine:
                 self.live[b] = False
                 finished.append(b)
         self.pos_host = [min(p + 1, last) for p in self.pos_host]
+        return finished
+
+    def _step_spec(self, act: List[int]) -> List[int]:
+        """A speculative step: each active slot emits its n_emit verified
+        tokens (cut after an EOS), then finishes at EOS, at n_new tokens,
+        or when spec_k more positions would pass the cache (the JAX
+        package's _step_spec)."""
+        self._replay(self._spec_step, ("spec", self.B, self.spec_k),
+                     (self.tokens, self.pos, self.remaining))
+        out = self.spec_out.tolist()
+        last = self.cfg.max_seq_len - 1
+        finished = []
+        self.pos_host = [min(p + row[-1], last)
+                         for p, row in zip(self.pos_host, out)]
+        for b in act:
+            st = self.slots[b]
+            for tok in out[b][:out[b][-1]]:
+                st.generated.append(tok)
+                if tok == self.eos_id:
+                    break
+            if (self.eos_id in st.generated
+                    or len(st.generated) >= st.n_new
+                    or self.pos_host[b] + self.spec_k >= last):
+                st.done = True
+                self.live[b] = False
+                finished.append(b)
         return finished
 
     def result(self, b: int) -> List[int]:

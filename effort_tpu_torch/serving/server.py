@@ -20,8 +20,10 @@ slots so concurrent requests share each decode step (serving/batcher.py).
 In single-flight mode the sampling, penalty and logprobs parameters reach
 Engine.generate, and a /q reply carries "logprobs" when asked for, as the
 JAX package's does. Batch mode refuses them with a 400: the batched step is
-argmax-only, as in the JAX package. Speculative decode is not ported yet:
-spec_k reaches Engine.generate, which raises NotImplementedError (a 500).
+argmax-only, as in the JAX package. With spec_k, a single-flight server
+answers full-effort greedy requests without logprobs through
+Engine.generate_speculative (drafts at spec_draft_effort), and a batch
+server (make_batch_server(spec_k=...)) takes speculative steps.
 """
 
 from __future__ import annotations
@@ -48,13 +50,16 @@ def mistral_instruct_prompt(query: str) -> str:
 
 class EffortServer:
     def __init__(self, engine, tokenizer=None, host="127.0.0.1", port=8089,
-                 max_queue: int = 32, batcher=None, spec_k: int = 0):
-        """spec_k (single-flight mode): full-effort greedy requests ask
-        Engine.generate for speculative decode with spec_k drafts."""
+                 max_queue: int = 32, batcher=None, spec_k: int = 0,
+                 spec_draft_effort: float = 0.25):
+        """spec_k (single-flight mode): full-effort greedy requests with no
+        logprobs go to Engine.generate_speculative, k = spec_k drafts a
+        round at spec_draft_effort."""
         self.engine = engine
         self.tokenizer = tokenizer
         self.batcher = batcher          # ContinuousBatcher or None
         self.spec_k = spec_k
+        self.spec_draft_effort = spec_draft_effort
         self.host, self.port = host, port
         self.queue: asyncio.Queue = asyncio.Queue(maxsize=max_queue)
         self.stats = {"requests": 0, "tokens": 0, "busy_rejects": 0}
@@ -133,9 +138,14 @@ class EffortServer:
         if (self.spec_k and effort >= 1.0
                 and opts.get("temperature", 0.0) <= 0
                 and not opts.get("logprobs", 0)):
-            opts["spec_k"] = self.spec_k
-        reply = self.engine.generate(ids, n_new=n_tokens, effort=effort,
-                                     **opts)
+            # the verify pass is greedy at effort 1.0 by contract; sampled
+            # and lower-effort requests take the plain path
+            reply = self.engine.generate_speculative(
+                ids, n_new=n_tokens, draft_effort=self.spec_draft_effort,
+                k=self.spec_k)
+        else:
+            reply = self.engine.generate(ids, n_new=n_tokens,
+                                         effort=effort, **opts)
         self.stats["tokens"] += len(reply.token_ids)
         text = reply.text
         finish = None
@@ -377,19 +387,21 @@ def make_server(engine, tokenizer=None, **kw) -> EffortServer:
 
 def make_batch_server(weights, cfg, tokenizer=None, batch_size: int = 4,
                       pad_to: int = 32, impl: str = "auto",
-                      kv_dtype: str = "bf16", spec_k: int = 0, device=None,
+                      kv_dtype: str = "bf16", spec_k: int = 0,
+                      spec_draft_effort: float = 0.25, device=None,
                       **kw) -> EffortServer:
     """Server in continuous-batching mode: concurrent /q requests share
     batched decode steps. impl "auto" runs K2 on the card (the JAX
     package's default is its "jnp" route, the port's "reference").
-    kv_dtype "int8" quantizes the batch KV cache. device: the card unless
-    named."""
+    kv_dtype "int8" quantizes the batch KV cache; spec_k > 0 makes the
+    steps speculative (drafts at spec_draft_effort). device: the card
+    unless named."""
     from effort_tpu_torch.models.generate import Engine
     from effort_tpu_torch.serving.batcher import (BatchEngine,
                                                   ContinuousBatcher)
     be = BatchEngine(weights, cfg, batch_size=batch_size, pad_to=pad_to,
                      impl=impl, kv_dtype=kv_dtype, spec_k=spec_k,
-                     device=device)
+                     spec_draft_effort=spec_draft_effort, device=device)
     eng = Engine(be.w, cfg, tokenizer=tokenizer, impl=impl, pad_to=pad_to,
                  device=be.device)  # eval (tokids) path
     return EffortServer(eng, tokenizer=tokenizer,
@@ -411,8 +423,10 @@ def parse_args(argv=None):
                    help="KV cache dtype (int8 = about half the memory): the "
                         "batch cache, or the single-flight engine's")
     p.add_argument("--spec-k", type=int, default=0,
-                   help="speculative batching: drafted tokens per slot "
-                        "per step (0 = off)")
+                   help="speculative decode: drafted tokens a round (single "
+                        "flight) or per slot a step (batching); 0 = off")
+    p.add_argument("--draft-effort", type=float, default=0.25,
+                   help="the speculative drafts' effort")
     p.add_argument("--device", default=None,
                    help="torch device (default: the card)")
     return p.parse_args(argv)
@@ -423,16 +437,16 @@ def build_server(args) -> EffortServer:
     tiny model with BucketConfig(bucket_size=4, chunk_rows=8), as the JAX
     package's, single-flight or with --batch slots; --kv-dtype int8 gives
     the batch engine, or the single-flight Engine (quant_kv), the int8 KV
-    cache. Options whose modules are not ported raise
+    cache; --spec-k and --draft-effort speculative decode (the bf16 cache
+    only). Options whose modules are not ported raise
     NotImplementedError naming the ROADMAP item that ports them."""
     if args.ckpt or args.tokenizer:
         raise NotImplementedError(
             "--ckpt/--tokenizer: the checkpoint loader and tokenizer are not "
             "ported yet (ROADMAP.md, modules to port, item 4: checkpoints)")
-    if args.spec_k:
-        raise NotImplementedError(
-            "--spec-k: speculative decode is not ported yet (ROADMAP.md, "
-            "modules to port, item 3: serving and decode extras)")
+    if args.spec_k and args.kv_dtype == "int8":
+        raise ValueError("--spec-k needs the bf16 KV cache")
+    spec = dict(spec_k=args.spec_k, spec_draft_effort=args.draft_effort)
     from effort_tpu_torch.config import BucketConfig, tiny_test_model
     from effort_tpu_torch.models.generate import Engine
     from effort_tpu_torch.models.transformer import init_random_weights
@@ -442,9 +456,9 @@ def build_server(args) -> EffortServer:
     if args.batch > 0:
         return make_batch_server(w, cfg, batch_size=args.batch,
                                  port=args.port, kv_dtype=args.kv_dtype,
-                                 device=args.device)
+                                 device=args.device, **spec)
     return EffortServer(Engine(w, cfg, quant_kv=args.kv_dtype == "int8",
-                               device=args.device), port=args.port)
+                               device=args.device), port=args.port, **spec)
 
 
 def main(argv=None):

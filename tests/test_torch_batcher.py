@@ -197,14 +197,118 @@ def test_batch_matches_single_with_window(model, full_tau):
 
 def test_batch_engine_guards(model):
     """kv_dtype="int8" builds the int8 cache; speculative batching
-    (spec_k), not ported yet, raises; a request longer than the cache is
-    refused, and an idle engine's step is a no-op."""
+    (spec_k) runs on the bf16 cache and refuses the int8 one (ValueError
+    where the JAX package asserts), and counts spec_k positions more
+    against the cache; a request longer than the cache is refused, and an
+    idle engine's step is a no-op."""
     _, tw = model
     be8 = BatchEngine(tw, _cfg(), kv_dtype="int8", device="cpu")
     assert be8.kv_quant and be8.k_cache[0].dtype == torch.int8
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        BatchEngine(tw, _cfg(), spec_k=4, device="cpu")
+    with pytest.raises(ValueError, match="bf16"):
+        BatchEngine(tw, _cfg(), spec_k=4, kv_dtype="int8", device="cpu")
+    bs = BatchEngine(tw, _cfg(), batch_size=2, pad_to=PAD, spec_k=4,
+                     device="cpu")
+    assert bs.spec_k == 4 and bs.spec_out.shape == (2, 5)
+    assert bs.step() == []
+    with pytest.raises(ValueError, match="spec_k"):
+        bs.admit(0, 0, [1, 2, 3], n_new=54)
     be = BatchEngine(tw, _cfg(), batch_size=2, pad_to=PAD, device="cpu")
     assert be.step() == [] and be.free_slots() == [0, 1]
     with pytest.raises(ValueError):
         be.admit(0, 0, [1, 2, 3], n_new=60)
+
+
+# ---- speculative batching (spec_k > 0) --------------------------------------
+
+SPEC_PROMPTS = [[1, 5, 9], [4, 8, 15, 16, 23]]
+SPEC_EFFORTS = [1.0, 0.6]
+
+
+@pytest.fixture(scope="module")
+def rank_model():
+    """The JAX package's tests/test_batcher.py model: tiny_test_model
+    (max_seq_len=64), BucketConfig(bucket_size=4, chunk_rows=8), seed 0."""
+    jw = jax_tf.init_random_weights(
+        jax_tiny(max_seq_len=64), JaxBucketConfig(bucket_size=4,
+                                                  chunk_rows=8), seed=0)
+    return jw, model_weights_from_numpy(jax_weights_to_numpy(jw))
+
+
+def _serve_jax(jw, **kw):
+    jcb, out, streamed = JaxBatcher(JaxBatchEngine(
+        jw, jax_tiny(max_seq_len=64), batch_size=2, pad_to=PAD, impl="jnp",
+        prefill_impl="jnp", **kw)), {}, {}
+    for i, (p, e) in enumerate(zip(SPEC_PROMPTS, SPEC_EFFORTS)):
+        jcb.submit(p, 8, e, lambda toks, i=i: out.__setitem__(i, toks),
+                   on_token=streamed.setdefault(i, []).append)
+    jcb.run_until_drained()
+    return out, streamed
+
+
+def _serve_spec(tw, impl, **kw):
+    cb, out, streamed = ContinuousBatcher(BatchEngine(
+        tw, _cfg(), batch_size=2, pad_to=PAD, impl=impl, prefill_impl=impl,
+        device="cpu", **kw)), {}, {}
+    for i, (p, e) in enumerate(zip(SPEC_PROMPTS, SPEC_EFFORTS)):
+        cb.submit(p, 8, e, lambda toks, i=i: out.__setitem__(i, toks),
+                  on_token=streamed.setdefault(i, []).append)
+    cb.run_until_drained()
+    return out, streamed
+
+
+@pytest.mark.parametrize("which", ["rank", "row"])
+def test_speculative_batching_matches_plain(model, rank_model, which):
+    """The JAX package's test_speculative_batching_matches_plain: with
+    spec_k = 4 drafts at 0.3, each slot emits what plain batched decode
+    emits at its own effort. The port's reference route gives JAX's
+    BatchEngine(spec_k=4, spec_draft_effort=0.3) tokens on the same
+    inputs, which are JAX's plain ones, on a rank-prefix and a row-prefix
+    model."""
+    jw, tw = rank_model if which == "rank" else model
+    plain, _ = _serve_jax(jw)
+    jspec, _ = _serve_jax(jw, spec_k=4, spec_draft_effort=0.3)
+    assert jspec == plain
+    got, streamed = _serve_spec(tw, "reference", spec_k=4,
+                                spec_draft_effort=0.3)
+    assert got == jspec
+    assert streamed == got
+
+
+def test_speculative_batching_kernel_route(model, full_tau):
+    """On the kernel route (K2's plain version: drafts over the B slots,
+    the verify over the B * spec_k rows) at tau = 1, speculative batching
+    gives the plain batched tokens at each slot's effort; CPU tensors
+    count no launch."""
+    _, tw = model
+    launches = dict(LAUNCHES)
+    plain, _ = _serve_spec(tw, "kernel")
+    for k, de in ((4, 0.3), (3, 1.0)):
+        got, streamed = _serve_spec(tw, "kernel", spec_k=k,
+                                    spec_draft_effort=de)
+        assert got == plain, (k, de)
+        assert streamed == got
+    assert LAUNCHES == launches
+
+
+def test_speculative_batching_streams_all_tokens(rank_model):
+    """The JAX package's test_speculative_batching_streams_all_tokens:
+    every token a speculative step lands is streamed (several a step),
+    and the stream is the result, JAX's."""
+    jw, tw = rank_model
+    jbe = JaxBatchEngine(jw, jax_tiny(max_seq_len=64), batch_size=2,
+                         pad_to=PAD, impl="jnp", prefill_impl="jnp",
+                         spec_k=4)
+    jcb, jstream, jres = JaxBatcher(jbe), [], {}
+    jcb.submit([1, 5, 9], 6, 1.0, lambda o: jres.__setitem__(0, o),
+               on_token=jstream.append)
+    jcb.run_until_drained()
+    be = BatchEngine(tw, _cfg(), batch_size=2, pad_to=PAD, impl="reference",
+                     prefill_impl="reference", spec_k=4, device="cpu")
+    cb, streamed, res, steps = ContinuousBatcher(be), [], {}, [0]
+    cb.submit([1, 5, 9], 6, 1.0, lambda o: res.__setitem__(0, o),
+              on_token=streamed.append)
+    while cb.has_work():
+        cb.tick()
+        steps[0] += 1
+    assert streamed == res[0] == jres[0] == jstream
+    assert len(res[0]) == 6 and steps[0] < 5

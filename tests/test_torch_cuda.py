@@ -928,3 +928,126 @@ def test_batch_engine_captures_its_step(kv_dtype):
         got.append((out, {k: LAUNCHES[k] - before[k] for k in LAUNCHES}))
         assert (be._graph is not None) == capture
     assert got[0] == got[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [4, 8, 64])
+def test_flash_attention_device_slots_equal_int_slots(T):
+    """K3 with start_slot and mask_from as 0-d int32 CUDA tensors (read on
+    the card) equals the int call bit for bit (Mistral-7B heads, 32/8/128,
+    a 512-slot cache, start slots 0, 37 and 448, a 128-slot window too);
+    a captured launch reads new slot values at every replay; a tensor of
+    another dtype or device is refused before any launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from effort_tpu_torch.kernels.flash_attention import flash_attention_seq
+    g = torch.Generator(device="cuda")
+    g.manual_seed(5)
+    S, H, KV, D = 512, 32, 8, 128
+    q = torch.randn((T, H * D), generator=g, device="cuda")
+    kc = torch.randn((S, KV, D), generator=g, device="cuda").bfloat16()
+    vc = torch.randn((S, KV, D), generator=g, device="cuda").bfloat16()
+
+    def dev(x):
+        return torch.full((), x, dtype=torch.int32, device="cuda")
+    for start, mask, window in ((0, 0, 0), (37, 5, 0), (448, 0, 0),
+                                (448, 0, 128)):
+        y = flash_attention_seq(q, kc, vc, start, mask, H, D, window=window)
+        yd = flash_attention_seq(q, kc, vc, dev(start), dev(mask), H, D,
+                                 window=window)
+        torch.cuda.synchronize()
+        assert torch.equal(y, yd), (start, mask, window)
+    s_buf, m_buf = dev(0), dev(0)
+    out = torch.zeros((T, H * D), device="cuda")
+    graph = torch.cuda.CUDAGraph()
+    flash_attention_seq(q, kc, vc, s_buf, m_buf, H, D)     # warm
+    torch.cuda.synchronize()
+    with torch.cuda.graph(graph):
+        out.copy_(flash_attention_seq(q, kc, vc, s_buf, m_buf, H, D))
+    for start, mask in ((37, 5), (448, 0)):
+        s_buf.fill_(start)
+        m_buf.fill_(mask)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, flash_attention_seq(q, kc, vc, start, mask,
+                                                    H, D)), start
+    before = dict(LAUNCHES)
+    for bad in (torch.zeros((), dtype=torch.int64, device="cuda"),
+                torch.zeros((), dtype=torch.int32)):
+        with pytest.raises(ValueError, match="int32"):
+            flash_attention_seq(q, kc, vc, bad, 0, H, D)
+    with pytest.raises(ValueError, match="negative"):
+        flash_attention_seq(q, kc, vc, -1, 0, H, D)
+    assert LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_engine_captures_the_speculative_round():
+    """On the card a speculative round is one replayed graph: graph and
+    eager (capture=False) rounds give the same tokens, tokens a round,
+    verify logits bit for bit and launches; the round reads no host value
+    (set_sync_debug_mode("error")), and the loop reads one status tensor
+    a round; the tokens are generate(effort=1.0)'s."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from effort_tpu_torch.models.generate import Engine
+    from effort_tpu_torch.models.transformer import HOST_READS
+    cfg, w = _tiny_dense()
+    prompt = [1, 5, 9, 13]
+    eng = Engine(w, cfg, pad_to=8, eos_id=-1)
+    eager = Engine(w, cfg, pad_to=8, eos_id=-1, capture=False)
+    ref = eng.generate(prompt, n_new=12, effort=1.0).token_ids
+    for de, k in ((0.25, 4), (1.0, 3)):
+        eng.generate_speculative(prompt, n_new=12, draft_effort=de, k=k)
+        runs = []
+        for e in (eng, eager):
+            before = dict(LAUNCHES)
+            HOST_READS["spec_status"] = 0
+            st, sp, _ = e._spec_launch(prompt, 12, de, k)
+            torch.cuda.synchronize()
+            n_gen, done, n_it = sp.status.tolist()
+            runs.append((st.ids[4:4 + 12].tolist(), n_it,
+                         sp.logits.clone(), HOST_READS["spec_status"],
+                         {n: LAUNCHES[n] - before[n] for n in LAUNCHES}))
+        (tg, ig, lg, hg, cg), (te, ie, le, he, ce) = runs
+        assert tg == te == ref, (de, k)
+        assert ig == ie and hg == he == ig, (de, k)
+        assert torch.equal(lg, le), (de, k)
+        assert cg == ce and cg["flash_attention"] == ig * cfg.n_layers
+        graph = eng._graphs[next(key for key in eng._graphs
+                                 if key.loop == "spec" and key.spec_k == k)]
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            graph.replay()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_batch_engine_captures_the_speculative_step():
+    """BatchEngine(spec_k=3)'s step is one replayed graph: the same
+    requests give the eager step's tokens and launch counts; K2 runs over
+    the B * spec_k rows of the verify."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from effort_tpu_torch.serving.batcher import (BatchEngine,
+                                                  ContinuousBatcher)
+    cfg, w = _tiny_dense()
+    prompts = [[1, 5, 9], [4, 8, 15, 16, 23], [7, 7, 3], [2, 9]]
+    efforts = [1.0, 0.5, 0.25, 0.5]
+    got = []
+    for capture in (True, False):
+        be = BatchEngine(w, cfg, batch_size=2, pad_to=8, eos_id=-1,
+                         spec_k=3, capture=capture)
+        cb = ContinuousBatcher(be)
+        out = {}
+        for i, (p, e) in enumerate(zip(prompts, efforts)):
+            cb.submit(p, 6, e, lambda t, i=i: out.__setitem__(i, t))
+        before = dict(LAUNCHES)
+        cb.run_until_drained()
+        torch.cuda.synchronize()
+        got.append((out, {k: LAUNCHES[k] - before[k] for k in LAUNCHES}))
+        assert (be._graph is not None) == capture
+    assert got[0] == got[1]
+    assert all(len(t) == 6 for t in got[0][0].values())

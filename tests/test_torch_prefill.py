@@ -226,8 +226,10 @@ def test_engine_options_not_ported(model):
     """The JAX engine's options run: sampling, penalties and logprobs in
     the token loop, sampling after a prefill (which refuses penalties and
     logprobs, as the JAX engine asserts); their "off" values are greedy.
-    Speculative decode (spec_k) still raises NotImplementedError, and an
-    unknown option a TypeError."""
+    Speculative decode runs through generate_speculative (the greedy
+    tokens at 1.0 of the token loop, on a prefill engine too, as in the
+    JAX package); generate() takes no spec_k, and an unknown option
+    raises a TypeError."""
     _, tw = model
     te = Engine(tw, tiny_test_model(), pad_to=PAD, device="cpu")
     greedy = te.generate(PROMPT, n_new=4).token_ids
@@ -244,7 +246,12 @@ def test_engine_options_not_ported(model):
     for opt in (dict(presence_penalty=0.5), dict(logprobs=2)):
         with pytest.raises(ValueError, match="token-loop"):
             tp.generate(PROMPT, n_new=4, **opt)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    greedy1 = te.generate(PROMPT, n_new=4, effort=1.0).token_ids
+    assert te.generate_speculative(PROMPT, n_new=4, k=4).token_ids == \
+        greedy1
+    assert tp.generate_speculative(PROMPT, n_new=4, k=4).token_ids == \
+        greedy1
+    with pytest.raises(TypeError):
         te.generate(PROMPT, n_new=2, spec_k=4)
     with pytest.raises(TypeError):
         te.generate(PROMPT, n_new=2, beams=2)

@@ -187,8 +187,9 @@ def test_server_main_arguments():
     tiny B = 4 model's server (on the named device; the card by default),
     single-flight or batched, which answers /q; --kv-dtype int8 builds
     the int8 KV cache (the batch engine's, or the single-flight Engine's
-    quant_kv); --ckpt, --tokenizer and --spec-k raise NotImplementedError
-    naming the ROADMAP item that ports them."""
+    quant_kv); --spec-k and --draft-effort give speculative decode (single
+    flight and batched; not with the int8 cache); --ckpt and --tokenizer
+    raise NotImplementedError naming the ROADMAP item that ports them."""
     args = port_server.parse_args([])
     assert (args.port, args.batch, args.device) == (8089, 0, None)
     srv = port_server.build_server(port_server.parse_args(
@@ -206,24 +207,39 @@ def test_server_main_arguments():
          "cpu"]))
     assert bq8.batcher.eng.kv_quant
     for argv, item in ((["--ckpt", "x"], "item 4"),
-                       (["--tokenizer", "x"], "item 4"),
-                       (["--spec-k", "2"], "item 3")):
+                       (["--tokenizer", "x"], "item 4")):
         with pytest.raises(NotImplementedError, match=item):
             port_server.build_server(port_server.parse_args(
                 argv + ["--device", "cpu"]))
+    sp = port_server.build_server(port_server.parse_args(
+        ["--spec-k", "2", "--draft-effort", "0.5", "--port", "0",
+         "--device", "cpu"]))
+    assert (sp.spec_k, sp.spec_draft_effort) == (2, 0.5)
+    bsp = port_server.build_server(port_server.parse_args(
+        ["--batch", "2", "--spec-k", "2", "--port", "0", "--device",
+         "cpu"]))
+    assert bsp.batcher.eng.spec_k == 2
+    with pytest.raises(ValueError, match="bf16"):
+        port_server.build_server(port_server.parse_args(
+            ["--spec-k", "2", "--kv-dtype", "int8", "--device", "cpu"]))
 
-    async def ask(s):
+    async def ask(s, effort=50):
         await s.start()
         try:
-            url = f"http://127.0.0.1:{s.port}/q?query=hi&effort=50&numtokens=3"
+            url = (f"http://127.0.0.1:{s.port}/q?query=hi&effort={effort}"
+                   f"&numtokens=3")
             body = await asyncio.get_running_loop().run_in_executor(
                 None, lambda: urllib.request.urlopen(url, timeout=120).read())
             return json.loads(body)
         finally:
             await s.stop()
-    for s in (srv, bsrv, q8, bq8):
+    for s in (srv, bsrv, q8, bq8, bsp):
         reply = asyncio.run(ask(s))["reply"]
         assert len(json.loads(reply)) <= 3 and reply.startswith("[")
+    # single-flight --spec-k answers a full-effort /q speculatively
+    sp_reply = asyncio.run(ask(sp, effort=100))["reply"]
+    assert sp_reply == str(sp.engine.generate(sp._encode_query("hi"),
+                                              n_new=3).token_ids)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             port_server.build_server(port_server.parse_args([]))

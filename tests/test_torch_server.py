@@ -1,8 +1,8 @@
 """The port's HTTP server end to end on the CPU, on the tiny model with the
 row-prefix layout (bucket_size=1): the five cases of tests/test_server.py,
 each server on a free port (port=0), plus the single-flight answers to
-sampling and logprobs and to speculative decode, which is not ported
-yet.
+sampling and logprobs, and speculative decode (single flight and
+batched).
 """
 
 import asyncio
@@ -87,14 +87,29 @@ def test_server_endpoints(weights):
         assert all(len(d) == 3 for d in body["logprobs"])
     _run(srv, client)
 
-    # speculative decode is not ported: the engine raises, a 500
-    spec = EffortServer(Engine(w, cfg, pad_to=8, device="cpu"), port=0,
-                        spec_k=2)
+    # speculative decode: a full-effort greedy /q goes to
+    # generate_speculative, which gives the greedy tokens at 1.0; a
+    # lower-effort one takes generate
+    eng = Engine(w, cfg, pad_to=8, device="cpu")
+    spec = EffortServer(eng, port=0, spec_k=2, spec_draft_effort=0.5)
+    ids = spec._encode_query("hi")
+    calls = []
+    real = eng.generate_speculative
+
+    def counted(*a, **kw):
+        calls.append(kw)
+        return real(*a, **kw)
+    eng.generate_speculative = counted
 
     def client_spec(port):
-        st, body = _get(port, "/q?query=hi&numtokens=2&effort=100")
-        assert st == 500 and "not ported yet" in body["error"]
+        st, body = _get(port, "/q?query=hi&numtokens=4&effort=100")
+        assert st == 200
+        assert body["reply"] == str(eng.generate(ids, n_new=4,
+                                                 effort=1.0).token_ids)
+        st, body = _get(port, "/q?query=hi&numtokens=4&effort=50")
+        assert st == 200 and "reply" in body
     _run(spec, client_spec)
+    assert calls == [dict(n_new=4, draft_effort=0.5, k=2)]
 
 
 def test_batch_server_concurrent_requests(weights):
@@ -156,3 +171,22 @@ def test_openai_completions_endpoint(weights):
         assert body.strip().endswith("data: [DONE]")
         assert body.count('"text_completion"') >= 4
     _run(_batch_server(weights), client)
+
+
+def test_batch_server_speculative(weights):
+    """make_batch_server(spec_k=...) serves concurrent requests through
+    speculative steps, with the plain batch server's tokens."""
+    cfg, w = weights
+
+    def client(port):
+        return [_get(port, f"/q?query=h{i}&effort={e}&numtokens=5")
+                for i, e in enumerate((100, 50))]
+    plain = _run(_batch_server(weights), client)
+    spec = _run(make_batch_server(w, cfg, batch_size=2, pad_to=8, port=0,
+                                  spec_k=3, spec_draft_effort=0.25,
+                                  impl="reference", device="cpu"), client)
+    ref = _run(make_batch_server(w, cfg, batch_size=2, pad_to=8, port=0,
+                                 impl="reference", device="cpu"), client)
+    assert all(st == 200 for st, _ in plain + spec)
+    assert [b["token_ids"] for _, b in spec] == \
+        [b["token_ids"] for _, b in ref]
