@@ -108,9 +108,11 @@ Phases, one JSON line each (a failure raises and exits non-zero):
             set_sync_debug_mode("error")
   batch_spec
             BatchEngine(batch_size=4, spec_k=4) on the same model, the 8
-            serving requests at mixed efforts: ms and tokens a step; the
-            requests at effort 1.0 give plain batched decode's tokens
-            (near-tie rule); the others' first divergence printed
+            serving requests at mixed efforts: ms and tokens a step; at
+            tau = 1 the requests at effort 1.0 give plain batched decode's
+            tokens (near-tie rule); every first divergence printed, at
+            tau = 1 and at the default tau (where K2's prefix, the longest
+            of its rows', depends on which rows share the launch)
   int8_kv   the int8 KV cache: under 0.6x the bf16 cache's bytes; its
             attention read against the bf16 cache's on the same inputs
             at every layer and position (128 teacher-forced, depth 32,
@@ -122,6 +124,23 @@ Phases, one JSON line each (a failure raises and exits non-zero):
             teacher-forced positions against a full cache of max_seq_len
             4224, cos >= 0.999 at every position >= 4096 at effort 1.0
             (0.25 printed)
+  ckpt      the row-prefix model freed: a random HF-format Mistral-7B
+            checkpoint (HF_MISTRAL: full width, CKPT_LAYERS deep, bf16,
+            seeded) written to a temporary directory; config_from_hf;
+            convert_checkpoint on the card (int8 row-prefix, fused,
+            calibrated with seeded rms, dense copies stored), its seconds
+            and GB/s; load_bucketized onto the card, its seconds. Gate 1:
+            layer 0's four projections converted again on the CPU, vals,
+            pos, probes and dense copies byte for byte, stats and scales
+            within 1e-6 relative. Gate 2: the loaded model against
+            assemble_weights on the same raw arrays and calibration (the
+            fields that differ printed): the same greedy tokens for 3
+            prompts x 16 tokens at efforts 0.25/0.5/1.0 and teacher-forced
+            logits cos >= 0.9999; decode ms a token of both. Gate 3: K1,
+            K2 and K3 against their plain versions on the loaded model's
+            own inputs. build_server(--ckpt, --tokenizer, --batch 4 and
+            0) answering four /q with decoded text (a BPE tokenizer.json
+            the phase writes); which IO paths ran (native or Python)
   kernels_rank
             K4 (fused_matvec, csrc/fused_matvec.cu) and K5 (stream_matvec,
             csrc/stream_matvec.cu) against their plain versions at the four
@@ -212,14 +231,21 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from effort_tpu_torch.config import BucketConfig, mistral_7b, mixtral_8x7b
+from effort_tpu_torch.convert.convert import (HF_NAME_MAPS,
+                                              _bucketize_and_store,
+                                              config_from_hf,
+                                              convert_checkpoint)
 from effort_tpu_torch.kernels import LAUNCHES, _build, reset_launches
 from effort_tpu_torch.kernels import (fused_stream, gather_dma, gather_mul,
                                       prefix_stream)
@@ -228,7 +254,7 @@ from effort_tpu_torch.models import transformer
 from effort_tpu_torch.models.generate import Engine, _pick_token
 from effort_tpu_torch.ops import bucketmul
 from effort_tpu_torch.models.transformer import (HOST_READS, _attention,
-                                                 embed,
+                                                 assemble_weights, embed,
                                                  forward_layers,
                                                  forward_seq, forward_token,
                                                  forward_token_batch,
@@ -243,8 +269,13 @@ from effort_tpu_torch.ops.bucketize import (bucketize, calib_row_order,
                                             pick_chunk_rows)
 from effort_tpu_torch.ops.bucketmul import dense_matvec
 from effort_tpu_torch.ops.effort import effort_q16, select_blocks
+from effort_tpu_torch.models.weights import load_bucketized
+from effort_tpu_torch.runtime._native_build import native_lib_path
+from effort_tpu_torch.runtime.safetensors_io import (MultiShardReader,
+                                                     SafeTensorWriter)
 from effort_tpu_torch.serving.batcher import BatchEngine, ContinuousBatcher
-from effort_tpu_torch.serving.server import make_batch_server, make_server
+from effort_tpu_torch.serving.server import (build_server, make_batch_server,
+                                             make_server, parse_args)
 from effort_tpu_torch.utils.timing import gpu_ms
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
@@ -2006,10 +2037,10 @@ def phase_int8_kv(cfg, w, w_plain) -> dict:
 
 
 RING_POSITIONS = 4160
-# 28 of Mistral-7B's 32 layers: the phase steps 4 x 4160 positions (220 s
-# of the run at 32 layers), and the cut keeps the whole run, with the
-# speculative phases, within the time it had before them
-RING_LAYERS = 28
+# 16 of Mistral-7B's 32 layers: the phase steps 4 x 4160 positions (220 s
+# of the run at 32 layers, 192 s at 28), and the cut keeps the whole run,
+# with the speculative and checkpoint phases, well inside its time limit
+RING_LAYERS = 16
 
 
 def phase_ring_kv(cfg, w) -> dict:
@@ -3001,41 +3032,55 @@ def phase_batch_spec(what: str, cfg, w, k: int = 4,
     """BatchEngine(batch_size=4, spec_k=k) serving the 8 serving requests
     (efforts 0.25/0.5/1.0, N_NEW tokens) against plain batched decode at
     the same efforts; ms and tokens a step (host clock; the spec steps
-    warm first), launches. Gates: the requests at effort 1.0 give the
-    plain tokens, a first divergence only at a near tie of the plain step
-    (NEAR_TIE); every request's first divergence is printed. Below 1.0
-    the verify's attention (K3, queries rounded to bf16) against the
-    plain step's (f32) moves which rows the next selection takes, so the
-    tokens part there at this depth (PERF.md §6); those are printed
-    only."""
+    warm first), launches, at the default tau. Gate, at tau = 1: the
+    requests at effort 1.0 give the plain tokens, a first divergence only
+    at a near tie of the plain step (NEAR_TIE). At tau < 1 K2 streams the
+    longest prefix of the rows it is given (the verify's B * k rows, plain
+    decode's B), so an effort-1.0 request's logits depend on the requests
+    beside it; at tau = 1 every row streams every chunk and only rounding
+    parts the two (the verify's K3 takes bf16 queries). Below 1.0 that
+    rounding moves which rows the next selection takes, so those tokens
+    part at this depth (PERF.md §6). Every first divergence is printed."""
     reqs = serve_requests(cfg)
-    plain, gaps, p_steps, _ = serve_with_gaps(
-        BatchEngine(w, cfg, batch_size=4, eos_id=-1), reqs, SERVE_EFFORTS,
-        N_NEW)
-    be = BatchEngine(w, cfg, batch_size=4, eos_id=-1, spec_k=k,
-                     spec_draft_effort=draft)
-    serve_with_gaps(be, reqs[:1], (0.25,), 2)                # warm-up
-    torch.cuda.synchronize()
-    reset_launches()
-    spec, _, steps, ms = serve_with_gaps(be, reqs, SERVE_EFFORTS, N_NEW)
-    launches = dict(LAUNCHES)
-    divs = {i: first_divergence(plain[i], spec[i],
-                                lambda j, i=i: gaps.get((i, j),
-                                                        (math.inf, -1)))
-            for i in range(len(reqs))}
+
+    def compare(r: dict) -> dict:
+        plain, gaps, p_steps, _ = serve_with_gaps(
+            BatchEngine(w, cfg, batch_size=4, eos_id=-1), reqs,
+            SERVE_EFFORTS, N_NEW)
+        be = BatchEngine(w, cfg, batch_size=4, eos_id=-1, spec_k=k,
+                         spec_draft_effort=draft)
+        serve_with_gaps(be, reqs[:1], (0.25,), 2)                # warm-up
+        torch.cuda.synchronize()
+        reset_launches()
+        spec, _, steps, ms = serve_with_gaps(be, reqs, SERVE_EFFORTS, N_NEW)
+        r.update(launches={x: c for x, c in LAUNCHES.items() if c},
+                 steps=steps, ms=ms, plain_steps=p_steps)
+        check_replies([spec.get(i) or [] for i in range(len(reqs))], cfg,
+                      N_NEW, "batch_spec")
+        return {i: d for i in range(len(reqs))
+                if (d := first_divergence(
+                    plain[i], spec[i],
+                    lambda j, i=i: gaps.get((i, j), (math.inf, -1))))}
+
+    run = {}
+    divs = compare(run)
+    saved = fused_stream._TAU
+    fused_stream._TAU = 1.0
+    try:
+        divs_tau1 = compare({})
+    finally:
+        fused_stream._TAU = saved
+    steps, launches = run["steps"], run["launches"]
     r = dict(model=what, spec_k=k, draft_effort=draft, requests=len(reqs),
-             new_tokens=N_NEW, steps=steps, ms_per_step=ms / steps,
+             new_tokens=N_NEW, steps=steps, ms_per_step=run["ms"] / steps,
              tokens_per_step=len(reqs) * N_NEW / steps,
-             plain_steps=p_steps,
-             launches={x: c for x, c in launches.items() if c},
-             divergences={i: d for i, d in divs.items() if d})
+             plain_steps=run["plain_steps"], launches=launches,
+             divergences=divs, divergences_tau1=divs_tau1)
     emit({"phase": "batch_spec", **r})
-    check_replies([spec.get(i) or [] for i in range(len(reqs))], cfg, N_NEW,
-                  "batch_spec")
-    if any(d and not d["near_tie"] for i, d in divs.items()
+    if any(not d["near_tie"] for i, d in divs_tau1.items()
            if SERVE_EFFORTS[i] >= 1.0):
         raise AssertionError(f"batched spec tokens part from plain batched "
-                             f"decode at effort 1.0: {r}")
+                             f"decode at effort 1.0, tau = 1: {r}")
     if not launches.get("mxu_matvec_batch") or not launches.get(
             "flash_attention"):
         raise AssertionError(f"batched spec skipped K2 or K3: {r}")
@@ -3069,6 +3114,451 @@ def phase_moe_spec(cfg, w, prompt) -> dict:
         fused_stream._TAU = tau
     out["rows"] += gate["rows"]
     out["depth4_graph"] = gate["graph"]
+    return out
+
+
+# ---- checkpoints: HF -> convert -> load -> serve --------------------------
+
+# depth of the converted checkpoint: 32 layers are 14.5 GB of bf16 source
+# plus about 7.5 GB converted on disk, and every layer's conversion is the
+# same code at the same width (depth adds bytes, not coverage)
+CKPT_LAYERS = 4
+CKPT_EFFORTS = (0.25, 0.5, 1.0)
+CKPT_NEW = 16
+CKPT_PROMPTS = (5, 17, 32)
+# Mistral-7B-Instruct-v0.2's config.json (HF), depth cut to CKPT_LAYERS
+HF_MISTRAL = {
+    "architectures": ["MistralForCausalLM"], "model_type": "mistral",
+    "hidden_size": 4096, "intermediate_size": 14336,
+    "num_hidden_layers": CKPT_LAYERS, "num_attention_heads": 32,
+    "num_key_value_heads": 8, "vocab_size": 32000, "rms_norm_eps": 1e-5,
+    "rope_theta": 1e6, "max_position_embeddings": 32768,
+    "sliding_window": None, "tie_word_embeddings": False,
+    "torch_dtype": "bfloat16", "bos_token_id": 1, "eos_token_id": 2,
+    "hidden_act": "silu"}
+CKPT_QUERIES = ("hello there", "tell me a story", "how are you doing",
+                "the quick brown fox")
+
+
+def write_hf_mistral(d: Path, seed: int) -> dict:
+    """A random HF-format Mistral checkpoint in d: HF_MISTRAL as its
+    config.json and bf16 tensors ([out, in], HF_NAME_MAPS["mistral"]
+    names) in 5 GB shards, as HF ships them; made on the card from a seed.
+    Returns the bf16 card tensors by name."""
+    h = HF_MISTRAL
+    dim, hid, L = h["hidden_size"], h["intermediate_size"], CKPT_LAYERS
+    hd = dim // h["num_attention_heads"]
+    q, kv = h["num_attention_heads"] * hd, h["num_key_value_heads"] * hd
+    names = HF_NAME_MAPS["mistral"]
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+
+    def rnd(shape, scale=0.02, base=0.0):
+        return (base + scale * torch.randn(shape, generator=g,
+                                           device="cuda")).to(torch.bfloat16)
+
+    t = {names["embed"]: rnd((h["vocab_size"], dim)),
+         names["lm_head"]: rnd((h["vocab_size"], dim)),
+         names["norm"]: rnd((dim,), 0.1, 1.0)}
+    for l in range(L):
+        for p, shape in (("wq", (q, dim)), ("wk", (kv, dim)),
+                         ("wv", (kv, dim)), ("wo", (dim, q)),
+                         ("w1", (hid, dim)), ("w2", (dim, hid)),
+                         ("w3", (hid, dim))):
+            t[names[p].format(l=l)] = rnd(shape)
+        for p in ("attn_norm", "ffn_norm"):
+            t[names[p].format(l=l)] = rnd((dim,), 0.1, 1.0)
+    w = SafeTensorWriter(str(d), "model", shard_bytes=5 * 2**30)
+    for name, x in t.items():
+        w.add(name, x.view(torch.int16).cpu().numpy().view(np.uint16),
+              bf16_bits=True)
+    w.save()
+    with open(d / "config.json", "w") as f:
+        json.dump(h, f, indent=1)
+    return t
+
+
+def raw_from_hf(t: dict, cfg) -> dict:
+    """assemble_weights' raw dict ([n_inst, in, out] f32 on the card) of
+    the same HF tensors the converter read."""
+    names, L = HF_NAME_MAPS["mistral"], cfg.n_layers
+
+    def stack(p):
+        return torch.stack([t[names[p].format(l=l)].float().T
+                            for l in range(L)])
+    raw = {p: stack(p) for p in ("wq", "wk", "wv", "wo", "w1", "w2", "w3")}
+    raw.update(ffn_gate=None, tok_embeddings=t[names["embed"]].float(),
+               output=t[names["lm_head"]].float().T,
+               norm=t[names["norm"]].float(),
+               **{k: torch.stack([t[names[p].format(l=l)].float()
+                                  for l in range(L)])
+                  for k, p in (("attn_norm", "attn_norm"),
+                               ("ffn_norm", "ffn_norm"))})
+    return raw
+
+
+def write_bpe_tokenizer(path: Path, vocab_size: int) -> None:
+    """A SentencePiece-style BPE tokenizer.json: <unk>, <s>, </s>, the 256
+    byte-fallback tokens, "▁" and the printable ASCII characters, a few
+    merges, and word pieces "▁x<i>" up to vocab_size (so every id a model
+    can give decodes to text)."""
+    sp = "▁"
+    vocab = {"<unk>": 0, "<s>": 1, "</s>": 2}
+    vocab.update({f"<0x{b:02X}>": 3 + b for b in range(256)})
+    for c in [sp] + [chr(i) for i in range(33, 127)]:
+        vocab.setdefault(c, len(vocab))
+    merges = [(sp, "t"), ("h", "e"), (sp + "t", "he"), ("e", "r"),
+              (sp, "a"), ("o", "r"), ("i", "n"), ("in", "g"), ("l", "l"),
+              ("o", "w"), (sp, "h"), (sp + "h", "e"), ("e", "ll")]
+    for a, b in merges:
+        vocab.setdefault(a + b, len(vocab))
+    while len(vocab) < vocab_size:
+        vocab[f"{sp}x{len(vocab)}"] = len(vocab)
+    with open(path, "w") as f:
+        json.dump({"version": "1.0", "model": {
+            "type": "BPE", "vocab": vocab, "byte_fallback": True,
+            "merges": [f"{a} {b}" for a, b in merges]}}, f)
+
+
+class Collect(dict):
+    """A writer stand-in for _bucketize_and_store: keeps what it adds."""
+
+    def add(self, name, t, bf16_bits=False):
+        self[name] = t
+
+
+def ckpt_conversion_gate(hf: dict, dst: Path, cfg, bcfg, calib) -> dict:
+    """Gate 1: layer 0's four fused projections converted again on the
+    CPU by the port, from the same source, against the card's conversion
+    on disk: vals, pos, probes and the dense copy byte for byte (and
+    seg_order, when stored); stats and scales to 1e-6 relative (f32
+    reductions run in another order on the card); the largest relative
+    difference printed."""
+    names = HF_NAME_MAPS["mistral"]
+    pi_m = np.argsort(-calib["rms_m"].cpu().numpy()).astype(np.int32)
+    pi_f = np.argsort(-calib["rms_f"].cpu().numpy()).astype(np.int32)
+    pi_13 = np.concatenate([pi_f, pi_f + cfg.hidden_dim])
+
+    def src(*ps):
+        return torch.cat([hf[names[p].format(l=0)].cpu().float()
+                          for p in ps])
+    col = Collect()
+    pre = "layers.0."
+    for prefix, w_hf, ip, op in (
+            ("attention.wqkv", src("wq", "wk", "wv"), pi_m, None),
+            ("attention.wo", src("wo"), None, pi_m),
+            ("feed_forward.experts.0.w13", src("w1", "w3"), pi_m, pi_13),
+            ("feed_forward.experts.0.w2", src("w2"), pi_f, pi_m)):
+        _bucketize_and_store(col, pre + prefix, w_hf, bcfg, True,
+                             in_perm=ip, out_perm=op)
+    r = MultiShardReader(str(dst))
+    exact, rel = [], {}
+    for name, want in col.items():
+        got = np.array(r[name])
+        if got.shape != want.shape or got.dtype != want.dtype:
+            raise AssertionError(f"conversion gate: {name} {got.shape} "
+                                 f"{got.dtype} vs {want.shape} "
+                                 f"{want.dtype}")
+        if name.endswith((".stats", ".scales")):
+            d = np.abs(got.astype(np.float64) - want) / np.maximum(
+                np.abs(want.astype(np.float64)), 1e-30)
+            rel[name] = float(d.max())
+        else:
+            exact.append(name)
+            if not np.array_equal(got, want):
+                raise AssertionError(f"conversion gate: {name} differs "
+                                     f"between the card and the CPU")
+    r.close()
+    out = dict(byte_equal=sorted(exact), max_rel=rel,
+               max_rel_all=max(rel.values()))
+    emit({"phase": "ckpt_conversion_gate", **out})
+    if not out["max_rel_all"] <= 1e-6:
+        raise AssertionError(f"conversion gate: {out}")
+    return out
+
+
+def differing_fields(a, b) -> list:
+    """Fields of two ModelWeights that are not bit for bit equal (meta
+    fields of each projection included)."""
+    diff = [f for f in ("tok_embeddings", "norm", "output")
+            if not torch.equal(getattr(a, f), getattr(b, f))]
+    la, lb = a.layers, b.layers
+    for f in ("attn_norm", "ffn_norm", "ffn_gate"):
+        x, y = getattr(la, f), getattr(lb, f)
+        if (x is None) != (y is None) or (x is not None
+                                          and not torch.equal(x, y)):
+            diff.append(f)
+    for p in transformer.PROJ_FIELDS:
+        x, y = getattr(la, p), getattr(lb, p)
+        if (x is None) != (y is None):
+            diff.append(p)
+        if x is None or y is None:
+            continue
+        for f in dataclasses.fields(x):
+            u, v = getattr(x, f.name), getattr(y, f.name)
+            if u is None or v is None:
+                same = u is None and v is None
+            elif isinstance(u, torch.Tensor):
+                same = (u.dtype == v.dtype and u.shape == v.shape
+                        and torch.equal(u, v))
+            else:
+                same = u == v
+            if not same:
+                diff.append(f"{p}.{f.name}")
+    return diff
+
+
+def timed_generate(eng, prompts, effort) -> tuple:
+    """(replies, ms a token): CUDA events around the prompts' requests."""
+    steps = sum(padded(len(p), eng.pad_to) + CKPT_NEW - 1 for p in prompts)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = [eng.generate(p, n_new=CKPT_NEW, effort=effort) for p in prompts]
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end) / steps
+
+
+def ckpt_same_input(cfg, w, prompt) -> dict:
+    """Gate 3 on the loaded model's own inputs: every K1 call of two decode
+    steps (forward_token, kernel route) against K1's plain version, and
+    every K2 and K3 call of a left-padded prefill (same_input_layers)
+    against theirs, at efforts 0.25 and 0.5: cos >= 0.9999 per layer and
+    equal C."""
+    k1 = bucketmul.mxu_matvec
+    L, rows = cfg.n_layers, []
+    P = padded(len(prompt))
+    off = P - len(prompt)
+    ids = torch.tensor([0] * off + prompt, dtype=torch.int32, device="cuda")
+
+    def seq(cfg_d, effort, impl, attn_impl):
+        return forward_seq(w, cfg_d, ids, *make_kv_cache(cfg_d, "cuda"),
+                           rope_offset=off, mask_from=off, effort=effort,
+                           impl=impl, attn_impl=attn_impl)[off:]
+
+    for effort in (0.25, 0.5):
+        cs, eq_c = [], []
+
+        def both(bm, v, eff, expert=0, tau=None):
+            y, C = k1(bm, v, eff, expert, tau, return_len=True)
+            yr, Cr = fused_stream.mxu_matvec_ref(bm, v, eff, expert, tau,
+                                                 return_len=True)
+            cs.append(torch.nn.functional.cosine_similarity(
+                y.double(), yr.double(), dim=0))
+            eq_c.append((C == Cr).all())
+            return y
+        bucketmul.mxu_matvec = both
+        try:
+            kv = make_kv_cache(cfg, "cuda")
+            eq = effort_q16(effort, "cuda")
+            for pos, tok in enumerate(prompt[:2]):
+                forward_token(w, cfg, tok, pos, *kv, effort=eq,
+                              impl="kernel")
+        finally:
+            bucketmul.mxu_matvec = k1
+        if len(cs) != 2 * 4 * L:
+            raise AssertionError(f"{len(cs)} K1 calls in 2 steps of {L} "
+                                 f"layers")
+        k1_cos = torch.stack(cs).reshape(2, L, 4).amin(dim=(0, 2))
+        r = dict(effort=effort, k1_min_cos=k1_cos.tolist(),
+                 k1_c_equal=torch.stack(eq_c).reshape(2, L, 4).all(
+                     dim=2).all(dim=0).tolist(),
+                 **same_input_layers(seq, cfg,
+                                     torch.tensor(effort, device="cuda")))
+        r["min_cos"] = min(r["k1_min_cos"] + r["k2_min_cos"]
+                           + r["k3_min_cos"])
+        rows.append(r)
+        emit({"phase": "ckpt_same_input", **r})
+        if not (r["min_cos"] >= 0.9999 and all(r["k1_c_equal"])
+                and all(r["k2_c_equal"])):
+            raise AssertionError(f"checkpoint same-input check: {r}")
+    return rows
+
+
+def ckpt_http(dst: Path, tok_json: Path, batch: int) -> dict:
+    """build_server(--ckpt, --tokenizer, --batch) on 127.0.0.1 (a free
+    port), in this process: the four CKPT_QUERIES as concurrent /q requests
+    of 8 tokens at efforts 25, 50, 100 and 25, each answered 200 with
+    decoded text (batched: the text of its token ids); the launches of the
+    run."""
+    import asyncio
+    import urllib.parse
+    import urllib.request
+    n = 8
+    srv = build_server(parse_args(["--ckpt", str(dst), "--tokenizer",
+                                   str(tok_json), "--batch", str(batch),
+                                   "--port", "0"]))
+
+    def fetch(port, q, effort):
+        url = (f"http://127.0.0.1:{port}/q?query={urllib.parse.quote(q)}"
+               f"&effort={effort}&numtokens={n}")
+        with urllib.request.urlopen(url, timeout=300) as resp:
+            return resp.status, json.loads(resp.read().decode())
+
+    async def run():
+        await srv.start()
+        loop = asyncio.get_running_loop()
+        try:
+            return await asyncio.gather(*[
+                loop.run_in_executor(None, fetch, srv.port, q, e)
+                for q, e in zip(CKPT_QUERIES, (25, 50, 100, 25))])
+        finally:
+            await srv.stop()
+
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    got = asyncio.run(run())
+    seconds = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    tok = srv.tokenizer
+    ok = all(st == 200 and isinstance(b.get("reply"), str) and b["reply"]
+             for st, b in got)
+    if batch:
+        # n tokens, or fewer ending at the end-of-sequence id 2
+        ok &= all(b["reply"] == tok.decode(b["token_ids"])
+                  and (len(b["token_ids"]) == n
+                       or b["token_ids"][-1:] == [2]) for _, b in got)
+    r = dict(batch=batch, status=[st for st, _ in got], seconds=seconds,
+             replies=[b.get("reply") for _, b in got], launches=launches,
+             tokenizer_native=tok.native, ok=ok)
+    emit({"phase": "ckpt_http", **r})
+    del srv
+    if not ok:
+        raise AssertionError(f"checkpoint server (--batch {batch}): {r}")
+    return r
+
+
+def phase_ckpt() -> dict:
+    """HF checkpoint -> convert (on the card) -> load -> serve, at
+    Mistral-7B width, CKPT_LAYERS deep (module docstring, `ckpt`)."""
+    t_phase = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        src, dst = tmp / "hf", tmp / "buckets"
+        src.mkdir()
+        t0 = time.perf_counter()
+        hf = write_hf_mistral(src, seed=12)
+        out["write_hf_s"] = time.perf_counter() - t0
+        cfg = config_from_hf(str(src))
+        want = dataclasses.replace(mistral_7b(n_layers=CKPT_LAYERS,
+                                              max_seq_len=4096,
+                                              rope_theta=1e6),
+                                   name="mistral", sliding_window=None)
+        if cfg != want:
+            raise AssertionError(f"config_from_hf: {cfg} vs {want}")
+        bcfg = BucketConfig(bucket_size=1, chunk_rows=128, dtype="int8")
+        g = torch.Generator(device="cuda")
+        g.manual_seed(13)
+        calib = {"rms_m": torch.exp(1.2 * torch.randn(
+                     cfg.dim, generator=g, device="cuda")),
+                 "rms_f": torch.exp(1.2 * torch.randn(
+                     cfg.hidden_dim, generator=g, device="cuda"))}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        convert_checkpoint(str(src), str(dst), cfg, bcfg, fuse=True,
+                           store_core=True, calib=calib, device="cuda",
+                           progress=lambda *a: None)
+        torch.cuda.synchronize()
+        out["convert_s"] = time.perf_counter() - t0
+        src_bytes = sum(f.stat().st_size for f in src.iterdir())
+        dst_bytes = sum(f.stat().st_size for f in dst.iterdir())
+        out.update(src_gb=src_bytes / 1e9, dst_gb=dst_bytes / 1e9,
+                   convert_read_gb_s=src_bytes / 1e9 / out["convert_s"],
+                   convert_written_gb_s=dst_bytes / 1e9 / out["convert_s"],
+                   disk_free_gb=os.statvfs(tmp).f_bavail
+                   * os.statvfs(tmp).f_frsize / 1e9)
+        t0 = time.perf_counter()
+        w, cfg_l, bcfg_l = load_bucketized(str(dst), device="cuda")
+        torch.cuda.synchronize()
+        out["load_s"] = time.perf_counter() - t0
+        out["load_gb_s"] = dst_bytes / 1e9 / out["load_s"]
+        if cfg_l != cfg or bcfg_l != bcfg or w.layers.wqkv.dense is None:
+            raise AssertionError("loaded config, buckets or dense copies")
+        reader = MultiShardReader(str(dst))
+        reader._reader("norm")
+        out.update(native_lib=native_lib_path() is not None,
+                   reader_native=all(x.native
+                                     for x in reader._readers.values()))
+        reader.close()
+        emit({"phase": "ckpt_convert", **out})
+
+        out["conversion_gate"] = ckpt_conversion_gate(hf, dst, cfg, bcfg,
+                                                      calib)
+        # gate 2: the loaded model against assemble_weights on the same
+        # raw arrays and calibration. The two builders break ties of equal
+        # rms apart (the converter's numpy argsort, as the JAX package's
+        # converter; assemble_weights' stable sort), and a tie moves a row
+        # across the chunk order: assemble_weights gets the converter's
+        # order, as descending ranks, and the ties are printed
+        ranks, ties = {}, {}
+        for k, v in calib.items():
+            order = torch.from_numpy(np.argsort(-v.cpu().numpy()))
+            ranks[k] = torch.empty(len(order)).index_put_(
+                (order,), torch.arange(len(order), 0, -1.0)).cuda()
+            ties[k] = len(order) - int(torch.unique(v).numel())
+        w_ref = assemble_weights(raw_from_hf(hf, cfg), cfg, bcfg,
+                                 keep_dense=True, rms_m=ranks["rms_m"],
+                                 rms_f=ranks["rms_f"], fuse=True)
+        del hf
+        diff = differing_fields(w, w_ref)
+        out["calib_ties"] = ties
+        gen = torch.Generator().manual_seed(11)
+        prompts = [torch.randint(3, cfg.vocab_size, (n,),
+                                 generator=gen).tolist()
+                   for n in CKPT_PROMPTS]
+        eng, eng_ref = Engine(w, cfg, eos_id=-1), Engine(w_ref, cfg,
+                                                         eos_id=-1)
+        warm([eng, eng_ref], prompts[0], CKPT_EFFORTS)
+        rows, runs = [], []
+        for effort in CKPT_EFFORTS:
+            reset_launches()
+            got, ms = timed_generate(eng, prompts, effort)
+            runs.append(dict(launches=dict(LAUNCHES)))
+            ref, ms_ref = timed_generate(eng_ref, prompts, effort)
+            toks = [x.token_ids for x in got]
+            teacher = prompts[1] + toks[1]
+            cs = [cos(a, b) for a, b in zip(
+                eng.token_logits(teacher, effort),
+                eng_ref.token_logits(teacher, effort))]
+            rows.append(dict(effort=effort, ms_per_token=ms,
+                             ms_per_token_in_memory=ms_ref,
+                             same_tokens=toks == [x.token_ids for x in ref],
+                             logits_min_cos=min(cs),
+                             first_tokens=toks[0][:8]))
+            emit({"phase": "ckpt_decode", **rows[-1]})
+        out.update(differing_fields=diff, decode=rows)
+        emit({"phase": "ckpt_load_gate", "differing_fields": diff,
+              "calib_ties": ties})
+        if not all(r["same_tokens"] and r["logits_min_cos"] >= 0.9999
+                   for r in rows):
+            raise AssertionError(f"loaded vs in-memory model: {rows}, "
+                                 f"differing fields {diff}")
+        del eng_ref, w_ref
+        out["same_input"] = ckpt_same_input(cfg, w, prompts[1])
+        del eng, w
+        gc.collect()
+        tok_json = tmp / "tokenizer.json"
+        write_bpe_tokenizer(tok_json, cfg.vocab_size)
+        http = [ckpt_http(dst, tok_json, b) for b in (4, 0)]
+        out["http"] = http
+        runs += [dict(launches=h["launches"]) for h in http]
+    out["runs"] = runs
+    launched = {k: sum(r["launches"].get(k, 0) for r in runs)
+                for k in ("mxu_matvec", "mxu_matvec_batch",
+                          "flash_attention")}
+    out["launches"] = launched
+    out["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "ckpt", "launches": launched, "seconds": out["seconds"],
+          **{k: out[k] for k in ("convert_s", "convert_read_gb_s",
+                                 "load_s", "src_gb", "dst_gb")}})
+    missing = [k for k, n in launched.items() if not n]
+    if missing:
+        raise AssertionError(f"kernels the checkpoint path never launched: "
+                             f"{missing}")
     return out
 
 
@@ -3227,6 +3717,8 @@ def main() -> int:
     prompts = model[3]
     del model, replies
     free_card()
+    run("ckpt", phase_ckpt)
+    free_card()
 
     cfg, w = build_rank_model()
     rank = run("rank_decode", phase_rank_decode, cfg, w, prompts)
@@ -3267,8 +3759,8 @@ def main() -> int:
                  + out["moe_spec"]["rows"])
     k1_runs = (out["generate"] + out["prefill"] + out["moe_decode"]
                + [out["moe_serve"], out["moe_serve"]["http_single"]]
-               + spec_runs)
-    serve_runs += spec_runs
+               + spec_runs + out["ckpt"]["runs"])
+    serve_runs += spec_runs + out["ckpt"]["runs"]
     summary_rank = lambda p: (p["dtype"], p["effort"],   # noqa: E731
                               p.get("tau", 0.97)) == SUMMARY_RANK
     out["kernels"] = kernels = [

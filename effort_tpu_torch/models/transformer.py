@@ -573,15 +573,18 @@ def _qkv(lw: LayerWeights, l: int, x, pe: dict, cfg: ModelConfig,
 def forward_layers(w: ModelWeights, cfg: ModelConfig, h, pos, k_cache,
                    v_cache, effort=1.0, impl: str = "auto",
                    rope_offset=0, mask_from=0, kv_update_fn=None,
-                   attn_fn=None):
+                   attn_fn=None, collect_h: bool = False):
     """The layer stack only: h [dim] f32 through cfg.n_layers blocks,
-    writing this position's K/V rows into the caches in place. Returns h.
+    writing this position's K/V rows into the caches in place. Returns h,
+    or with collect_h (h, h_layers [L, dim]: the residual after each
+    layer, as the JAX package's scan stacks it).
     pos, rope_offset, mask_from: ints or 0-d int device tensors. The hooks
     (see forward_token) replace the row write and the attention read."""
     KV, D = cfg.n_kv_heads, cfg.head_dim
     pe = proj_efforts(effort, cfg)
     lw = w.layers
     cos, sin = rope_angles(pos - rope_offset, D, cfg.rope_theta, h.device)
+    h_layers = []
     for l in range(cfg.n_layers):
         h_norm = rms_norm(h, lw.attn_norm[l], cfg.norm_eps)
         q, k, v = _qkv(lw, l, h_norm, pe, cfg, impl)
@@ -601,6 +604,10 @@ def forward_layers(w: ModelWeights, cfg: ModelConfig, h, pos, k_cache,
         h = h + bucket_matvec(lw.wo, attn, pe["wo"], l, impl)
         f_norm = rms_norm(h, lw.ffn_norm[l], cfg.norm_eps)
         h = h + _ffn(lw, l, f_norm, pe, cfg, impl)
+        if collect_h:
+            h_layers.append(h)
+    if collect_h:
+        return h, torch.stack(h_layers)
     return h
 
 
@@ -820,9 +827,13 @@ def embed(w: ModelWeights, token_id) -> torch.Tensor:
 def forward_token(w: ModelWeights, cfg: ModelConfig, token_id, pos,
                   k_cache, v_cache, effort=1.0, impl: str = "auto",
                   rope_offset=0, mask_from=0, kv_update_fn=None,
-                  attn_fn=None):
+                  attn_fn=None, collect_h: bool = False):
     """One autoregressive step: embeds token_id at position pos, runs all
     layers, returns logits [vocab] f32 (the caches are updated in place).
+    collect_h=True returns (logits, h_layers [L, dim] f32), the residual
+    after each layer, which calibration (convert/calibrate.py) reads; it
+    is for eager calls only (the captured step, models/graphs.py, does
+    not take it).
 
     token_id, pos, rope_offset, mask_from: ints, or 0-d int device
     tensors (then the step reads no host value, and can be captured).
@@ -836,11 +847,13 @@ def forward_token(w: ModelWeights, cfg: ModelConfig, token_id, pos,
     hooks write in place and return nothing (ring_kv_hooks,
     quant_kv_hooks, whose caches are their own layouts)."""
     h = embed(w, token_id)
-    h = forward_layers(w, cfg, h, pos, k_cache, v_cache, effort=effort,
-                       impl=impl, rope_offset=rope_offset,
-                       mask_from=mask_from, kv_update_fn=kv_update_fn,
-                       attn_fn=attn_fn)
-    return head_logits(w, rms_norm(h, w.norm, cfg.norm_eps))
+    out = forward_layers(w, cfg, h, pos, k_cache, v_cache, effort=effort,
+                         impl=impl, rope_offset=rope_offset,
+                         mask_from=mask_from, kv_update_fn=kv_update_fn,
+                         attn_fn=attn_fn, collect_h=collect_h)
+    h, h_layers = out if collect_h else (out, None)
+    logits = head_logits(w, rms_norm(h, w.norm, cfg.norm_eps))
+    return (logits, h_layers) if collect_h else logits
 
 
 # ---- random weights -------------------------------------------------------

@@ -81,6 +81,15 @@ def _quantile_linear(x: torch.Tensor, q: float, dim: int = -1):
             + s.select(dim, high_i) * float(hw))
 
 
+def _true_div(x: torch.Tensor, d: float) -> torch.Tensor:
+    """x / d rounded once, on every device. On CUDA, torch computes x / d
+    for a python number d as x * (1 / d), which can land one bit off, and
+    a scale one bit off moves a code at a rounding tie: dividing by a 0-d
+    tensor on x's device takes the true division, so a conversion on the
+    card writes the CPU's (and the JAX package's) bytes."""
+    return x / torch.full((), d, dtype=x.dtype, device=x.device)
+
+
 def _pad_for_packing(blocks: torch.Tensor, multiple: int) -> torch.Tensor:
     """Pad the last axis to a multiple of `multiple` elements (the packed
     byte width stays a multiple of 128, as the JAX layout requires)."""
@@ -170,13 +179,15 @@ def bucketize(wt, cfg: BucketConfig, keep_dense: bool = False,
         qvals = vals.to(torch.bfloat16)
     elif cfg.dtype == "int8":
         # per-bucket-row symmetric absmax scale
-        scales = torch.clamp(vals.abs().amax(dim=3), min=1e-30) / 127.0
+        scales = _true_div(torch.clamp(vals.abs().amax(dim=3), min=1e-30),
+                           127.0)
         qvals = torch.clamp(torch.round(vals / scales[..., None]),
                             -127, 127).to(torch.int8)
     else:
         # int4: per-bucket-row scale from the clip_quantile of |w|; the top
         # tail saturates to +-7 s
-        scales = _quantile_linear(vals.abs(), cfg.clip_quantile) / 7.0
+        scales = _true_div(_quantile_linear(vals.abs(), cfg.clip_quantile),
+                           7.0)
         scales = torch.clamp(scales, min=1e-30)
         qvals = torch.clamp(torch.round(vals / scales[..., None]),
                             -7, 7).to(torch.int8)
@@ -245,3 +256,12 @@ def _extract_outliers(wt: torch.Tensor, outlier_frac: float):
         clean[top] = 0.0
         wt_clean.append(clean.reshape(in_dim, out_dim))
     return torch.stack(wt_clean), torch.stack(ov_l), torch.stack(oi_l)
+
+
+def bucketize_numpy(wt: np.ndarray, cfg: BucketConfig, device=None,
+                    **kw) -> BucketedMatrix:
+    """bucketize of a numpy array, run on `device` (the card unless named;
+    the CPU only when the caller asks for it). kw: bucketize's keywords."""
+    from effort_tpu_torch.models.transformer import resolve_device
+    t = torch.from_numpy(np.array(wt, dtype=np.float32, copy=True))
+    return bucketize(t.to(resolve_device(device)), cfg, **kw)

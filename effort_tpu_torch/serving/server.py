@@ -33,6 +33,9 @@ import json
 import urllib.parse
 from typing import Optional
 
+from effort_tpu_torch.runtime.tokenizer import (Tokenizer,
+                                                mistral_instruct_prompt)
+
 # /q parameters the single-flight path hands to Engine.generate when a
 # request sets them: (query name, generate keyword, type)
 _GENERATE_OPTIONS = (("temperature", "temperature", float),
@@ -41,11 +44,6 @@ _GENERATE_OPTIONS = (("temperature", "temperature", float),
                      ("presence", "presence_penalty", float),
                      ("frequency", "frequency_penalty", float),
                      ("logprobs", "logprobs", int))
-
-
-def mistral_instruct_prompt(query: str) -> str:
-    """The [INST] wrapper of Mistral's instruct checkpoints."""
-    return f"[INST]{query}[/INST]"
 
 
 class EffortServer:
@@ -433,32 +431,44 @@ def parse_args(argv=None):
 
 
 def build_server(args) -> EffortServer:
-    """The server main() runs, from its parsed arguments: the synthetic
-    tiny model with BucketConfig(bucket_size=4, chunk_rows=8), as the JAX
-    package's, single-flight or with --batch slots; --kv-dtype int8 gives
-    the batch engine, or the single-flight Engine (quant_kv), the int8 KV
-    cache; --spec-k and --draft-effort speculative decode (the bf16 cache
-    only). Options whose modules are not ported raise
-    NotImplementedError naming the ROADMAP item that ports them."""
-    if args.ckpt or args.tokenizer:
-        raise NotImplementedError(
-            "--ckpt/--tokenizer: the checkpoint loader and tokenizer are not "
-            "ported yet (ROADMAP.md, modules to port, item 4: checkpoints)")
+    """The server main() runs, from its parsed arguments: --ckpt DIR loads
+    a converted checkpoint (models/weights.load_bucketized) onto --device,
+    or without it the synthetic tiny model with BucketConfig(bucket_size=4,
+    chunk_rows=8), as the JAX package's; --tokenizer FILE (a HuggingFace
+    tokenizer.json) gives replies as text, in both modes. Single-flight,
+    or with --batch slots; --kv-dtype int8 gives the batch engine, or the
+    single-flight Engine (quant_kv), the int8 KV cache; --spec-k and
+    --draft-effort speculative decode (the bf16 cache only). On the CPU a
+    checkpoint's stored dense copies are loaded whenever present (there is
+    no card memory to budget them against)."""
     if args.spec_k and args.kv_dtype == "int8":
         raise ValueError("--spec-k needs the bf16 KV cache")
     spec = dict(spec_k=args.spec_k, spec_draft_effort=args.draft_effort)
-    from effort_tpu_torch.config import BucketConfig, tiny_test_model
     from effort_tpu_torch.models.generate import Engine
-    from effort_tpu_torch.models.transformer import init_random_weights
-    cfg = tiny_test_model()
-    w = init_random_weights(cfg, BucketConfig(bucket_size=4, chunk_rows=8),
-                            device=args.device)
+    from effort_tpu_torch.models.transformer import resolve_device
+    device = resolve_device(args.device)
+    tok = Tokenizer(args.tokenizer) if args.tokenizer else None
+    if args.ckpt:
+        from effort_tpu_torch.models.weights import load_bucketized
+        w, cfg, _ = load_bucketized(
+            args.ckpt, device=device,
+            load_dense="auto" if device.type == "cuda" else True)
+    else:
+        from effort_tpu_torch.config import BucketConfig, tiny_test_model
+        from effort_tpu_torch.models.transformer import init_random_weights
+        cfg = tiny_test_model()
+        w = init_random_weights(cfg, BucketConfig(bucket_size=4,
+                                                  chunk_rows=8),
+                                device=device)
     if args.batch > 0:
-        return make_batch_server(w, cfg, batch_size=args.batch,
-                                 port=args.port, kv_dtype=args.kv_dtype,
-                                 device=args.device, **spec)
-    return EffortServer(Engine(w, cfg, quant_kv=args.kv_dtype == "int8",
-                               device=args.device), port=args.port, **spec)
+        return make_batch_server(w, cfg, tokenizer=tok,
+                                 batch_size=args.batch, port=args.port,
+                                 kv_dtype=args.kv_dtype, device=device,
+                                 **spec)
+    return EffortServer(Engine(w, cfg, tokenizer=tok,
+                               quant_kv=args.kv_dtype == "int8",
+                               device=device),
+                        tokenizer=tok, port=args.port, **spec)
 
 
 def main(argv=None):

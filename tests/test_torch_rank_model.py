@@ -189,7 +189,8 @@ def test_server_main_arguments():
     the int8 KV cache (the batch engine's, or the single-flight Engine's
     quant_kv); --spec-k and --draft-effort give speculative decode (single
     flight and batched; not with the int8 cache); --ckpt and --tokenizer
-    raise NotImplementedError naming the ROADMAP item that ports them."""
+    open the path they name (a missing one raises FileNotFoundError;
+    tests/test_torch_convert.py serves a converted checkpoint)."""
     args = port_server.parse_args([])
     assert (args.port, args.batch, args.device) == (8089, 0, None)
     srv = port_server.build_server(port_server.parse_args(
@@ -206,9 +207,9 @@ def test_server_main_arguments():
         ["--batch", "2", "--kv-dtype", "int8", "--port", "0", "--device",
          "cpu"]))
     assert bq8.batcher.eng.kv_quant
-    for argv, item in ((["--ckpt", "x"], "item 4"),
-                       (["--tokenizer", "x"], "item 4")):
-        with pytest.raises(NotImplementedError, match=item):
+    for argv in (["--ckpt", "no-such-dir"],
+                 ["--tokenizer", "no-such-tokenizer.json"]):
+        with pytest.raises(FileNotFoundError, match="no-such"):
             port_server.build_server(port_server.parse_args(
                 argv + ["--device", "cpu"]))
     sp = port_server.build_server(port_server.parse_args(
