@@ -95,6 +95,25 @@ Phases, one JSON line each (a failure raises and exits non-zero):
             are greedy; new sampling and penalty values capture no graph;
             10 000 draws of _pick_token within 0.02 total variation of the
             truncated softmax
+  session   ChatSession on the same model: three turns (17, 5 and 32
+            prompt tokens, 16 new each) at efforts 0.25 and 1.0, each
+            turn's steps replays of one captured step; turns 2 and 3 give
+            Engine.generate's tokens on the concatenated history; a
+            capture=False session the same tokens; turn 2 launched under
+            set_sync_debug_mode("error") (its one host read after); saved
+            after turn 2 and loaded, turn 3 again; turn_stream's chunks
+            joined equal turn 1; K1 4 * 32 times a step below effort 1;
+            ms a step of turn 3 beside Engine.generate's on the same tokens
+  eval      the eval harness on the same model over a 48-token history:
+            agreement_sweep and kl_divergence_sweep over effort_scale()
+            (100% agreement and KL <= 1e-6 at 1.0), decode_speed_sweep at
+            1.0, 0.5 and 0.25 with dense beside `generate`'s ms a token,
+            streamed_fraction at 0.5 and 0.25 with each probed chunk prefix
+            beside the C K1 streams on the same input (within one chunk),
+            golden states at 1.0 (passed, no drift) and at 0.25 on the
+            kernel route (drift printed), one sweep (nll_sweep over 4
+            tokens at 0.25) under profiling.trace() (its Chrome trace in
+            the output directory's eval_trace/)
   spec      Engine.generate_speculative on the KV-cache phases' model
             (Mistral-7B, 32 layers, uncalibrated, dense copies): prompt of
             32, 64 new tokens, k in {4, 8} x draft efforts {0.25, 0.5,
@@ -141,6 +160,20 @@ Phases, one JSON line each (a failure raises and exits non-zero):
             own inputs. build_server(--ckpt, --tokenizer, --batch 4 and
             0) answering four /q with decoded text (a BPE tokenizer.json
             the phase writes); which IO paths ran (native or Python)
+  cli       inside `ckpt`, on its converted checkpoint and tokenizer, each
+            mode a `python3 -m effort_tpu_torch` subprocess exiting 0 (the
+            first nine at once): generate at 0.25, generate --spec-k 4,
+            repl --stream fed "Hello", "25", "r", quiz on a 3-item file,
+            agreement and kl (--n-tokens 16), bucket at B = 1 int8 (K1)
+            and at its defaults (K4), convert to bf16; then autotune on
+            that with the int8 conversion as its ckpt_int8 sibling and a
+            seeded corpus.npy. Gates: the line formats, 100% agreement and
+            0 KL at 100% effort, bucket's cos within 1e-3 of the same
+            sweep in process on the kernels' plain versions (the reference
+            route printed beside), autotune's 12 points, its bf16
+            control agreeing with itself at 1.0 and one candidate's
+            agreements within one hold-out token of the same sweep in
+            process; the subprocesses' launches are not counted
   kernels_rank
             K4 (fused_matvec, csrc/fused_matvec.cu) and K5 (stream_matvec,
             csrc/stream_matvec.cu) against their plain versions at the four
@@ -232,6 +265,8 @@ import gc
 import json
 import math
 import os
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -241,6 +276,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from effort_tpu_torch import cli
 from effort_tpu_torch.config import BucketConfig, mistral_7b, mixtral_8x7b
 from effort_tpu_torch.convert.convert import (HF_NAME_MAPS,
                                               _bucketize_and_store,
@@ -250,8 +286,10 @@ from effort_tpu_torch.kernels import LAUNCHES, _build, reset_launches
 from effort_tpu_torch.kernels import (fused_stream, gather_dma, gather_mul,
                                       prefix_stream)
 from effort_tpu_torch.kernels.flash_attention import flash_attention_seq
-from effort_tpu_torch.models import transformer
+from effort_tpu_torch.eval import harness
+from effort_tpu_torch.models import tester, transformer
 from effort_tpu_torch.models.generate import Engine, _pick_token
+from effort_tpu_torch.models.session import ChatSession
 from effort_tpu_torch.ops import bucketmul
 from effort_tpu_torch.models.transformer import (HOST_READS, _attention,
                                                  assemble_weights, embed,
@@ -269,13 +307,14 @@ from effort_tpu_torch.ops.bucketize import (bucketize, calib_row_order,
                                             pick_chunk_rows)
 from effort_tpu_torch.ops.bucketmul import dense_matvec
 from effort_tpu_torch.ops.effort import effort_q16, select_blocks
-from effort_tpu_torch.models.weights import load_bucketized
+from effort_tpu_torch.models.weights import attach_dense, load_bucketized
 from effort_tpu_torch.runtime._native_build import native_lib_path
 from effort_tpu_torch.runtime.safetensors_io import (MultiShardReader,
                                                      SafeTensorWriter)
 from effort_tpu_torch.serving.batcher import BatchEngine, ContinuousBatcher
 from effort_tpu_torch.serving.server import (build_server, make_batch_server,
                                              make_server, parse_args)
+from effort_tpu_torch.utils import profiling
 from effort_tpu_torch.utils.timing import gpu_ms
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
@@ -3546,12 +3585,14 @@ def phase_ckpt() -> dict:
         http = [ckpt_http(dst, tok_json, b) for b in (4, 0)]
         out["http"] = http
         runs += [dict(launches=h["launches"]) for h in http]
+        # the command line on this checkpoint, before it goes
+        out["cli"] = phase_cli(src, dst, tok_json, tmp)
     out["runs"] = runs
     launched = {k: sum(r["launches"].get(k, 0) for r in runs)
                 for k in ("mxu_matvec", "mxu_matvec_batch",
                           "flash_attention")}
     out["launches"] = launched
-    out["seconds"] = time.perf_counter() - t_phase
+    out["seconds"] = time.perf_counter() - t_phase - out["cli"]["seconds"]
     emit({"phase": "ckpt", "launches": launched, "seconds": out["seconds"],
           **{k: out[k] for k in ("convert_s", "convert_read_gb_s",
                                  "load_s", "src_gb", "dst_gb")}})
@@ -3559,6 +3600,416 @@ def phase_ckpt() -> dict:
     if missing:
         raise AssertionError(f"kernels the checkpoint path never launched: "
                              f"{missing}")
+    return out
+
+
+# ---- the user-facing surface: session, eval harness, command line --------
+
+SESSION_TURNS = (17, 5, 32)        # prompt tokens of the three turns
+SESSION_NEW = 16
+SESSION_EFFORTS = (0.25, 1.0)
+EVAL_TOKENS = 48                   # the eval phase's history
+EVAL_EFFORTS = (1.0, 0.5, 0.25)
+GOLDEN_TOKENS = 8
+TRACED_TOKENS = 4
+
+
+def seeded_ids(cfg, lens, seed: int) -> list:
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randint(3, cfg.vocab_size, (n,), generator=g).tolist()
+            for n in lens]
+
+
+def counted(runs: list, fn):
+    """fn() with the launches of its run appended to runs."""
+    torch.cuda.synchronize()
+    reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    runs.append(dict(launches=dict(LAUNCHES)))
+    return out
+
+
+def phase_session(cfg, w, eng) -> dict:
+    """ChatSession on the 32-layer row-prefix model: three turns (prompts
+    of SESSION_TURNS tokens, SESSION_NEW new each) at each of
+    SESSION_EFFORTS, each turn's steps replays of one captured step.
+    Gates: (a) turns 2 and 3 give Engine.generate's tokens on the
+    concatenated history; (b) a capture=False session gives the same
+    tokens; (c) turn 2 launches everything under
+    set_sync_debug_mode("error"), its one host read after; (d) saved after
+    turn 2 and loaded into a fresh session, turn 3 gives the original's
+    tokens; (e) turn_stream's chunks (5 a chunk) joined equal turn 1;
+    (f) K1 runs 4 * n_layers times a step below effort 1 (0 at 1.0: dense
+    copies), K2 and K3 never. Printed: ms a step of turn 3 (host clock,
+    ending in the turn's read) beside Engine.generate's on the same
+    tokens."""
+    turns = seeded_ids(cfg, SESSION_TURNS, 17)
+    rows, runs = [], []
+    for effort in SESSION_EFFORTS:
+        g = ChatSession(w, cfg, eos_id=-1)
+        x = ChatSession(w, cfg, eos_id=-1, capture=False)
+        got, ref_same, launch_ok = [], [], []
+        timing = {}
+        with tempfile.TemporaryDirectory() as tmp:
+            for i, prompt in enumerate(turns):
+                history = list(g.history)
+                steps = len(prompt) + SESSION_NEW
+                torch.cuda.synchronize()
+                reset_launches()
+                t0 = time.perf_counter()
+                if i == 1:                                   # gate (c)
+                    torch.cuda.set_sync_debug_mode("error")
+                    try:
+                        args = g._start_turn(prompt, SESSION_NEW, effort)
+                    finally:
+                        torch.cuda.set_sync_debug_mode("default")
+                    toks = g._finish(*args)
+                else:
+                    toks = g.turn(prompt, n_new=SESSION_NEW, effort=effort)
+                secs = time.perf_counter() - t0
+                runs.append(dict(launches=dict(LAUNCHES)))
+                want = 4 * cfg.n_layers * steps if effort < 0.999 else 0
+                launch_ok.append(LAUNCHES["mxu_matvec"] == want
+                                 and not LAUNCHES["mxu_matvec_batch"]
+                                 and not LAUNCHES["flash_attention"])
+                got.append(toks)
+                if i == 1:
+                    g.save(os.path.join(tmp, "s"))
+                if i:                                        # gate (a)
+                    full = history + prompt
+                    torch.cuda.synchronize()
+                    reset_launches()
+                    t0 = time.perf_counter()
+                    ref = eng.generate(full, n_new=SESSION_NEW,
+                                       effort=effort).token_ids
+                    ref_secs = time.perf_counter() - t0
+                    runs.append(dict(launches=dict(LAUNCHES)))
+                    ref_same.append(ref == toks)
+                    if i == 2:
+                        ref_steps = padded(len(full)) + SESSION_NEW - 1
+                        timing = dict(
+                            session_ms_per_step=secs * 1e3 / steps,
+                            engine_ms_per_step=ref_secs * 1e3 / ref_steps,
+                            session_steps=steps, engine_steps=ref_steps)
+            eager = [counted(runs, lambda p=p: x.turn(
+                p, n_new=SESSION_NEW, effort=effort)) for p in turns]
+            loaded = ChatSession.load(os.path.join(tmp, "s"), w, cfg,
+                                      eos_id=-1)
+            after_load = counted(runs, lambda: loaded.turn(
+                turns[2], n_new=SESSION_NEW, effort=effort))
+        s = ChatSession(w, cfg, eos_id=-1)
+        chunks = counted(runs, lambda: list(s.turn_stream(
+            turns[0], n_new=SESSION_NEW, chunk=5, effort=effort)))
+        r = dict(effort=effort, turns=list(SESSION_TURNS),
+                 new=SESSION_NEW, pos=g.pos, graphs=len(g.engine._graphs),
+                 engine_tokens=ref_same, eager_tokens=eager == got,
+                 sync_free_turn=True, load_tokens=after_load == got[2],
+                 stream_tokens=[t for c in chunks for t in c] == got[0],
+                 stream_chunks=[len(c) for c in chunks],
+                 launches_exact=launch_ok, first_tokens=got[0][:8],
+                 **timing)
+        rows.append(r)
+        emit({"phase": "session", **r})
+        if not (all(ref_same) and r["eager_tokens"] and r["load_tokens"]
+                and r["stream_tokens"] and all(launch_ok)
+                and r["graphs"] == 1):
+            raise AssertionError(f"session at effort {effort}: {r}")
+        del g, x, loaded, s
+    return dict(rows=rows, runs=runs)
+
+
+def phase_eval(cfg, w, eng, gen_ms: dict) -> dict:
+    """The eval harness on the 32-layer row-prefix model, over an
+    EVAL_TOKENS-token history: agreement_sweep (32 prompt tokens, 16
+    generated) and kl_divergence_sweep over effort_scale() (gates: 100%
+    agreement and KL <= 1e-6 at 1.0); decode_speed_sweep at EVAL_EFFORTS
+    with dense (each printed beside `generate`'s CUDA-event ms a token);
+    streamed_fraction at 0.5 and 0.25, each probed chunk prefix beside the
+    C that K1 itself streams on the same input (gate: within one chunk);
+    capture_states / save_states / verify_states at 1.0 (gate: passed, no
+    drift) and at 0.25 on the kernel route (drift printed); one sweep
+    (nll_sweep over TRACED_TOKENS tokens at 0.25) under profiling.trace(),
+    its Chrome trace under OUT_DIR (gate: the annotated span in it)."""
+    text = seeded_ids(cfg, (EVAL_TOKENS,), 19)[0]
+    runs, out = [], {}
+    t0 = time.perf_counter()
+    agree = counted(runs, lambda: harness.agreement_sweep(
+        eng, text[:32], n_tokens=EVAL_TOKENS - 32))
+    kl = counted(runs, lambda: harness.kl_divergence_sweep(eng, text))
+    out["sweeps_s"] = time.perf_counter() - t0
+    out["agreement"] = {str(e): a for e, a in agree.items()}
+    out["kl"] = {str(e): k for e, k in kl.items()}
+    emit({"phase": "eval_sweeps", "seconds": out["sweeps_s"],
+          "agreement": out["agreement"], "kl": out["kl"]})
+    if agree[1.0] != 1.0 or not abs(kl[1.0]) <= 1e-6:
+        raise AssertionError(f"eval sweeps at effort 1.0: {agree[1.0]}, "
+                             f"{kl[1.0]}")
+
+    speed = counted(runs, lambda: harness.decode_speed_sweep(
+        w, cfg, efforts=EVAL_EFFORTS, include_dense=True, impl="kernel"))
+    slope = {"dense": 1e3 / speed["dense_toks_per_s"]}
+    slope.update({e: 1e3 / speed[f"toks_per_s_{int(e * 100)}"]
+                  for e in EVAL_EFFORTS})
+    out["decode_speed"] = dict(
+        sweep=speed, slope_ms={str(k): v for k, v in slope.items()},
+        generate_ms={str(k): v for k, v in gen_ms.items()},
+        slope_over_generate={
+            "dense": slope["dense"] / gen_ms[1.0],
+            **{str(e): slope[e] / gen_ms[e] for e in EVAL_EFFORTS
+               if e < 0.999}})
+    emit({"phase": "eval_decode_speed", **out["decode_speed"]})
+
+    t0 = time.perf_counter()
+    sf = harness.streamed_fraction(w, cfg, text, efforts=(0.5, 0.25))
+    H = harness.collect_residuals(w, cfg, text)
+    bm = w.layers.any_w1
+    probes = []
+    for e in (0.5, 0.25):
+        for li in harness.probe_layers(cfg.n_layers):
+            for t in range(len(text) - 8, len(text)):
+                hn = rms_norm(torch.from_numpy(H[t][li - 1]).cuda(),
+                              w.layers.ffn_norm[li], cfg.norm_eps)
+                c_host, _ = harness.chunk_prefix(bm, hn.cpu().numpy(), e,
+                                                 li, sf["tau"])
+                _, ck = fused_stream.mxu_matvec(bm, hn, effort_q16(e, "cuda"),
+                                                li, return_len=True)
+                probes.append(dict(effort=e, layer=li, token=t,
+                                   C_host=c_host, C_k1=int(ck)))
+    worst = max(abs(p["C_host"] - p["C_k1"]) for p in probes)
+    k1_frac = {str(e): float(np.mean([p["C_k1"] / bm.n_chunks
+                                      for p in probes if p["effort"] == e]))
+               for e in (0.5, 0.25)}
+    out["streamed_fraction"] = dict(
+        harness=sf, k1_streamed_chunk_frac=k1_frac, probes=len(probes),
+        max_chunk_gap=worst, n_chunks=bm.n_chunks,
+        seconds=time.perf_counter() - t0)
+    emit({"phase": "eval_streamed_fraction", **out["streamed_fraction"]})
+    if worst > 1:
+        raise AssertionError(f"streamed_fraction's prefix vs K1's C: gap "
+                             f"{worst} chunks")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ids = text[:GOLDEN_TOKENS]
+        tester.save_states(tmp, tester.capture_states(w, cfg, ids, 1.0))
+        rep1 = tester.verify_states(tmp, tester.capture_states(w, cfg, ids,
+                                                               1.0))
+        rep2 = counted(runs, lambda: tester.verify_states(
+            tmp, tester.capture_states(w, cfg, ids, 0.25, impl="kernel")))
+    out["golden"] = {"effort_1.0": str(rep1), "effort_0.25_kernel":
+                     str(rep2), "drift_0.25": rep2.drift,
+                     "compared": rep2.compared}
+    emit({"phase": "eval_golden", **out["golden"]})
+    if not (rep1.passed and rep1.drift == 0):
+        raise AssertionError(f"golden states at 1.0: {rep1}")
+
+    trace_dir = OUT_DIR / "eval_trace"
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    # a short sweep: a captured 32-layer step traces ~2 MB of kernel events
+    with profiling.trace(str(trace_dir)):
+        with profiling.annotate("eval_traced_sweep"):
+            counted(runs, lambda: harness.nll_sweep(
+                eng, text[:TRACED_TOKENS], efforts=(0.25,)))
+    files = sorted(trace_dir.glob("trace_*.json"))
+    body = files[0].read_text() if files else ""
+    out["trace"] = dict(file=str(files[0].relative_to(OUT_DIR.parent))
+                        if files else None, bytes=len(body),
+                        annotated="eval_traced_sweep" in body,
+                        k1_kernels_in_trace="k1_select_kernel" in body)
+    emit({"phase": "eval_trace", **out["trace"]})
+    if not out["trace"]["annotated"]:
+        raise AssertionError(f"traced sweep: {out['trace']}")
+    out["runs"] = runs
+    return out
+
+
+CLI_TIMEOUT_S = 600
+CLI_PROMPT = "Tell me a story about the quick brown fox"
+CLI_QUIZ = [{"question": q, "answers": a, "correct": c} for q, a, c in (
+    ("What color is a clear daytime sky?", ["blue", "red", "green"], 0),
+    ("What is two plus two?", ["three", "four"], 1),
+    ("Which animal barks?", ["cat", "fish", "dog", "bird"], 2))]
+CLI_SWEEP = {"agreement": r"effort +[0-9.]+%: agreement +[0-9.]+%",
+             "kl": r"effort +[0-9.]+%: KL +[0-9.]+ nats",
+             "quiz": r"effort +[0-9.]+%: accuracy +[0-9.]+%",
+             "bucket": r"effort +[0-9.]+%: cos-sim -?[0-9.]+"}
+
+
+def cli_start(args: list, stdin: str = None) -> dict:
+    """python3 -m effort_tpu_torch ARGS in a subprocess (the checkout on
+    its path, the card its device)."""
+    env = {**os.environ, "PYTHONPATH": str(OUT_DIR.parent)}
+    p = subprocess.Popen([sys.executable, "-m", "effort_tpu_torch", *args],
+                         stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                         stderr=subprocess.PIPE, text=True, env=env,
+                         cwd=str(OUT_DIR.parent))
+    return dict(proc=p, stdin=stdin, t0=time.perf_counter(), args=args)
+
+
+def cli_wait(run: dict) -> dict:
+    out, err = run["proc"].communicate(run["stdin"], timeout=CLI_TIMEOUT_S)
+    return dict(args=run["args"], rc=run["proc"].returncode, stdout=out,
+                stderr=err[-4000:], seconds=time.perf_counter() - run["t0"])
+
+
+def sweep_lines(r: dict, kind: str) -> list:
+    lines = [x for x in r["stdout"].splitlines() if x.startswith("effort")]
+    if len(lines) != 24 or not all(re.fullmatch(CLI_SWEEP[kind], x)
+                                   for x in lines):
+        raise AssertionError(f"cli {kind}: {r['stdout'][-2000:]}")
+    return lines
+
+
+def autotune_agreement(at: Path, tune: dict) -> dict:
+    """autotune's agreements recomputed in this process on its hold-out
+    (corpus.npy's tail, as auto_tune takes it): the bf16 control
+    (tf_control_preds on the dense copies) against itself at 1.0, and
+    tf_agreement_sweep of the bf16 percent_load=1 candidate against it,
+    beside the subprocess's points for that candidate (max_gap; tolerance
+    one hold-out token, plus the points' rounding to 3 places)."""
+    corpus = np.load(at / "corpus.npy")
+    split = int(len(corpus) * 0.98)
+    hold = corpus[split:split + 500].astype(int).tolist()
+    ck = str(at / "ckpt_bf16")
+    w, cfg, _ = load_bucketized(ck, load_dense=False)
+    ctl = Engine(attach_dense(w), cfg, impl="auto", dynamic_effort=True,
+                 eos_id=-1)
+    control = harness.tf_control_preds(ctl, hold)
+    self_agree = harness.tf_agreement_sweep(ctl, hold, efforts=[1.0],
+                                            control=control)[1.0]
+    del ctl, w
+    w, cfg, _ = load_bucketized(ck, load_dense=False)
+    got = {p["effort"]: p["agreement"] for p in tune["points"]
+           if p["config"] == "bf16 percent_load=1.000"}
+    agr = harness.tf_agreement_sweep(
+        Engine(w, cfg, impl="auto", dynamic_effort=True, eos_id=-1), hold,
+        efforts=sorted(got), control=control)
+    del w
+    return dict(hold_tokens=len(hold), control_self_agreement=self_agree,
+                in_process={str(e): a for e, a in agr.items()},
+                max_gap=max(abs(got[e] - a) for e, a in agr.items()),
+                tolerance=1 / len(hold) + 5e-4)
+
+
+def phase_cli(src: Path, dst: Path, tok_json: Path, tmp: Path) -> dict:
+    """The command line on the checkpoint phase's converted 4-layer
+    Mistral-width model and BPE tokenizer, each mode a `python3 -m
+    effort_tpu_torch` subprocess that must exit 0 (the first nine run at
+    once on the card): generate at 0.25; generate --spec-k 4; repl
+    --stream fed "Hello", "25", "r"; quiz on a 3-item --quiz-file;
+    agreement and kl with --n-tokens 16; bucket at --bucket-size 1
+    --chunk-rows 128 --dtype int8 (K1) and at its defaults (K4); convert
+    to bf16 (fused, row-prefix), then autotune on it with the int8
+    conversion as its ckpt_int8 sibling and a seeded corpus.npy (hold-out
+    40 tokens). Gates: the printed line formats; 100% agreement and 0 KL
+    at 100% effort; bucket's cos at each effort within 1e-3 of the same
+    sweep in this process on the kernels' plain versions ("plain" route),
+    the reference route printed beside; autotune's 12 measured points,
+    its control agreeing with itself at 1.0 and the bf16 percent_load=1
+    candidate's agreements within one hold-out token of the same sweep in
+    this process (autotune_agreement). The subprocesses' launches are not
+    counted."""
+    t_phase = time.perf_counter()
+    at = tmp / "autotune"
+    at.mkdir()
+    qf = tmp / "quiz.json"
+    qf.write_text(json.dumps(CLI_QUIZ))
+    ck = ["--ckpt", str(dst), "--tokenizer", str(tok_json)]
+    b1 = ["--bucket-size", "1", "--chunk-rows", "128", "--dtype", "int8"]
+    jobs = {
+        "generate": (["generate", *ck, "--effort", "0.25", "--n-tokens",
+                      "16"], None),
+        "generate_spec": (["generate", *ck, "--spec-k", "4", "--n-tokens",
+                           "16"], None),
+        "repl": (["repl", "--stream", *ck, "--n-tokens", "12"],
+                 "Hello\n25\nr\n"),
+        "quiz": (["quiz", *ck, "--quiz-file", str(qf)], None),
+        "agreement": (["agreement", *ck, "--n-tokens", "16", "--prompt",
+                       CLI_PROMPT], None),
+        "kl": (["kl", *ck, "--n-tokens", "16"], None),
+        "bucket_k1": (["bucket", *b1], None),
+        "bucket_k4": (["bucket"], None),
+        "convert": (["convert", "--src", str(src), "--dst",
+                     str(at / "ckpt_bf16"), "--model", "auto", *b1[:4],
+                     "--dtype", "bf16", "--fuse"], None)}
+    started, res = {}, {}
+    try:
+        for name, (args, stdin) in jobs.items():
+            started[name] = cli_start(args, stdin)
+        for name, run in started.items():
+            res[name] = cli_wait(run)
+        os.symlink(dst, at / "ckpt_int8")
+        np.save(at / "corpus.npy", np.random.default_rng(23).integers(
+            3, 32000, 2000))
+        started["autotune"] = cli_start(["autotune", "--ckpt",
+                                         str(at / "ckpt_bf16")])
+        res["autotune"] = cli_wait(started["autotune"])
+    finally:
+        for run in started.values():
+            if run["proc"].poll() is None:
+                run["proc"].kill()
+                run["proc"].wait()
+    for name, r in res.items():
+        emit({"phase": "cli_run", "mode": name, "rc": r["rc"],
+              "seconds": r["seconds"],
+              "stdout_tail": r["stdout"][-300:]})
+        if r["rc"] != 0:
+            raise AssertionError(f"cli {name} exited {r['rc']}: "
+                                 f"{r['stderr']}")
+    out = {"seconds_by_mode": {k: r["seconds"] for k, r in res.items()}}
+    gen = res["generate"]["stdout"].splitlines()
+    spec = res["generate_spec"]["stdout"].splitlines()
+    repl = res["repl"]["stdout"]
+    fmt = {
+        "generate": len(gen) >= 2 and re.fullmatch(
+            r"\[effort 25%: [0-9.]+ ms/token, [0-9.]+ tok/s\]", gen[-1]),
+        "generate_spec": len(spec) >= 2 and re.fullmatch(
+            r"\[speculative, draft 25%: [0-9.]+ ms/token, [0-9.]+ tok/s, "
+            r"[0-9.]+ tok/round\]", spec[-1]),
+        "repl": (repl.startswith("query, or 0-100") and repl.count(
+            "[effort 100%]") == 1 and repl.count("[effort 25%]") == 2)}
+    out["formats"] = {k: bool(v) for k, v in fmt.items()}
+    out["generate_reply"] = gen[0] if gen else None
+    sweeps = {k: sweep_lines(res[k], k.split("_")[0])
+              for k in ("agreement", "kl", "quiz", "bucket_k1",
+                        "bucket_k4")}
+    out["agreement_at_100"] = sweeps["agreement"][0]
+    out["kl_at_100"] = sweeps["kl"][0]
+    bucket = {}
+    wt, v = cli.bucket_inputs("cuda")
+    for name, args in (("bucket_k1", b1), ("bucket_k4", [])):
+        a = cli.parse_args(["bucket", *args])
+        bm = bucketize(wt, BucketConfig(bucket_size=a.bucket_size,
+                                        chunk_rows=a.chunk_rows,
+                                        dtype=a.dtype), keep_dense=True)
+        got = [float(x.split()[-1]) for x in sweeps[name]]
+        plain = list(harness.matrix_quality_sweep(bm, v, impl="plain",
+                                                  wt_dense=wt).values())
+        ref = list(harness.matrix_quality_sweep(bm, v, impl="reference",
+                                                wt_dense=wt).values())
+        bucket[name] = dict(
+            cos_at_50=got[harness.effort_scale().index(0.5)],
+            max_gap_plain=max(abs(g - p) for g, p in zip(got, plain)),
+            max_gap_reference=max(abs(g - p) for g, p in zip(got, ref)))
+        del bm
+    del wt, v
+    out["bucket"] = bucket
+    tune = json.loads(res["autotune"]["stdout"])
+    out["autotune"] = dict(points=len(tune["points"]),
+                           chosen=tune["chosen"],
+                           dense_toks_per_s=tune["dense_toks_per_s"],
+                           stderr_tail=res["autotune"]["stderr"][-400:],
+                           **autotune_agreement(at, tune))
+    out["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "cli", **{k: v for k, v in out.items()}})
+    if not (all(out["formats"].values())
+            and out["agreement_at_100"] == "effort 100.0%: agreement 100.0%"
+            and out["kl_at_100"] == "effort 100.0%: KL   0.0000 nats"
+            and all(b["max_gap_plain"] <= 1e-3 for b in bucket.values())
+            and out["autotune"]["points"] == 12
+            and out["autotune"]["control_self_agreement"] == 1.0
+            and out["autotune"]["max_gap"] <= out["autotune"]["tolerance"]):
+        raise AssertionError(f"cli: {out}")
     return out
 
 
@@ -3708,6 +4159,10 @@ def main() -> int:
     run("batch_graph", phase_batch_graph, "mistral_row", *model[:2],
         serve_requests(model[0]))
     run("sampling", phase_sampling, *model[:2], model[3][1])
+    run("session", phase_session, *model[:3])
+    run("eval", phase_eval, *model[:3],
+        {r["effort"]: r["ms_per_token"] for r in out["generate"]
+         if r["route"] == "graph"})
     w_plain = build_plain_model(model[0])
     run("spec", phase_spec, "mistral_plain", model[0], w_plain, model[3][2])
     run("batch_spec", phase_batch_spec, "mistral_plain", model[0], w_plain)
@@ -3718,6 +4173,9 @@ def main() -> int:
     del model, replies
     free_card()
     run("ckpt", phase_ckpt)
+    out["cli"] = out["ckpt"].pop("cli")
+    out["phase_seconds"]["cli"] = out["cli"]["seconds"]
+    out["phase_seconds"]["ckpt"] -= out["cli"]["seconds"]
     free_card()
 
     cfg, w = build_rank_model()
@@ -3759,7 +4217,8 @@ def main() -> int:
                  + out["moe_spec"]["rows"])
     k1_runs = (out["generate"] + out["prefill"] + out["moe_decode"]
                + [out["moe_serve"], out["moe_serve"]["http_single"]]
-               + spec_runs + out["ckpt"]["runs"])
+               + spec_runs + out["ckpt"]["runs"] + out["session"]["runs"]
+               + out["eval"]["runs"])
     serve_runs += spec_runs + out["ckpt"]["runs"]
     summary_rank = lambda p: (p["dtype"], p["effort"],   # noqa: E731
                               p.get("tau", 0.97)) == SUMMARY_RANK

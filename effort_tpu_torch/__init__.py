@@ -10,9 +10,12 @@ Layout mirrors the JAX package:
   - ops:      bucketized weight format, effort selection, bucketMul math
   - kernels:  kernel wrappers + plain PyTorch versions, the nvcc build
   - models:   decode, prefill and batched-decode forward passes, weight
-              synthesis, generation engine
+              synthesis, generation engine, chat sessions, golden-state
+              tester, operating-point auto-tuner
   - serving:  continuous batching and the HTTP server
-  - utils:    CUDA-event timing
+  - eval:     quality and speed sweeps across the effort scale
+  - utils:    CUDA-event timing, profiling hooks
+  - cli:      the command line (`python -m effort_tpu_torch MODE`)
 
 Importing the package builds nothing and needs no GPU: kernels are built
 the first time a CUDA tensor reaches them.

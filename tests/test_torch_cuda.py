@@ -1051,3 +1051,50 @@ def test_batch_engine_captures_the_speculative_step():
         assert (be._graph is not None) == capture
     assert got[0] == got[1]
     assert all(len(t) == 6 for t in got[0][0].values())
+
+
+@pytest.mark.cuda
+def test_captured_turns_equal_eager_on_card():
+    """On the card: three turns through captured steps (one graph for
+    efforts 0.25 and 0.5) give capture=False's tokens, pos and history."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from effort_tpu_torch.config import tiny_test_model
+    from effort_tpu_torch.models.session import ChatSession
+    from effort_tpu_torch.models.transformer import init_random_weights
+    cfg = tiny_test_model(max_seq_len=96)
+    w = init_random_weights(cfg, BucketConfig(bucket_size=1, chunk_rows=128,
+                                              dtype="int8"),
+                            fuse=True, device="cuda")
+    g = ChatSession(w, cfg, pad_to=4, device="cuda")
+    x = ChatSession(w, cfg, pad_to=4, device="cuda", capture=False)
+    turns = ([1, 5, 9], [7, 2], [3, 3, 4, 8, 11])
+    for turn, e in zip(turns, (0.25, 0.5, 0.25)):
+        assert g.turn(turn, n_new=6, effort=e) == x.turn(turn, n_new=6,
+                                                          effort=e)
+    assert len(g.engine._graphs) == 1
+    assert (g.pos, g.history) == (x.pos, x.history)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("args", [
+    ["--bucket-size", "1", "--chunk-rows", "128", "--dtype", "int8"], []])
+def test_bucket_mode_on_card(capsys, args):
+    """`python -m effort_tpu_torch bucket` on the card (K1 at B = 1, K4 at
+    the default B = 4): each effort's cos within 1e-3 of the same sweep on
+    the kernels' plain versions ("plain" route)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from effort_tpu_torch import cli
+    from effort_tpu_torch.eval.harness import matrix_quality_sweep
+    cli.main(["bucket", *args])
+    got = [float(x.split()[-1]) for x in capsys.readouterr().out.splitlines()]
+    a = cli.parse_args(["bucket", *args])
+    wt, v = cli.bucket_inputs("cuda")
+    bm = bucketize(wt, BucketConfig(bucket_size=a.bucket_size,
+                                    chunk_rows=a.chunk_rows, dtype=a.dtype),
+                   keep_dense=True)
+    ref = matrix_quality_sweep(bm, v, impl="plain", wt_dense=wt)
+    assert len(got) == len(ref)
+    for g, r in zip(got, ref.values()):
+        assert abs(g - r) <= 1e-3, (g, r)
