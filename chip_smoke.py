@@ -174,6 +174,28 @@ Phases, one JSON line each (a failure raises and exits non-zero):
             control agreeing with itself at 1.0 and one candidate's
             agreements within one hold-out token of the same sweep in
             process; the subprocesses' launches are not counted
+  train     the row-prefix model freed: the trainer
+            (effort_tpu_torch/train) on wordlm-500m, the repository's
+            trained configuration (Mistral-7B's matrices, 2 layers, a
+            word vocabulary of 8192 built from about 8 MB of the
+            repository's and the standard library's text); its f32 loss
+            and gradient norm on one 64-token row against float64 on the
+            card (LOSS_RTOL); one whole chunk (25 steps) under
+            set_sync_debug_mode("error"); ms a step, tokens/s and the FLOP
+            share in f32 and with TF32 products; then train() (batch 8 x
+            512, lr 3e-4, warmup 30, chunks of 25) for about
+            TRAIN_SECONDS: at least 100 steps, the holdout loss falling to
+            below ln 8192 - 2, every parameter and moment finite. Its
+            export (export_hf) calibrated (collect_act_rms), converted on
+            the card (row-prefix, B = 1, chunk_rows 128, bf16) and loaded:
+            the trainer's logits against the captured decode step's (K1,
+            tau = 1) at effort 1.0 over 8 holdout tokens, cos > 0.999 and
+            the same argmax beyond a 0.05 margin; one prefill request (K2,
+            K3); agreement, NLL (500 holdout tokens), streamed fraction and
+            decode ms a token at 1.0 / 0.5 / 0.25, printed. Then
+            Mixtral-8x7B at 1 layer (all experts dense): the f64 gate, 4
+            steps at batch 2 x 512, ms a step, the aux term (finite, >= 0)
+            and the peak memory
   kernels_rank
             K4 (fused_matvec, csrc/fused_matvec.cu) and K5 (stream_matvec,
             csrc/stream_matvec.cu) against their plain versions at the four
@@ -277,7 +299,9 @@ import numpy as np
 import torch
 
 from effort_tpu_torch import cli
-from effort_tpu_torch.config import BucketConfig, mistral_7b, mixtral_8x7b
+from effort_tpu_torch.config import (BucketConfig, ModelConfig, mistral_7b,
+                                     mixtral_8x7b)
+from effort_tpu_torch.convert.calibrate import collect_act_rms
 from effort_tpu_torch.convert.convert import (HF_NAME_MAPS,
                                               _bucketize_and_store,
                                               config_from_hf,
@@ -314,6 +338,14 @@ from effort_tpu_torch.runtime.safetensors_io import (MultiShardReader,
 from effort_tpu_torch.serving.batcher import BatchEngine, ContinuousBatcher
 from effort_tpu_torch.serving.server import (build_server, make_batch_server,
                                              make_server, parse_args)
+from effort_tpu_torch.runtime.word_tokenizer import (N_BYTE, PIECE_RE,
+                                                     WordTokenizer)
+from effort_tpu_torch.train import (TrainConfig, export_hf, init_params,
+                                    next_token_loss, train)
+from effort_tpu_torch.train.optim import adamw_init, global_norm
+from effort_tpu_torch.train.trainer import forward as train_forward
+from effort_tpu_torch.train.trainer import leaves as train_leaves
+from effort_tpu_torch.train.trainer import params_to_raw, run_chunk
 from effort_tpu_torch.utils import profiling
 from effort_tpu_torch.utils.timing import gpu_ms
 
@@ -4013,6 +4045,361 @@ def phase_cli(src: Path, dst: Path, tok_json: Path, tmp: Path) -> dict:
     return out
 
 
+# ---- training: the trainer at Mistral-7B widths, its export served -------
+
+TRAIN_VOCAB = 8192
+TRAIN_CORPUS_BYTES = 8_000_000
+TRAIN_SECONDS = 60.0               # the main run's share of the phase
+TRAIN_SPEED_STEPS = 3
+TRAIN_EFFORTS = (1.0, 0.5, 0.25)
+TRAIN_HOLDOUT = 500                # tokens of the quality sweeps
+LOSS_RTOL = 1e-4                   # f32 against f64: loss, gradient norm
+FP32_FLOPS, TF32_FLOPS = 67e12, 495e12     # H100 SXM data sheet, dense
+
+
+def wordlm_cfg() -> ModelConfig:
+    """The repository's trained configuration (scripts/trained_wordlm.py
+    model_cfg, wordlm-500m): Mistral-7B's matrices, 2 layers, a word-level
+    vocabulary of 8192."""
+    return ModelConfig(name="wordlm-500m", dim=4096, hidden_dim=14336,
+                       n_layers=2, n_heads=32, n_kv_heads=8, head_dim=128,
+                       vocab_size=TRAIN_VOCAB, max_seq_len=2048,
+                       rope_theta=1e6)
+
+
+def local_text(limit: int) -> str:
+    """Text already on the machine, in scripts/trained_wordlm._local_text's
+    order: the repository's sources and documents, then the standard
+    library's modules, read as bytes (never imported), up to `limit`."""
+    import glob
+    import sysconfig
+    root = str(Path(__file__).resolve().parent)
+    paths = []
+    for pat in ("effort_tpu/**/*.py", "tests/*.py", "scripts/*.py",
+                "docs/*.md", "*.md"):
+        paths += sorted(glob.glob(f"{root}/{pat}", recursive=True))
+    stdlib = sysconfig.get_paths()["stdlib"]
+    paths += sorted(glob.glob(f"{stdlib}/**/*.py", recursive=True))
+    chunks, total = [], 0
+    for p in paths:
+        try:
+            with open(p, "rb") as f:
+                b = f.read()
+        except OSError:
+            continue
+        chunks.append(b.decode("utf-8", errors="ignore"))
+        total += len(b)
+        if total >= limit:
+            break
+    return "".join(chunks)
+
+
+def word_corpus(text: str, vocab: int) -> tuple:
+    """(words, ids): the most frequent word pieces (PIECE_RE) as ids N_BYTE
+    and up, byte fallback below, as scripts/trained_wordlm.stage_corpus
+    builds them."""
+    from collections import Counter
+    counts = Counter(PIECE_RE.findall(text))
+    words = [w for w, _ in counts.most_common(vocab - N_BYTE)]
+    tok = WordTokenizer(words)
+    return words, np.asarray(tok.encode(text), np.int32)
+
+
+def train_flops(cfg, tokens: int, T: int) -> float:
+    """Operations of one training step over `tokens` tokens in rows of T:
+    the layers' products run forward twice (the recompute in backward)
+    and backward once (twice the forward), the head's forward and backward
+    once; attention's two products over the full T x T scores."""
+    q_out, kv_out = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+    ffn = 3 * cfg.dim * cfg.hidden_dim * cfg.n_experts
+    gate = cfg.dim * cfg.n_experts if cfg.is_moe else 0
+    per_layer = (2 * tokens * (cfg.dim * (2 * q_out + 2 * kv_out) + ffn
+                               + gate)
+                 + 4 * tokens * T * q_out)
+    head = 2 * tokens * cfg.dim * cfg.vocab_size
+    return 4 * cfg.n_layers * per_layer + 3 * head
+
+
+def f64_gate(what: str, params: dict, cfg, row: torch.Tensor) -> dict:
+    """The trainer's f32 loss and gradient global norm on one row against
+    the same functions on a float64 copy, on the card: within LOSS_RTOL
+    relative, finite; for MoE the aux term finite and >= 0."""
+    out = {}
+    for dt in (torch.float32, torch.float64):
+        p = {k: ({kk: vv.detach().to(dt) for kk, vv in v.items()}
+                 if isinstance(v, dict) else v.detach().to(dt))
+             for k, v in params.items()}
+        ps = train_leaves(p)
+        for t in ps:
+            t.requires_grad_(True)
+        loss = next_token_loss(p, cfg, row)
+        grads = torch.autograd.grad(loss, ps)
+        with torch.no_grad():
+            aux = float(train_forward(p, cfg, row[:, :-1])[1])
+        out[str(dt)[6:]] = dict(loss=float(loss.detach()),
+                                grad_norm=float(global_norm(list(grads))),
+                                aux=aux)
+        del p, ps, loss, grads
+    a, b = out["float32"], out["float64"]
+    r = dict(what=what, tokens=int(row.shape[1]), **out,
+             loss_rel_err=abs(a["loss"] - b["loss"]) / abs(b["loss"]),
+             grad_norm_rel_err=abs(a["grad_norm"] - b["grad_norm"])
+             / b["grad_norm"], rtol=LOSS_RTOL)
+    emit({"phase": "train_f64_gate", **r})
+    if not (r["loss_rel_err"] <= LOSS_RTOL
+            and r["grad_norm_rel_err"] <= LOSS_RTOL
+            and all(math.isfinite(x) for x in a.values())
+            and (cfg.n_experts == 1 or a["aux"] >= 0.0)):
+        raise AssertionError(f"train f32 vs f64: {r}")
+    return r
+
+
+def train_steps_ms(params, cfg, tcfg, corpus, split, gen, n: int,
+                   tf32: bool = False) -> tuple:
+    """(ms a step over n steps after one untimed step, the AdamW state):
+    run_chunk on `params` in place, host clock around work that ends in a
+    synchronize, TF32 products for the timed steps if asked (the flag is
+    restored after)."""
+    state = adamw_init(train_leaves(params), tcfg.mu_dtype)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    try:
+        run_chunk(params, state, cfg, dataclasses.replace(
+            tcfg, scan_chunk=1), corpus, split, gen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_chunk(params, state, cfg, dataclasses.replace(
+            tcfg, scan_chunk=n), corpus, split, gen)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    return (time.perf_counter() - t0) * 1e3 / n, state
+
+
+def all_finite(ts) -> bool:
+    return all(bool(torch.isfinite(t).all()) for t in ts)
+
+
+def train_dense(cfg, corpus: torch.Tensor, smi: str) -> tuple:
+    """The dense model: the f64 gate, one chunk with no host read, f32
+    and TF32 step times, then train() for about TRAIN_SECONDS. Returns
+    (params, history, result)."""
+    out = {}
+    params = init_params(cfg, seed=0, device="cuda")
+    row = corpus[:65][None]
+    out["f64_gate"] = f64_gate("dense", params, cfg, row)
+    tcfg = TrainConfig(batch=8, seq_len=512, lr=3e-4, warmup=30,
+                       scan_chunk=25, holdout_frac=0.02)
+    split = int(len(corpus) * (1 - tcfg.holdout_frac))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    # timing and the sync check run on a copy: the main run starts from
+    # the initial parameters
+    scratch = {k: ({kk: vv.detach().clone() for kk, vv in v.items()}
+                   if isinstance(v, dict) else v.detach().clone())
+               for k, v in params.items()}
+    state = adamw_init(train_leaves(scratch), tcfg.mu_dtype)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        losses = run_chunk(scratch, state, cfg, tcfg, corpus, split, gen)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    out["no_host_read_chunk"] = dict(steps=tcfg.scan_chunk,
+                                     losses=losses.tolist())
+    ms, st = train_steps_ms(scratch, cfg, tcfg, corpus, split, gen,
+                            TRAIN_SPEED_STEPS)
+    ms_tf32, st_tf32 = train_steps_ms(scratch, cfg, tcfg, corpus, split,
+                                      gen, TRAIN_SPEED_STEPS, tf32=True)
+    moments_finite = all_finite(st.mu + st.nu + st_tf32.mu + st_tf32.nu
+                                + state.mu + state.nu)
+    del scratch, state, st, st_tf32
+    tokens = tcfg.batch * (tcfg.seq_len - 1)
+    flops = train_flops(cfg, tokens, tcfg.seq_len - 1)
+    out["speed"] = dict(
+        ms_per_step=ms, ms_per_step_tf32=ms_tf32,
+        tokens_per_s=tokens / ms * 1e3,
+        tokens_per_s_tf32=tokens / ms_tf32 * 1e3, flops_per_step=flops,
+        share_of_fp32_peak=flops / (ms * 1e-3) / FP32_FLOPS,
+        share_of_tf32_peak=flops / (ms_tf32 * 1e-3) / TF32_FLOPS,
+        nvidia_smi=smi)
+    emit({"phase": "train_speed", **out["speed"]})
+    # steps: whole chunks that fill TRAIN_SECONDS at the measured speed
+    # (4 to 10 chunks); the deadline stops a run 1.5x slower than that
+    chunks = max(4, min(10, round(TRAIN_SECONDS * 1e3
+                                  / (ms * tcfg.scan_chunk))))
+    tcfg = dataclasses.replace(tcfg, steps=chunks * tcfg.scan_chunk)
+    lines = []
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    params, hist = train(cfg, corpus, tcfg, params=params,
+                         progress=lines.append,
+                         deadline=t0 + 1.5 * max(
+                             TRAIN_SECONDS, tcfg.steps * ms / 1e3))
+    torch.cuda.synchronize()
+    out["run"] = dict(steps_planned=tcfg.steps, steps=hist[-1][0],
+                      seconds=time.time() - t0, history=hist,
+                      progress_tail=lines[-2:],
+                      peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                      params_finite=all_finite(train_leaves(params)),
+                      moments_finite=moments_finite)
+    emit({"phase": "train_run", **out["run"]})
+    holdout = [h[2] for h in hist]
+    if not (hist[-1][0] >= 100 and holdout[-1] < holdout[0]
+            and holdout[-1] < math.log(TRAIN_VOCAB) - 2
+            and out["run"]["params_finite"] and moments_finite):
+        raise AssertionError(f"training made no progress: {out['run']}")
+    return params, hist, out
+
+
+def served_gate(params, cfg, w, cfg_l, prompt: list, runs: list) -> dict:
+    """The trainer's f32 logits against the served model's at effort 1.0,
+    position by position (Engine.token_logits: the captured decode step,
+    K1 at tau = 1, so every chunk streams): cos > 0.999, and the same
+    argmax wherever the trainer's top-two margin exceeds NEAR_TIE (the
+    JAX package's tests/test_train.py gate)."""
+    with torch.no_grad():
+        ref = train_forward(params, cfg, torch.tensor(
+            [prompt], device="cuda"))[0][0]
+    saved = fused_stream._TAU
+    fused_stream._TAU = 1.0
+    try:
+        eng = Engine(w, cfg_l, eos_id=-1)
+        got = counted(runs, lambda: eng.token_logits(prompt, 1.0))
+    finally:
+        fused_stream._TAU = saved
+    cs, argmax_ok = [], True
+    for a, b in zip(got, ref):
+        cs.append(cos(a, b))
+        top2 = torch.topk(b, 2).values
+        if float(top2[0] - top2[1]) > NEAR_TIE:
+            argmax_ok &= int(a.argmax()) == int(b.argmax())
+    r = dict(positions=len(prompt), min_cos=min(cs), argmax_ok=argmax_ok)
+    emit({"phase": "train_served_gate", **r})
+    if not (r["min_cos"] > 0.999 and argmax_ok):
+        raise AssertionError(f"trained vs served logits: {r}")
+    return r
+
+
+def serve_trained(params, cfg, corpus_np: np.ndarray, split: int,
+                  tmp: Path, smi: str) -> dict:
+    """export_hf -> calibration (collect_act_rms on the uncalibrated
+    assembly) -> convert_checkpoint on the card (row-prefix, B = 1,
+    chunk_rows 128, bf16, as the JAX package's bench regenerates its
+    trained model) -> load_bucketized -> the served gate, one prefill
+    request (K2, K3), and the quality numbers (printed, not gated)."""
+    out, runs = {}, []
+    t0 = time.perf_counter()
+    export_hf(params, cfg, str(tmp / "hf"))
+    out["export_s"] = time.perf_counter() - t0
+    bcfg = BucketConfig(bucket_size=1, chunk_rows=128, dtype="bf16")
+    t0 = time.perf_counter()
+    w_uncal = assemble_weights(params_to_raw(params, cfg), cfg, bcfg)
+    rng = np.random.default_rng(3)
+    seqs = [corpus_np[s:s + 192].tolist()
+            for s in rng.integers(0, split - 200, 3)]
+    calib = collect_act_rms(w_uncal, cfg, seqs)
+    del w_uncal
+    out["calibrate_s"] = time.perf_counter() - t0
+    cfg_hf = config_from_hf(str(tmp / "hf"))
+    if dataclasses.replace(cfg_hf, name=cfg.name) != cfg:
+        raise AssertionError(f"exported config: {cfg_hf} vs {cfg}")
+    t0 = time.perf_counter()
+    convert_checkpoint(str(tmp / "hf"), str(tmp / "b"), cfg_hf, bcfg,
+                       calib=calib, device="cuda", progress=lambda *a: None)
+    torch.cuda.synchronize()
+    out["convert_s"] = time.perf_counter() - t0
+    w, cfg_l, bcfg_l = load_bucketized(str(tmp / "b"), device="cuda")
+    if bcfg_l != bcfg:
+        raise AssertionError(f"loaded buckets {bcfg_l}")
+    # mid-holdout text (the corpus tail can be trivially predictable)
+    off = max(0, (len(corpus_np) - split - TRAIN_HOLDOUT) // 3)
+    hold = corpus_np[split + off:split + off + TRAIN_HOLDOUT].tolist()
+    out["served_gate"] = served_gate(params, cfg, w, cfg_l, hold[:8], runs)
+    pre = Engine(w, cfg_l, eos_id=-1, prefill=True)
+    reply = counted(runs, lambda: pre.generate(hold[:64], n_new=8,
+                                                effort=0.5))
+    out["prefill"] = dict(prompt=64, tokens=reply.token_ids,
+                          launches=runs[-1]["launches"])
+    eng = Engine(w, cfg_l, eos_id=-1)
+    t0 = time.perf_counter()
+    q = counted(runs, lambda: dict(
+        agreement=harness.tf_agreement_sweep(eng, hold, TRAIN_EFFORTS),
+        nll=harness.nll_sweep(eng, hold, TRAIN_EFFORTS),
+        streamed=harness.streamed_fraction(w, cfg_l, hold[:64],
+                                           TRAIN_EFFORTS)))
+    q["sweep_s"] = time.perf_counter() - t0
+    warm([eng], hold[:8], TRAIN_EFFORTS)
+    q["decode_ms_per_token"] = {
+        e: counted(runs, lambda e=e: timed_generate(eng, [hold[:8]], e))[1]
+        for e in TRAIN_EFFORTS}
+    q.update(tokens=len(hold), nvidia_smi=smi)
+    out["quality"] = q
+    emit({"phase": "train_quality", **q})
+    out["runs"] = runs
+    return out
+
+
+def phase_train(smi: str) -> dict:
+    """The trainer on the card (module docstring, `train`)."""
+    t_phase = time.perf_counter()
+    out = {}
+    t0 = time.perf_counter()
+    text = local_text(TRAIN_CORPUS_BYTES)
+    words, ids = word_corpus(text, TRAIN_VOCAB)
+    out["corpus"] = dict(text_mb=len(text) / 1e6, tokens=len(ids),
+                         seconds=time.perf_counter() - t0)
+    emit({"phase": "train_corpus", **out["corpus"]})
+    corpus = torch.from_numpy(ids).cuda()
+    cfg = wordlm_cfg()
+    params, hist, out["dense"] = train_dense(cfg, corpus, smi)
+    split = int(len(ids) * 0.98)
+    with tempfile.TemporaryDirectory() as tmp:
+        out["served"] = serve_trained(params, cfg, ids, split, Path(tmp),
+                                      smi)
+    del params
+    free_card()
+
+    cfg_m = mixtral_8x7b(n_layers=1, max_seq_len=512)
+    params = init_params(cfg_m, seed=1, device="cuda")
+    moe = {"f64_gate": f64_gate("moe", params, cfg_m, corpus[:65][None])}
+    torch.cuda.reset_peak_memory_stats()
+    tcfg = TrainConfig(batch=2, seq_len=512, steps=10, warmup=2,
+                       scan_chunk=1, holdout_frac=0.02)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(8)
+    ms, st = train_steps_ms(params, cfg_m, tcfg, corpus, split, gen,
+                            TRAIN_SPEED_STEPS)
+    with torch.no_grad():
+        aux = float(train_forward(params, cfg_m, corpus[:512][None])[1])
+    moe.update(ms_per_step=ms, steps=TRAIN_SPEED_STEPS + 1, aux=aux,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               finite=all_finite(train_leaves(params) + st.mu + st.nu),
+               flops_per_step=train_flops(cfg_m, 2 * 511, 511),
+               nvidia_smi=smi)
+    moe["share_of_fp32_peak"] = (moe["flops_per_step"] / (ms * 1e-3)
+                                 / FP32_FLOPS)
+    out["moe"] = moe
+    emit({"phase": "train_moe", **{k: v for k, v in moe.items()
+                                   if k != "f64_gate"}})
+    del params, st
+    if not (moe["finite"] and math.isfinite(aux) and aux >= 0.0):
+        raise AssertionError(f"MoE training: {moe}")
+    out["runs"] = out["served"]["runs"]
+    launched = {k: sum(r["launches"].get(k, 0) for r in out["runs"])
+                for k in ("mxu_matvec", "mxu_matvec_batch",
+                          "flash_attention")}
+    out["launches"] = launched
+    out["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "train", "launches": launched,
+          "seconds": out["seconds"]})
+    missing = [k for k, n in launched.items() if not n]
+    if missing:
+        raise AssertionError(f"kernels the trained model's serving never "
+                             f"launched: {missing}")
+    return out
+
+
 def free_card() -> None:
     """Release what the last model left on the card: collect unreachable
     objects first (the servers' and batchers' reference cycles keep their
@@ -4177,6 +4564,8 @@ def main() -> int:
     out["phase_seconds"]["cli"] = out["cli"]["seconds"]
     out["phase_seconds"]["ckpt"] -= out["cli"]["seconds"]
     free_card()
+    run("train", phase_train, smi)
+    free_card()
 
     cfg, w = build_rank_model()
     rank = run("rank_decode", phase_rank_decode, cfg, w, prompts)
@@ -4218,8 +4607,8 @@ def main() -> int:
     k1_runs = (out["generate"] + out["prefill"] + out["moe_decode"]
                + [out["moe_serve"], out["moe_serve"]["http_single"]]
                + spec_runs + out["ckpt"]["runs"] + out["session"]["runs"]
-               + out["eval"]["runs"])
-    serve_runs += spec_runs + out["ckpt"]["runs"]
+               + out["eval"]["runs"] + out["train"]["runs"])
+    serve_runs += spec_runs + out["ckpt"]["runs"] + out["train"]["runs"]
     summary_rank = lambda p: (p["dtype"], p["effort"],   # noqa: E731
                               p.get("tau", 0.97)) == SUMMARY_RANK
     out["kernels"] = kernels = [

@@ -53,3 +53,19 @@ def model_weights_from_numpy(d: dict) -> ModelWeights:
         layers=layers,
         output_q=tensor_from_numpy(d.get("output_q")),
         output_qscale=tensor_from_numpy(d.get("output_qscale")))
+
+
+def train_params_from_numpy(d: dict, device=None) -> dict:
+    """The JAX trainer's parameter pytree (numpy leaves, nested dicts) as
+    the port's trainer params: the same keys, tensors on `device` (the
+    CPU unless named)."""
+    return {k: (train_params_from_numpy(v, device) if isinstance(v, dict)
+                else tensor_from_numpy(v).to(device or "cpu"))
+            for k, v in d.items()}
+
+
+def train_params_to_numpy(p: dict) -> dict:
+    """The port's trainer params as the JAX pytree's numpy leaves."""
+    return {k: (train_params_to_numpy(v) if isinstance(v, dict)
+                else v.detach().cpu().numpy())
+            for k, v in p.items()}

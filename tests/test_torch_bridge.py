@@ -140,12 +140,13 @@ for name in ("kernels.fused_stream", "kernels.flash_attention",
              "runtime._native_build", "convert.convert",
              "convert.calibrate", "models.weights", "cli", "__main__",
              "models.session", "models.tester", "models.autotune",
-             "ops.oracle", "eval.harness", "utils.profiling"):
+             "ops.oracle", "eval.harness", "utils.profiling",
+             "train", "train.trainer", "train.optim"):
     importlib.import_module("effort_tpu_torch." + name)
 spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1])
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "effort_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "effort_tpu", "optax"))
 if bad:
     sys.exit("imported: %s" % bad)
 print(len([m for m in sys.modules if m.startswith("effort_tpu_torch")]))
@@ -157,13 +158,13 @@ def test_port_imports_no_jax():
     serving modules by name, the rank-prefix and gather kernels too, the
     checkpoint modules: runtime.*, convert.*, models.weights; the
     user-facing modules: cli, __main__, models.session, models.tester,
-    models.autotune, ops.oracle, eval.harness, utils.profiling) and
-    chip_smoke.py leaves jax and every effort_tpu module out of
-    sys.modules."""
+    models.autotune, ops.oracle, eval.harness, utils.profiling; the
+    trainer: train, train.trainer, train.optim) and chip_smoke.py leaves
+    jax, optax and every effort_tpu module out of sys.modules."""
     r = subprocess.run(
         [sys.executable, "-c", _ISOLATION,
          os.path.join(REPO, "chip_smoke.py")],
         cwd=REPO, capture_output=True, text=True, timeout=120,
         env={**os.environ, "PYTHONPATH": REPO})
     assert r.returncode == 0, r.stdout + r.stderr
-    assert int(r.stdout.split()[-1]) >= 42, r.stdout
+    assert int(r.stdout.split()[-1]) >= 45, r.stdout

@@ -1098,3 +1098,39 @@ def test_bucket_mode_on_card(capsys, args):
     assert len(got) == len(ref)
     for g, r in zip(got, ref.values()):
         assert abs(g - r) <= 1e-3, (g, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("moe", [False, True])
+def test_train_chunk_reads_no_host_value_on_card(moe):
+    """One chunk of the trainer's steps (run_chunk: batches cut on the
+    card, loss, backward through the recomputed layers, the clip, the
+    schedule and AdamW) under set_sync_debug_mode("error"): no host read;
+    finite losses and the step count advanced on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import dataclasses
+    from effort_tpu_torch.config import tiny_test_model
+    from effort_tpu_torch.train import TrainConfig, init_params
+    from effort_tpu_torch.train.optim import adamw_init
+    from effort_tpu_torch.train.trainer import leaves, run_chunk
+    cfg = dataclasses.replace(tiny_test_model(), vocab_size=256, n_layers=2,
+                              **(dict(n_experts=4) if moe else {}))
+    params = init_params(cfg, seed=0, device="cuda")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    corpus = torch.randint(0, 256, (4096,), generator=g, device="cuda",
+                           dtype=torch.int32)
+    tcfg = TrainConfig(batch=4, seq_len=64, steps=10, warmup=2,
+                       scan_chunk=5, mu_dtype="bfloat16")
+    state = adamw_init(leaves(params), tcfg.mu_dtype)
+    run_chunk(params, state, cfg, dataclasses.replace(tcfg, scan_chunk=1),
+              corpus, 4000, g)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        losses = run_chunk(params, state, cfg, tcfg, corpus, 4000, g)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert losses.shape == (5,) and bool(torch.isfinite(losses).all())
+    assert int(state.count) == 6
