@@ -196,6 +196,33 @@ Phases, one JSON line each (a failure raises and exits non-zero):
             Mixtral-8x7B at 1 layer (all experts dense): the f64 gate, 4
             steps at batch 2 x 512, ms a step, the aux term (finite, >= 0)
             and the peak memory
+  parallel  the card empty (after `train`): K1 alone at the shard shapes of
+            Mistral-7B at tp = 4 (wq 4096->1024, wk/wv ->256, wo
+            1024->4096, w1/w3 ->3584, w2 3584->4096, head ->8000; int8,
+            efforts 0.25 and 1.0) against its plain version, timed beside
+            its bound and torch.mm; then PAR_WORLD = 4 ranks, one process
+            each (effort_tpu_torch.parallel.multihost.spawn; NCCL where
+            each rank has a card, else gloo, which moves CUDA tensors
+            through host memory), each building its own shard from the
+            seed-0 draws (int8 row-prefix, chunk_rows 128, unfused,
+            uncalibrated; 4 of 32 layers, full width) and decoding in six
+            modes: tp 4 and pp 4 (4 microbatches, prompts 5/17/32/64, 8
+            new) on Mistral-7B, sp 4 and tp 2 x sp 2 on Mistral-7B at
+            max_seq_len 8192 (4600 seeded cache slots, 16 steps, window
+            4096), ep 4 and tp 2 x ep 2 on Mixtral-8x7B (plus ep_ffn_tokens
+            over 64 tokens a rank at capacity 1.25, and with every token
+            routed to rank 0's experts); prompt 17 and 16 new at efforts
+            1.0 and 0.25. Gates: (a) every K1 call of one step against its
+            plain version on each rank's own inputs; (b) the effort-1.0
+            logits against the single-device model (same draws, same
+            bucketize) teacher-forced over the same tokens, cos >= 0.999
+            (tp, tp x ep, tp x sp) or 0.9999 (sp, ep, pp), the ranks'
+            experts the model's own at every route call (the int8 tp x ep
+            run: at most PAR_ROUTES_APART of them apart), and the ep
+            tokens' outputs (0.9999) and drops (exact); (c) the 0.25
+            tokens printed; (d) each rank's exact K1 launches. Host ms a
+            step (labelled with the backend and ranks a card), peak GiB a
+            rank
   kernels_rank
             K4 (fused_matvec, csrc/fused_matvec.cu) and K5 (stream_matvec,
             csrc/stream_matvec.cu) against their plain versions at the four
@@ -331,6 +358,8 @@ from effort_tpu_torch.ops.bucketize import (bucketize, calib_row_order,
                                             pick_chunk_rows)
 from effort_tpu_torch.ops.bucketmul import dense_matvec
 from effort_tpu_torch.ops.effort import effort_q16, select_blocks
+from effort_tpu_torch.parallel import _ranks, multihost, tp
+from effort_tpu_torch.parallel.ep import expert_capacity
 from effort_tpu_torch.models.weights import attach_dense, load_bucketized
 from effort_tpu_torch.runtime._native_build import native_lib_path
 from effort_tpu_torch.runtime.safetensors_io import (MultiShardReader,
@@ -4400,6 +4429,449 @@ def phase_train(smi: str) -> dict:
     return out
 
 
+PAR_WORLD = 4
+PAR_LAYERS = 4                     # of 32: depth cut to fit the run
+PAR_BUCKETS = BucketConfig(bucket_size=1, chunk_rows=128, dtype="int8")
+# the tp-sharded modes again in bf16 for gate (b): bf16 rounds each weight
+# alone, so a shard's containers are slices of the whole matrix's; int8's
+# scale a row is its absmax over the shard's columns only, another
+# quantization of the same weights
+PAR_BF16 = dataclasses.replace(PAR_BUCKETS, dtype="bf16")
+PAR_TP_SHARDED = ("tp", "tp_ep", "tp_sp")
+PAR_PROMPT = 17
+PAR_NEW = 16
+PAR_SEQ = 8192                     # sp, tp x sp: 2048 / 4096 slots a rank
+PAR_FILL = 4600                    # seeded slots before the sp steps
+PAR_SP_STEPS = 16
+PAR_PP_PROMPTS = (5, 17, 32, 64)
+PAR_PP_NEW = 8
+PAR_EP_TOKENS = 64                 # ep_ffn_tokens: tokens a rank
+PAR_CAPACITY = 1.25
+# gate (b): cos of the effort-1.0 logits against the single-device model,
+# the JAX tests' bounds (tests/test_parallel*.py, test_composed.py), which
+# hold bf16 shards; the tp-sharded modes' int8 shards, another
+# quantization, go by int8_floor
+PAR_COS = {"tp": 0.999, "sp": 0.9999, "ep": 0.9999, "pp": 0.9999,
+           "tp_ep": 0.999, "tp_sp": 0.999}
+# gate (b)'s routes: the share of route calls where the int8 tp x ep
+# ranks' experts may part from the single-device model's (near ties that
+# the per-shard int8 scales tip; routes_held); every other run: none
+PAR_ROUTES_APART = 0.1
+# K1 launches a layer a step on each rank: the 7 unfused projections; ep's
+# FFN runs 3 a routed expert on every rank (the owner mask is a
+# torch.where), so 4 + 3 * 2
+PAR_PER_LAYER = {"tp": 7, "sp": 7, "pp": 7, "tp_sp": 7, "ep": 10,
+                 "tp_ep": 10}
+# K1 at the shard shapes of Mistral-7B at tp = 4 (the head, bf16 in the
+# model, timed as K1 too)
+K1_SHARDS = {"wq": (4096, 1024), "wk": (4096, 256), "wv": (4096, 256),
+             "wo": (1024, 4096), "w1": (4096, 3584), "w3": (4096, 3584),
+             "w2": (3584, 4096), "head": (4096, 8000)}
+K1_SHARD_EFFORTS = (0.25, 1.0)
+
+
+def k1_shard_points() -> list:
+    """K1 alone at K1_SHARDS, int8 row-prefix (chunk_rows 128, as the
+    parallel builders bucketize), efforts 0.25 and 1.0: against its plain
+    version (equal C, cos >= 0.9999, max|dy| <= 1e-2 max|y_ref|), then
+    device ms (L2 flushed, RUNS inputs, median) beside the bound, the
+    plain version and a dense bf16 torch.mm of the same shape."""
+    flush = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(4321)
+    points = []
+    for name, (i, o) in K1_SHARDS.items():
+        wt = torch.randn((i, o), generator=g, device="cuda") * 0.02
+        dense = wt.to(torch.bfloat16)
+        vs = [torch.randn(i, generator=g, device="cuda") for _ in range(RUNS)]
+        lib_ms = median([gpu_ms(lambda a: torch.mm(a, dense), (a,), flush)
+                         for a in (v.to(torch.bfloat16)[None] for v in vs)])
+        bm = bucketize(wt, PAR_BUCKETS)
+        del wt, dense
+        for effort in K1_SHARD_EFFORTS:
+            eq = effort_q16(effort, "cuda")
+            y, C = fused_stream.mxu_matvec(bm, vs[0], eq, 0, return_len=True)
+            yr, Cr = fused_stream.mxu_matvec_ref(bm, vs[0], eq, 0,
+                                                 return_len=True)
+            C, Cr = int(C), int(Cr)
+            err, scale = float((y - yr).abs().max()), float(yr.abs().max())
+            p = dict(shape=name, in_dim=i, out_dim=o, n_chunks=bm.n_chunks,
+                     effort=effort, C=C, C_plain=Cr, cos=cos(y, yr),
+                     max_abs_err=err, max_abs_ref=scale)
+            if C != Cr or not p["cos"] >= 0.9999 or not err <= 1e-2 * scale:
+                raise AssertionError(f"K1 disagrees with its plain version "
+                                     f"at a shard shape: {p}")
+            p["ms"] = median([gpu_ms(lambda v: fused_stream.mxu_matvec(
+                bm, v, eq, 0), (v,), flush) for v in vs])
+            p["plain_ms"] = median([gpu_ms(lambda v: fused_stream
+                                           .mxu_matvec_ref(bm, v, eq, 0),
+                                           (v,), flush) for v in vs])
+            p["bytes"] = k1_bytes(bm, C)
+            p["bound_ms"] = p["bytes"] / HBM_BYTES_PER_S * 1e3
+            p["library_ms"] = lib_ms
+            points.append(p)
+            emit({"phase": "k1_shards", **p})
+        del bm, vs
+    del flush
+    torch.cuda.empty_cache()
+    return points
+
+
+def parallel_jobs() -> list:
+    """The six modes' decode jobs for the ranks (parallel/_ranks.py): each
+    at full width and PAR_LAYERS deep, seed-0 int8 row-prefix weights
+    built on each rank for its shard, the kernel route; effort 1.0 then
+    0.25, gate (a) at 0.25."""
+    mis = mistral_7b(n_layers=PAR_LAYERS)
+    mis_long = mistral_7b(n_layers=PAR_LAYERS, max_seq_len=PAR_SEQ)
+    mix = mixtral_8x7b(n_layers=PAR_LAYERS)
+    prompt = seeded_ids(mis, [PAR_PROMPT], 15)[0]
+    pp_prompts = seeded_ids(mis, PAR_PP_PROMPTS, 16)
+
+    def job(mode, n, cfg, runs, **kw):
+        return dict(mode=mode, n=n, cfg=cfg, bcfg=PAR_BUCKETS,
+                    weights=("seed", 0), impl="kernel", gate=0.25,
+                    all_ranks=False, runs=runs, **kw)
+
+    def bf16(j):
+        """j's effort-1.0 run on bf16 shards (gate (b) only)."""
+        return dict(j, bcfg=PAR_BF16, gate=None, runs=j["runs"][:1],
+                    ffn_tokens=())
+
+    def runs(**kw):
+        """At 1.0 with tau = 1 (gate (b), as the teacher phases: a tau
+        prefix parts sharded from whole matrices by more than rounding),
+        then at 0.25 at the default tau."""
+        return [dict(effort=1.0, tau=1.0, record_routing=True, **kw),
+                dict(effort=0.25, **kw)]
+
+    dec = runs(tokens=prompt, n_new=PAR_NEW)
+    sp_runs = runs(tokens=prompt[:1], start=PAR_FILL, n_new=PAR_SP_STEPS - 1)
+    pp_runs = runs(tokens=pp_prompts, n_new=PAR_PP_NEW)
+    tokens = [dict(X=("seed", 17, PAR_EP_TOKENS * PAR_WORLD), layer=0,
+                   capacity_factor=PAR_CAPACITY, zero_gate=z, effort=1.0)
+              for z in (False, True)]
+    fill = (PAR_FILL, 5)
+    jobs = [job("tp", PAR_WORLD, mis, dec),
+            job("sp", PAR_WORLD, mis_long, sp_runs, fill=fill),
+            job("ep", PAR_WORLD, mix, dec, ffn_tokens=tokens),
+            job("pp", PAR_WORLD, mis, pp_runs),
+            job("tp_ep", (2, 2), mix, dec),
+            job("tp_sp", (2, 2), mis_long, sp_runs, fill=fill)]
+    return jobs + [bf16(j) for j in jobs if j["mode"] in PAR_TP_SHARDED]
+
+
+def job_key(job: dict) -> str:
+    return job["mode"] + ("_bf16" if job["bcfg"].dtype == "bf16" else "")
+
+
+def int8_sharded(job: dict) -> bool:
+    return job["mode"] in PAR_TP_SHARDED and job["bcfg"].dtype == "int8"
+
+
+def teacher_logits(w, cfg, fed: list, start: int, effort: float,
+                   caches, routing=None) -> tuple:
+    """The single-device model teacher-forced over fed from slot start
+    (K1 on the kernel route at tau = 1): (logits [steps, vocab] on the
+    host, routes). routing [steps, layers, k], an MoE model's experts as
+    the ranks routed them: each call takes those, gated by the softmax of
+    its own gate logits at them (so a near tie that rounding tips either
+    way cannot part the two models' experts). routes: the route calls,
+    those whose own top-k differed (apart), and the largest gap there
+    between the model's own k-th gate logit and its logit at the ranks'
+    least chosen expert (max_gap; 0 where none parted)."""
+    eq = effort_q16(effort, "cuda")
+    saved, fused_stream._TAU = fused_stream._TAU, 1.0
+    route0, gaps, n = transformer.route, [], 0
+    if routing is not None:
+        n = routing.shape[0] * routing.shape[1]
+        calls = iter(routing.reshape(-1, routing.shape[-1]))
+
+        def forced(layer, l, x, cfg_):
+            _, idx = route0(layer, l, x, cfg_)
+            want = torch.as_tensor(next(calls), dtype=idx.dtype,
+                                   device=idx.device)
+            lg = bucketmul.mm_f32(x.to(torch.bfloat16)[None],
+                                  layer.ffn_gate[l])[0]
+            if not torch.equal(torch.sort(idx).values,
+                               torch.sort(want).values):
+                gaps.append(float(lg[idx.long()].min()
+                                  - lg[want.long()].min()))
+            return torch.softmax(lg[want.long()], dim=-1), want
+        transformer.route = forced
+    try:
+        lg = torch.stack([forward_token(w, cfg, t, start + p, *caches,
+                                        effort=eq, impl="kernel")
+                          for p, t in enumerate(fed)]).float().cpu()
+    finally:
+        fused_stream._TAU, transformer.route = saved, route0
+    return lg, dict(calls=n, apart=len(gaps), max_gap=max(gaps, default=0.0))
+
+
+def routes_held(job: dict, routes: dict) -> bool:
+    """The ranks' experts are the single-device model's own at every route
+    call, except in the int8 tp x ep run: its per-shard int8 scales move
+    the router's input, and a near tie may tip there, in at most
+    PAR_ROUTES_APART of the calls."""
+    if int8_sharded(job):
+        return routes["apart"] <= PAR_ROUTES_APART * routes["calls"]
+    return routes["apart"] == 0
+
+
+def held_logits(bound: float, got: np.ndarray, ref: tuple) -> dict:
+    ref, routes = ref
+    cs = [cos(torch.from_numpy(g), r) for g, r in zip(got, ref)]
+    same = sum(int(np.argmax(g)) == int(r.argmax()) for g, r in zip(got, ref))
+    return dict(min_cos=min(cs), mean_cos=sum(cs) / len(cs),
+                steps=len(cs), argmax_equal=same, bound=bound,
+                first_cos=cs[:4], routes=routes)
+
+
+def mode_references(job: dict, res: list, w) -> dict:
+    """Gate (b) of one mode: rank 0's effort-1.0 logits against the
+    single-device model w teacher-forced over the same tokens (pp: each
+    microbatch's sequence alone)."""
+    cfg, run = job["cfg"], res[0]["runs"][0]
+    got = run["logits"]
+    bound = None if int8_sharded(job) else PAR_COS[job["mode"]]
+    if job["mode"] == "pp":
+        rows = []
+        for m, fed in enumerate(run["fed"]):
+            ref = teacher_logits(w, cfg, fed, 0, run["effort"],
+                                 make_kv_cache(cfg, "cuda"))
+            rows.append(held_logits(bound, got[:, m], ref))
+        routes = [r["routes"] for r in rows]
+        return dict(min_cos=min(r["min_cos"] for r in rows),
+                    argmax_equal=sum(r["argmax_equal"] for r in rows),
+                    steps=sum(r["steps"] for r in rows), bound=bound,
+                    routes=dict(calls=sum(r["calls"] for r in routes),
+                                apart=sum(r["apart"] for r in routes),
+                                max_gap=max(r["max_gap"] for r in routes)),
+                    microbatches=rows)
+    start = job["runs"][0].get("start", 0)
+    ref = teacher_logits(w, cfg, run["fed"], start, run["effort"],
+                         _ranks.global_caches(job, "cuda"),
+                         run.get("routing"))
+    return dict(held_logits(bound, got, ref), ref=ref[0])
+
+
+def int8_floor(job: dict, res: list, w_bf16, single_int8) -> dict:
+    """Gate (b) of an int8 tp-sharded mode. A shard's int8 scale a row is
+    its absmax over the shard's columns only: another quantization of the
+    same weights than the single-device model's, as far from it as two
+    quantizations are. So the sharded model and the single-device int8
+    model (single_int8, its logits over the same tokens) are both held to
+    the bf16 single-device model w_bf16, over the same tokens and the
+    ranks' routing: the sharded model's 1 - cos at most twice the
+    single-device int8 model's (its quantization's own distance)."""
+    run = res[0]["runs"][0]
+    ref, routes = teacher_logits(w_bf16, job["cfg"], run["fed"],
+                                 job["runs"][0].get("start", 0),
+                                 run["effort"],
+                                 _ranks.global_caches(job, "cuda"),
+                                 run.get("routing"))
+    got = min(cos(torch.from_numpy(g), r) for g, r in zip(run["logits"],
+                                                           ref))
+    floor = min(cos(a, r) for a, r in zip(single_int8, ref))
+    return dict(min_cos_vs_bf16=got, int8_floor=floor, routes=routes,
+                ok=1 - got <= 2 * (1 - floor) and routes_held(job, routes))
+
+
+def ep_tokens_reference(job: dict, res: list, w) -> list:
+    """The ep_ffn_tokens cases against the single-device model: the
+    routing each rank saw equals the model's; each token's kept
+    assignments (its rank's first C of each expert, in token order) gated
+    and summed, K1 a token and expert; cos >= 0.9999 over all tokens, and
+    the drops equal to the count the routing gives."""
+    cfg, k = job["cfg"], job["cfg"].n_experts_per_tok
+    out = []
+    for i, case in enumerate(job["ffn_tokens"]):
+        T = case["X"][2]
+        X = _ranks.tokens_input(cfg, T, case["X"][1], "cuda")
+        lw = w.layers
+        if case["zero_gate"]:
+            lw = dataclasses.replace(lw,
+                                     ffn_gate=torch.zeros_like(lw.ffn_gate))
+        gates, idx = transformer.route(lw, case["layer"], X, cfg)
+        idx = idx.cpu().numpy()
+        got = [r["ffn_tokens"][i] for r in res]
+        Tl = got[0]["tokens"]
+        C = expert_capacity(Tl, len(res), k, cfg.n_experts,
+                            case["capacity_factor"])
+        same_routing = all(
+            np.array_equal(g["experts"], idx[r * Tl:(r + 1) * Tl])
+            for r, g in enumerate(got))
+        eq = effort_q16(case["effort"], "cuda")
+        pe = transformer.proj_efforts(eq, cfg)
+        y_ref = torch.zeros((T, cfg.dim), device="cuda")
+        dropped = 0
+        for r in range(len(res)):
+            seen = {}
+            for t in range(r * Tl, (r + 1) * Tl):
+                for j in range(k):
+                    e = int(idx[t, j])
+                    seen[e] = seen.get(e, 0) + 1
+                    if seen[e] > C:
+                        dropped += 1
+                        continue
+                    y_ref[t] += gates[t, j] * transformer._expert_ffn(
+                        lw, case["layer"] * cfg.n_experts + e, X[t], pe, cfg,
+                        "kernel")
+        y = torch.from_numpy(np.concatenate([g["y"] for g in got]))
+        row = dict(zero_gate=case["zero_gate"], tokens=T, capacity=C,
+                   dropped=sum(g["dropped"] for g in got),
+                   dropped_want=dropped,
+                   cos=cos(y.flatten(), y_ref.flatten().cpu()),
+                   ms=max(g["seconds"] for g in got) * 1e3,
+                   same_routing=same_routing)
+        row["ok"] = (same_routing and row["dropped"] == dropped
+                     and row["cos"] >= 0.9999)
+        out.append(row)
+        emit({"phase": "parallel_ep_tokens", **row})
+    return out
+
+
+def mode_launches(job: dict, res: list) -> dict:
+    """Gate (d): every rank's K1 launches in each run equal what the mode
+    gives (PAR_PER_LAYER * layers a step; ep tokens 3 a slot of every
+    local expert's n_ep * C), and no other kernel ran."""
+    L, per = job["cfg"].n_layers, PAR_PER_LAYER[job["mode"]]
+    total = 0
+    for r in res:
+        for run in r["runs"]:
+            want = {"mxu_matvec": per * L * run["steps"]}
+            if run["launches"] != want:
+                raise AssertionError(f"{job['mode']} rank {r['rank']} "
+                                     f"launches {run['launches']}, want "
+                                     f"{want}")
+            total += want["mxu_matvec"]
+        for c in r["ffn_tokens"]:
+            n_ep = job["n"]
+            cfg = job["cfg"]
+            C = expert_capacity(c["tokens"], n_ep, cfg.n_experts_per_tok,
+                                cfg.n_experts, PAR_CAPACITY)
+            want = {"mxu_matvec": 3 * cfg.n_experts * C}
+            if c["launches"] != want:
+                raise AssertionError(f"ep tokens rank {r['rank']} launches "
+                                     f"{c['launches']}, want {want}")
+            total += want["mxu_matvec"]
+    return dict(per_rank_step=per * L, mxu_matvec=total)
+
+
+def phase_parallel() -> dict:
+    """Every parallel mode on the card (parallel/): K1 at the shard shapes
+    first, then PAR_WORLD ranks, one process each (multihost.spawn), rank
+    r on card r % count: NCCL where each rank has a card, else gloo (NCCL
+    takes no two ranks on one card); each rank builds its own shard of
+    every mode from the seed-0 draws and decodes (parallel_jobs); then the
+    single-device references here. Gates: (a) each rank's K1 calls of one
+    step against K1's plain version on their own inputs; (b) effort-1.0
+    logits against the single-device model teacher-forced over the same
+    tokens (PAR_COS; the tp-sharded modes also run on bf16 shards for it,
+    their int8 shards held by int8_floor), the MoE routes (routes_held),
+    and the ep tokens;
+    (c) the greedy tokens at 0.25 recorded; (d) exact K1 launches
+    (mode_launches). Every gate is read before the phase fails. Host ms a
+    step and peak GiB a rank are printed; times of ranks sharing a card
+    under gloo are labelled so and compare with nothing."""
+    t0 = time.perf_counter()
+    out = {"k1_shards": k1_shard_points()}
+    count = torch.cuda.device_count()
+    backend = "nccl" if count >= PAR_WORLD else "gloo"
+    ranks_per_card = -(-PAR_WORLD // count)
+    out.update(backend=backend, ranks_per_card=ranks_per_card)
+    emit({"phase": "parallel_setup", "backend": backend,
+          "ranks_per_card": ranks_per_card, "world": PAR_WORLD,
+          "cards": count})
+    jobs = parallel_jobs()
+    t_ranks = time.perf_counter()
+    res = multihost.spawn(_ranks.run_jobs, PAR_WORLD, backend,
+                          [f"cuda:{r % count}" for r in range(PAR_WORLD)],
+                          jobs, timeout=900)
+    out["ranks_seconds"] = time.perf_counter() - t_ranks
+    emit({"phase": "parallel_ranks", "seconds": out["ranks_seconds"],
+          "backend": backend, "ranks_per_card": ranks_per_card})
+    label = (f"{backend}, {ranks_per_card} ranks a card" + (
+        ", host-staged" if backend == "gloo" else ""))
+    modes, launches, failed, refs = {}, 0, [], {}
+    for j, job in enumerate(jobs):
+        mres = [r[j] for r in res]
+        key = job_key(job)
+        count_d = mode_launches(job, mres)
+        launches += count_d["mxu_matvec"]
+        m = modes[key] = dict(
+            n=job["n"], layers=job["cfg"].n_layers, label=label,
+            dtype=job["bcfg"].dtype, launches=count_d,
+            ms_per_step={str(r["effort"]): max(
+                x["runs"][i]["seconds"] for x in mres) / r["steps"] * 1e3
+                for i, r in enumerate(mres[0]["runs"])},
+            build_s=max(x["build_s"] for x in mres),
+            peak_gib=[x["peak_gib"] for x in mres])
+        if job["gate"]:
+            gate_a = [x["gate"] for x in mres]
+            m["gate_a"] = dict(
+                calls=[g["calls"] for g in gate_a],
+                min_cos=min(g["min_cos"] for g in gate_a),
+                max_rel_err=max(g["max_rel_err"] for g in gate_a),
+                c_equal=all(g["c_equal"] for g in gate_a))
+            if not (set(m["gate_a"]["calls"]) == {
+                    PAR_PER_LAYER[job["mode"]] * job["cfg"].n_layers}
+                    and m["gate_a"]["min_cos"] >= 0.9999
+                    and m["gate_a"]["max_rel_err"] <= 1e-2
+                    and m["gate_a"]["c_equal"]):
+                failed.append(f"{key} (a): {m['gate_a']}")
+            m["tokens_0p25"] = mres[0]["runs"][1]["fed"]
+    # the single-device references, one model at a time
+    for base, dtype in ((mistral_7b, "int8"), (mistral_7b, "bf16"),
+                        (mixtral_8x7b, "int8"), (mixtral_8x7b, "bf16")):
+        todo = [(j, job) for j, job in enumerate(jobs)
+                if job["bcfg"].dtype == dtype
+                and job["cfg"].is_moe == (base is mixtral_8x7b)]
+        if not todo:
+            continue
+        w, _ = tp.make_tp_weights(base(n_layers=PAR_LAYERS),
+                                  todo[0][1]["bcfg"], 1, 0, rank=0,
+                                  device="cuda")
+        for j, job in todo:
+            key, mres = job_key(job), [r[j] for r in res]
+            b = modes[key]["gate_b"] = mode_references(job, mres, w)
+            refs[key] = b.pop("ref", None)
+            if dtype == "bf16":
+                # the int8 run of the same mode, against this model
+                j8 = next(i for i, x in enumerate(jobs)
+                          if x["mode"] == job["mode"]
+                          and x["bcfg"].dtype == "int8")
+                k8 = job_key(jobs[j8])
+                f = modes[k8]["gate_b"]["floor"] = int8_floor(
+                    jobs[j8], [r[j8] for r in res], w, refs[k8])
+                emit({"phase": "parallel_int8_floor", "mode": k8, **f})
+                if not f["ok"]:
+                    failed.append(f"{k8} (b): {f}")
+            if job.get("ffn_tokens"):
+                modes[key]["ep_tokens"] = ep_tokens_reference(job, mres, w)
+                failed += [f"{key} tokens: {t}"
+                           for t in modes[key]["ep_tokens"] if not t["ok"]]
+            emit({"phase": "parallel_" + key,
+                  **{k: v for k, v in modes[key].items()
+                     if k not in ("ep_tokens", "gate_b")},
+                  "gate_b": {k: v for k, v in b.items()
+                             if k != "microbatches"}})
+            if b["bound"] is not None and not b["min_cos"] >= b["bound"]:
+                failed.append(f"{key} (b): {b}")
+            if not routes_held(job, b["routes"]):
+                failed.append(f"{key} (b) routes: {b}")
+        del w
+        free_card()
+    out["modes"] = modes
+    out["launches"] = {"mxu_matvec": launches}
+    out["seconds"] = time.perf_counter() - t0
+    emit({"phase": "parallel", "seconds": out["seconds"],
+          "launches": out["launches"], "label": label})
+    if failed:
+        raise AssertionError("parallel gates: " + "; ".join(failed))
+    return out
+
+
 def free_card() -> None:
     """Release what the last model left on the card: collect unreachable
     objects first (the servers' and batchers' reference cycles keep their
@@ -4428,10 +4900,12 @@ def summary_row(name: str, source: str, replaces: str, points: list,
             "library_ms": sum(p["library_ms"] for p in rows)}
 
 
-def k1_row(points: list, launches: int) -> dict:
+def k1_row(points: list, launches: int, shard_points: list) -> dict:
     """K1's entry: one decode layer's four launches (SUMMARY), with where
     they spend their device time (parts_ms: selection, stream and split
-    sum, the last two with their waits; K1_PART_KEYS)."""
+    sum, the last two with their waits; K1_PART_KEYS), and the parallel
+    phase's shard shapes beside it (shard_points: each shape's ms, plain
+    ms, bound and library ms at effort 0.25 and 1.0)."""
     pick = lambda p: (p["dtype"], p["effort"], p["tau"]) == SUMMARY  # noqa
     row = summary_row("mxu_matvec", "effort_tpu_torch/csrc/mxu_matvec.cu",
                       "effort_tpu/kernels/fused_stream.py:270", points,
@@ -4440,6 +4914,10 @@ def k1_row(points: list, launches: int) -> dict:
                                 K1_PARTS, K1_PART_KEYS)
     row["ms_device_instance"] = sum(p["ms_device_instance"] for p in points
                                     if pick(p))
+    row["shard_points"] = [
+        {k: p[k] for k in ("shape", "in_dim", "out_dim", "effort", "C", "ms",
+                           "plain_ms", "bound_ms", "library_ms",
+                           "max_abs_err")} for p in shard_points]
     return row
 
 
@@ -4566,6 +5044,8 @@ def main() -> int:
     free_card()
     run("train", phase_train, smi)
     free_card()
+    run("parallel", phase_parallel)
+    free_card()
 
     cfg, w = build_rank_model()
     rank = run("rank_decode", phase_rank_decode, cfg, w, prompts)
@@ -4613,7 +5093,9 @@ def main() -> int:
                               p.get("tau", 0.97)) == SUMMARY_RANK
     out["kernels"] = kernels = [
         k1_row(out["points"], sum(r["launches"].get("mxu_matvec", 0)
-                                  for r in k1_runs)),
+                                  for r in k1_runs)
+               + out["parallel"]["launches"]["mxu_matvec"],
+               out["parallel"]["k1_shards"]),
         k2_row(out["points_batch"],
                sum(r["launches"].get("mxu_matvec_batch", 0)
                    for r in out["prefill"] + serve_runs)),

@@ -69,3 +69,28 @@ def train_params_to_numpy(p: dict) -> dict:
     return {k: (train_params_to_numpy(v) if isinstance(v, dict)
                 else v.detach().cpu().numpy())
             for k, v in p.items()}
+
+
+def parallel_weights_from_numpy(d: dict, mode: str, n, rank: int
+                                ) -> ModelWeights:
+    """Rank `rank`'s local ModelWeights from a JAX global sharded model (the
+    nested numpy dict above, from the JAX package's make_*_weights), split
+    as its PartitionSpecs split it. mode and n: "tp", "ep", "pp" with the
+    axis size; "sp" (replicated); "tp_ep" with (n_tp, n_ep) (rank = t *
+    n_ep + e); "tp_sp" with (n_tp, n_sp) (rank = t * n_sp + s; tp's
+    weights, replicated over sp)."""
+    from effort_tpu_torch.parallel import composed, ep, pp, tp
+    w = model_weights_from_numpy(d)
+    if mode == "sp":
+        return w
+    if mode == "tp":
+        return tp.tp_local(w, n, rank)
+    if mode == "ep":
+        return ep.ep_local(w, n, rank)
+    if mode == "pp":
+        return pp.pp_local(w, n, rank)
+    if mode == "tp_ep":
+        return composed.tp_ep_local(w, n[0], n[1], rank)
+    if mode == "tp_sp":
+        return tp.tp_local(w, n[0], rank // n[1])
+    raise ValueError(f"mode {mode!r}")

@@ -35,6 +35,11 @@ random-weight synthesis.
     sliding_window slots (ring_kv_hooks) and int8 rows with one f32 scale
     a (slot, kv head) (quant_kv_hooks; forward_token_batch's kv_quant).
   - The residual h stays f32 between layers; attention runs in f32.
+  - Tensor parallelism (parallel/tp.py): with tp = (mesh, axis) the passes
+    run a rank's shard of every projection (cfg the local config) and sum
+    over the axis after wo and after the FFN's down projection (an MoE
+    FFN's gated sum), the JAX package's _psum; ffn_fn replaces the FFN
+    (parallel/ep.py). With tp=None and ffn_fn=None nothing changes.
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from effort_tpu_torch.config import BucketConfig, ModelConfig
 from effort_tpu_torch.kernels.flash_attention import flash_attention_seq
@@ -435,6 +441,17 @@ def proj_efforts(effort, cfg: ModelConfig) -> dict:
             "w13": mk("w1", "w3")}
 
 
+def _psum(x: torch.Tensor, tp) -> torch.Tensor:
+    """x summed over the tensor-parallel axis tp = (mesh, axis) (a copy:
+    the all-reduce works in place); x itself when tp is None."""
+    if tp is None:
+        return x
+    mesh, axis = tp
+    y = x.clone()
+    dist.all_reduce(y, group=mesh.get_group(axis))
+    return y
+
+
 def _expert_ffn(layer: LayerWeights, inst, x, pe: dict, cfg: ModelConfig,
                 impl: str, mv=bucket_matvec):
     """Gated FFN of one instance (layer l of a dense model, l * E + e of an
@@ -468,21 +485,22 @@ def route(layer: LayerWeights, l: int, x, cfg: ModelConfig):
 
 
 def _ffn(layer: LayerWeights, l: int, x, pe: dict, cfg: ModelConfig,
-         impl: str):
+         impl: str, tp=None):
     """FFN of layer l on one token x [dim]: the dense gated FFN, or the
     MoE one (the JAX package's _ffn): the gates of the top-k experts, and
     out = sum over i in top-k order of gates[i] * FFN_{l*E + e_i}(x), in
     f32. Each instance stays a 0-d int32 device tensor, so K1 / K4 read
-    it on the card and the layer waits on no host read."""
+    it on the card and the layer waits on no host read. tp: summed over
+    that axis after w2 (dense) or after the gated sum (MoE)."""
     E = cfg.n_experts
     if E == 1:
-        return _expert_ffn(layer, l, x, pe, cfg, impl)
+        return _psum(_expert_ffn(layer, l, x, pe, cfg, impl), tp)
     gates, idx = route(layer, l, x, cfg)
     out = None
     for i in range(cfg.n_experts_per_tok):
         y = gates[i] * _expert_ffn(layer, idx[i] + l * E, x, pe, cfg, impl)
         out = y if out is None else out + y
-    return out
+    return _psum(out, tp)
 
 
 def _row_efforts(pe: dict, rows) -> dict:
@@ -541,7 +559,7 @@ def _moe_grouped(layer: LayerWeights, l: int, X, pe: dict,
 
 
 def _ffn_seq(layer: LayerWeights, l: int, X, pe: dict, cfg: ModelConfig,
-             impl: str, moe_grouped: bool = True):
+             impl: str, moe_grouped: bool = True, tp=None):
     """Batched FFN for prefill (and a dense model's batched decode): X
     [T, dim]. Dense models run one bucket_matmul a projection; MoE models
     token by token on the "reference" route (as the JAX package vmaps its
@@ -549,12 +567,13 @@ def _ffn_seq(layer: LayerWeights, l: int, X, pe: dict, cfg: ModelConfig,
     the others (K2 on the kernel route, where the JAX package's "auto"
     takes "jnp"). moe_grouped=False runs an MoE FFN token by token on
     every route (_moe_rows: no host read, so a captured pass can hold
-    it)."""
+    it). tp: the rows summed over that axis, as _ffn sums one."""
     if cfg.n_experts == 1:
-        return _expert_ffn(layer, l, X, pe, cfg, impl, mv=bucket_matmul)
+        return _psum(_expert_ffn(layer, l, X, pe, cfg, impl,
+                                 mv=bucket_matmul), tp)
     if impl == "reference" or not moe_grouped:
-        return _moe_rows(layer, l, X, pe, cfg, impl)
-    return _moe_grouped(layer, l, X, pe, cfg, impl)
+        return _psum(_moe_rows(layer, l, X, pe, cfg, impl), tp)
+    return _psum(_moe_grouped(layer, l, X, pe, cfg, impl), tp)
 
 
 def _qkv(lw: LayerWeights, l: int, x, pe: dict, cfg: ModelConfig,
@@ -573,13 +592,15 @@ def _qkv(lw: LayerWeights, l: int, x, pe: dict, cfg: ModelConfig,
 def forward_layers(w: ModelWeights, cfg: ModelConfig, h, pos, k_cache,
                    v_cache, effort=1.0, impl: str = "auto",
                    rope_offset=0, mask_from=0, kv_update_fn=None,
-                   attn_fn=None, collect_h: bool = False):
+                   attn_fn=None, collect_h: bool = False, tp=None,
+                   ffn_fn=None):
     """The layer stack only: h [dim] f32 through cfg.n_layers blocks,
     writing this position's K/V rows into the caches in place. Returns h,
     or with collect_h (h, h_layers [L, dim]: the residual after each
     layer, as the JAX package's scan stacks it).
     pos, rope_offset, mask_from: ints or 0-d int device tensors. The hooks
-    (see forward_token) replace the row write and the attention read."""
+    (see forward_token) replace the row write, the attention read and the
+    FFN; tp sums over a tensor-parallel axis (the module docstring)."""
     KV, D = cfg.n_kv_heads, cfg.head_dim
     pe = proj_efforts(effort, cfg)
     lw = w.layers
@@ -601,9 +622,12 @@ def forward_layers(w: ModelWeights, cfg: ModelConfig, h, pos, k_cache,
         else:
             attn = _attention(q, k_cache[l], v_cache[l], pos, cfg,
                               mask_from)
-        h = h + bucket_matvec(lw.wo, attn, pe["wo"], l, impl)
+        h = h + _psum(bucket_matvec(lw.wo, attn, pe["wo"], l, impl), tp)
         f_norm = rms_norm(h, lw.ffn_norm[l], cfg.norm_eps)
-        h = h + _ffn(lw, l, f_norm, pe, cfg, impl)
+        if ffn_fn is not None:
+            h = h + ffn_fn(lw, l, f_norm)
+        else:
+            h = h + _ffn(lw, l, f_norm, pe, cfg, impl, tp)
         if collect_h:
             h_layers.append(h)
     if collect_h:
@@ -633,7 +657,7 @@ def _write_slots(k_cache: torch.Tensor, v_cache: torch.Tensor, slots, K,
 def forward_seq(w: ModelWeights, cfg: ModelConfig, token_ids: torch.Tensor,
                 k_cache, v_cache, start_slot=0, rope_offset=0, mask_from=0,
                 effort=1.0, impl: str = "auto", attn_impl: str = "auto",
-                moe_grouped: bool = True) -> torch.Tensor:
+                moe_grouped: bool = True, tp=None) -> torch.Tensor:
     """Prefill: T tokens of one sequence through all layers in one pass.
 
     token_ids: [T] int device tensor occupying cache slots start_slot ..
@@ -649,8 +673,10 @@ def forward_seq(w: ModelWeights, cfg: ModelConfig, token_ids: torch.Tensor,
     _attention_seq) or "auto" (flash on the card, where K3 raises for
     heads it does not take; xla on the CPU). moe_grouped: an MoE FFN
     grouped by expert (_moe_grouped, one host read of the routing a
-    layer) or, False, token by token (_moe_rows, no host read). Returns
-    logits [T, vocab] f32 through the bf16 head."""
+    layer) or, False, token by token (_moe_rows, no host read). tp: a
+    rank's shard, summed over that axis after wo and the FFN (the module
+    docstring). Returns logits [T, vocab] f32 through the bf16 head (a
+    rank's vocabulary shard under tp)."""
     T = token_ids.shape[0]
     dev = w.device
     attn_impl = _attn_impl(attn_impl, dev)
@@ -679,9 +705,9 @@ def forward_seq(w: ModelWeights, cfg: ModelConfig, token_ids: torch.Tensor,
                                        start_slot, mask_from, H, D,
                                        window=active_window(cfg),
                                        plain=attn_impl == "plain")
-        X = X + bucket_matmul(lw.wo, attn, pe["wo"], l, impl)
+        X = X + _psum(bucket_matmul(lw.wo, attn, pe["wo"], l, impl), tp)
         Fn = rms_norm(X, lw.ffn_norm[l], cfg.norm_eps)
-        X = X + _ffn_seq(lw, l, Fn, pe, cfg, impl, moe_grouped)
+        X = X + _ffn_seq(lw, l, Fn, pe, cfg, impl, moe_grouped, tp)
     X = rms_norm(X, w.norm, cfg.norm_eps)
     return mm_f32(X.to(torch.bfloat16), w.output)
 
@@ -827,7 +853,8 @@ def embed(w: ModelWeights, token_id) -> torch.Tensor:
 def forward_token(w: ModelWeights, cfg: ModelConfig, token_id, pos,
                   k_cache, v_cache, effort=1.0, impl: str = "auto",
                   rope_offset=0, mask_from=0, kv_update_fn=None,
-                  attn_fn=None, collect_h: bool = False):
+                  attn_fn=None, collect_h: bool = False, tp=None,
+                  ffn_fn=None):
     """One autoregressive step: embeds token_id at position pos, runs all
     layers, returns logits [vocab] f32 (the caches are updated in place).
     collect_h=True returns (logits, h_layers [L, dim] f32), the residual
@@ -845,12 +872,20 @@ def forward_token(w: ModelWeights, cfg: ModelConfig, token_id, pos,
     attn_fn(q, k_cache, v_cache, l, pos) -> [H*D] replace the row write
     and the attention read, with the JAX package's signatures; the port's
     hooks write in place and return nothing (ring_kv_hooks,
-    quant_kv_hooks, whose caches are their own layouts)."""
+    quant_kv_hooks, whose caches are their own layouts; parallel/sp.py's
+    sequence-sharded ones).
+
+    tp = (mesh, axis): cfg is a rank's local config and the weights its
+    shard (parallel/tp.py); the sums over the axis come after wo and after
+    the FFN, and the logits are the rank's vocabulary shard.
+    ffn_fn(layer, l, x) -> [dim] replaces the FFN (parallel/ep.py's
+    expert-sharded MoE FFN)."""
     h = embed(w, token_id)
     out = forward_layers(w, cfg, h, pos, k_cache, v_cache, effort=effort,
                          impl=impl, rope_offset=rope_offset,
                          mask_from=mask_from, kv_update_fn=kv_update_fn,
-                         attn_fn=attn_fn, collect_h=collect_h)
+                         attn_fn=attn_fn, collect_h=collect_h, tp=tp,
+                         ffn_fn=ffn_fn)
     h, h_layers = out if collect_h else (out, None)
     logits = head_logits(w, rms_norm(h, w.norm, cfg.norm_eps))
     return (logits, h_layers) if collect_h else logits

@@ -141,14 +141,22 @@ for name in ("kernels.fused_stream", "kernels.flash_attention",
              "convert.calibrate", "models.weights", "cli", "__main__",
              "models.session", "models.tester", "models.autotune",
              "ops.oracle", "eval.harness", "utils.profiling",
-             "train", "train.trainer", "train.optim"):
+             "train", "train.trainer", "train.optim", "parallel",
+             "parallel.collectives", "parallel.multihost", "parallel.tp",
+             "parallel.sp", "parallel.ep", "parallel.pp",
+             "parallel.composed", "parallel._ranks"):
     importlib.import_module("effort_tpu_torch." + name)
 spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1])
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
-bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "effort_tpu", "optax"))
+ROOTS = ("jax", "jaxlib", "effort_tpu", "optax")
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ROOTS)
 if bad:
     sys.exit("imported: %s" % bad)
+from effort_tpu_torch.parallel import _ranks, multihost
+bad = multihost.spawn(_ranks.loaded_modules, 1, "gloo", "cpu", ROOTS,
+                      timeout=120)[0]
+if bad:
+    sys.exit("a spawned rank imported: %s" % bad)
 print(len([m for m in sys.modules if m.startswith("effort_tpu_torch")]))
 """
 
@@ -159,8 +167,10 @@ def test_port_imports_no_jax():
     checkpoint modules: runtime.*, convert.*, models.weights; the
     user-facing modules: cli, __main__, models.session, models.tester,
     models.autotune, ops.oracle, eval.harness, utils.profiling; the
-    trainer: train, train.trainer, train.optim) and chip_smoke.py leaves
-    jax, optax and every effort_tpu module out of sys.modules."""
+    trainer: train, train.trainer, train.optim; the parallel modules:
+    parallel.*) and chip_smoke.py leaves jax, optax and every effort_tpu
+    module out of sys.modules, and so does a rank spawned by
+    parallel.multihost.spawn (gloo, one rank)."""
     r = subprocess.run(
         [sys.executable, "-c", _ISOLATION,
          os.path.join(REPO, "chip_smoke.py")],

@@ -1134,3 +1134,42 @@ def test_train_chunk_reads_no_host_value_on_card(moe):
         torch.cuda.set_sync_debug_mode(0)
     assert losses.shape == (5,) and bool(torch.isfinite(losses).all())
     assert int(state.count) == 6
+
+
+@pytest.mark.cuda
+def test_tp_ranks_on_one_card_match_single_device():
+    """Two tensor-parallel ranks on one card under gloo (spawned, each
+    building its own bf16 shard, K1 on the kernel route at tau = 1)
+    against the single-device model of the same draws, teacher-forced over
+    the same tokens: cos >= 0.999 (the JAX tests' tp bound) at every step,
+    and each rank's K1 launches 7 a layer a step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from effort_tpu_torch.config import tiny_test_model
+    from effort_tpu_torch.models.transformer import (forward_token,
+                                                     make_kv_cache)
+    from effort_tpu_torch.parallel import _ranks, multihost, tp
+    cfg = tiny_test_model(dim=512, hidden_dim=1024, n_heads=8, n_kv_heads=4,
+                          vocab_size=1024)
+    bcfg = BucketConfig(bucket_size=1, chunk_rows=128, dtype="bf16")
+    job = dict(mode="tp", n=2, cfg=cfg, bcfg=bcfg, weights=("seed", 0),
+               impl="kernel", runs=[dict(effort=1.0, tau=1.0,
+                                         tokens=[3, 17, 200, 5], n_new=4)])
+    res = multihost.spawn(_ranks.run_jobs, 2, "gloo", "cuda:0", [job],
+                          timeout=300)
+    run = res[0][0]["runs"][0]
+    w, _ = tp.make_tp_weights(cfg, bcfg, 1, 0, rank=0, device="cuda")
+    kc, vc = make_kv_cache(cfg, "cuda")
+    saved, port_fs._TAU = port_fs._TAU, 1.0
+    try:
+        ref = [forward_token(w, cfg, t, p, kc, vc, effort=1.0,
+                             impl="kernel") for p, t in enumerate(run["fed"])]
+    finally:
+        port_fs._TAU = saved
+    for got, want in zip(run["logits"], ref):
+        c = torch.nn.functional.cosine_similarity(
+            torch.from_numpy(got).double(), want.double().cpu(), dim=0)
+        assert float(c) >= 0.999
+    for r in res:
+        assert r[0]["runs"][0]["launches"] == {
+            "mxu_matvec": 7 * cfg.n_layers * run["steps"]}
