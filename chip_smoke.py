@@ -30,7 +30,10 @@ Phases, one JSON line each (a failure raises and exits non-zero):
             a 512-slot cache: left-padded prompts of 32 and 64 queries, 64
             queries at slot 448, a 128-slot window, and a 512-query
             prefill from slot 0; and 64 queries of 256-wide heads (16
-            query, 8 KV); cos >= 0.9999 per row, max|dy| <= 1e-4
+            query, 8 KV); then the long prefills: 1984 queries over 2048
+            slots, and 4032 over 4096 with Llama-2-7B's heads (32 KV, one
+            query head each) and Mistral's; cos >= 0.9999 per row,
+            max|dy| <= 1e-4
             max|y_ref| (pv_f32, as forward_seq calls it), queries with no
             live key exactly 0; times beside the bound and torch's SDPA
             with the same boolean mask (timed only, never called by the
@@ -40,6 +43,13 @@ Phases, one JSON line each (a failure raises and exits non-zero):
             read on the card, against the int call: T in {4, 8, 64} x
             start slots {0, 37, 448} and a 128-slot window, Mistral-7B
             heads, y bit for bit; ms of both forms
+  kernels_llama
+            K1 and K2 alone at Llama-2-7B's four fused projections (wqkv
+            4096->12288, wo 4096->4096, w13 4096->22016, w2 11008->4096:
+            43 chunks of 256 rows, 3669 probes), int8, efforts 0.25 and
+            1.0, K2 at T = 4 and 64: against their plain versions (equal
+            C, cos >= 0.9999 a slot, max|dy| <= 1e-2 max|y_ref|), ms
+            beside the bound, the plain version and torch.mm
   generate  Mistral-7B width, 32 layers, int8 row-prefix buckets, fused
             projections, int8 LM head: Engine.generate answers four
             requests at efforts 0.25 and 0.5 (K1) and 1.0 (dense copies),
@@ -139,10 +149,63 @@ Phases, one JSON line each (a failure raises and exits non-zero):
             printed beside their noise floors (int8_kv's docstring);
             BatchEngine(kv_dtype="int8") serves the 8 requests in 4 slots
             with exact launch counts
-  ring_kv   the ring KV cache (4096 slots, RING_LAYERS layers): 4160
+  ring_kv   the ring KV cache (4096 slots, RING_LAYERS = 4 layers): 4160
             teacher-forced positions against a full cache of max_seq_len
             4224, cos >= 0.999 at every position >= 4096 at effort 1.0
             (0.25 printed)
+  long_ctx  after `eval`, the same weights at Mistral-7B's default
+            max_seq_len of 2048 (nothing rebuilt: the caches follow the
+            config): Engine(prefill=True) on a seeded 1984-token prompt, 64
+            new tokens (to the last slot) at efforts 0.25 and 1.0 (dense):
+            time to first token and decode ms a token at positions
+            1984-2047, beside the 512-slot cells' (exact launches as in
+            `prefill`); device time by kernel over one 8-token request of
+            the token loop at 2048 slots (the copies: _attention widens
+            the whole cache to f32 every step, beside its bytes at the
+            card's rate); at depth 32 every K1 call of two decode steps
+            and every K2 (T = 1984) and K3 (1984 queries, four query heads
+            a KV head) call of the prompt's prefill against their plain
+            versions on the same inputs (cos >= 0.9999, equal C); at
+            depth 4 and tau = 1 the kernel route's prefill logits against
+            the plain route's (seq_teacher): the prompt's last 32
+            positions on one history the kernel route wrote, cos >= 0.999
+            at each at effort 1.0 through K2 (not the dense copies); the
+            whole prompt in one pass, and 0.25, printed beside the plain
+            route against itself nudged by 2^-20; BatchEngine(batch_size=4)
+            serving four requests with prompts of 500 to 1900 tokens at
+            mixed efforts, 16 new tokens each, its step one graph, exact
+            launches; peak GiB
+  llama2, llama3
+            after `parallel`, llama2_7b(n_layers=32) (MHA: 32 KV heads, FFN
+            11008, theta 1e4) and then llama3_8b(n_layers=32) (vocabulary
+            128256, theta 5e5), each at its max_seq_len of 4096, with the
+            main model's recipe (int8 row-prefix, chunk_rows 128, fused
+            wqkv and w13, int8 head, dense copies, random calibrated
+            weights from seed 0); each freed after its phase. Decode: the
+            captured steps at 0.25, 0.5 and 1.0 from prompts of 5 and 17
+            tokens, 32 new (CUDA events; K1 4 a layer a step below 1.0, 0
+            at 1.0), one 8-token eager request at 0.25 whose tokens are the
+            graph's; device time by kernel over one request at 4096 slots
+            (the copies beside the widening's bytes); prefill: a 4032-token
+            prompt with 32 new tokens at 0.25 and 1.0 (time to first
+            token, exact launches); at depth 32 every K1 call of two decode
+            steps and every K2 (T = 4032) and K3 (4032 queries over 4096
+            slots: one query head a KV head for llama2, four for llama3)
+            call of that prefill against their plain versions on the same
+            inputs; the depth-4 teacher as in `long_ctx`; serving as in
+            `serve` (8 requests in 4 slots, the step a captured graph,
+            exact launches; make_batch_server over HTTP); peak GiB
+  llama3_ckpt
+            a random HF-format Llama-3-8B checkpoint (Meta-Llama-3-8B's
+            published config.json, LLAMA3_CKPT_LAYERS = 2 of 32 layers,
+            bf16, seeded), converted on the card by `python3 -m
+            effort_tpu_torch convert --model auto` (int8 row-prefix, fused;
+            one subprocess, started once llama3's timed parts are done and
+            run beside its gates); config_from_hf gives llama3_8b's fields at
+            that depth, its name aside; load_bucketized loads it;
+            build_server (single flight, no tokenizer) answers four /q,
+            each reply's tokens those of an Engine in this process on the
+            same loaded weights
   ckpt      the row-prefix model freed: a random HF-format Mistral-7B
             checkpoint (HF_MISTRAL: full width, CKPT_LAYERS deep, bf16,
             seeded) written to a temporary directory; config_from_hf;
@@ -302,6 +365,8 @@ Phases, one JSON line each (a failure raises and exits non-zero):
             under set_sync_debug_mode("error"), every K4 call against its
             plain version on the same inputs at depth 32, and the kernel
             route against the plain route at depth 4 (as moe_teacher)
+The phases' seconds are printed (`phase_seconds`, with the four of
+long_ctx, llama2, llama3 and llama3_ckpt summed as `new_phases`).
 Then the `kernels` summary line, the card's nvidia-smi line, and last
 {"ok": true, "device": {...}}. The full per-point table is written to
 chiprun_out/chip_smoke.json. float32 matmuls run in full f32 (TF32 off).
@@ -326,8 +391,8 @@ import numpy as np
 import torch
 
 from effort_tpu_torch import cli
-from effort_tpu_torch.config import (BucketConfig, ModelConfig, mistral_7b,
-                                     mixtral_8x7b)
+from effort_tpu_torch.config import (BucketConfig, ModelConfig, llama2_7b,
+                                     llama3_8b, mistral_7b, mixtral_8x7b)
 from effort_tpu_torch.convert.calibrate import collect_act_rms
 from effort_tpu_torch.convert.convert import (HF_NAME_MAPS,
                                               _bucketize_and_store,
@@ -395,8 +460,8 @@ DEEP_TEACHER_STEPS = 13
 # bytes to operations
 BATCH_CASES = ((4, DTYPES, TAUS), (64, DTYPES, TAUS), (16, ("int8",), (0.97,)),
                (256, ("int8",), (0.97,)))
-# K3's cases: Mistral-7B's heads (H 32, KV 8, D 128) unless a case names
-# others
+# K3's cases: Mistral-7B's heads (H 32, KV 8, D 128) over ATTN_SLOTS cache
+# slots unless a case names others
 ATTN_SLOTS = 512
 # K3's gate under pv_f32: max|dy| <= PV_F32_TOL max|y_ref| against its plain
 # version (besides min row cos >= 0.9999 and dead rows exactly 0)
@@ -409,6 +474,15 @@ ATTN_CASES = (
     dict(name="prefill512", T=512, start_slot=0, mask_from=0, window=0),
     dict(name="d256", T=64, start_slot=0, mask_from=0, window=0, H=16, KV=8,
          D=256),
+    # the long_ctx, llama2 and llama3 prefills: Mistral-7B's 1984-token
+    # prompt in its default 2048 slots; Llama-2-7B's (MHA: 32 KV heads, a
+    # query head each) and Llama-3-8B's 4032-token prompts in 4096 slots
+    dict(name="prefill1984_s2048", T=1984, start_slot=0, mask_from=0,
+         window=0, S=2048),
+    dict(name="prefill4032_s4096_mha", T=4032, start_slot=0, mask_from=0,
+         window=0, S=4096, KV=32),
+    dict(name="prefill4032_s4096", T=4032, start_slot=0, mask_from=0,
+         window=0, S=4096),
 )
 # the summary line's times: one layer's four launches of the generate
 # phase's layout (int8) at effort 0.25 and the default tau
@@ -667,19 +741,21 @@ def phase_kernels_batch(flush: torch.Tensor) -> list:
 
 
 def attention_inputs(case: dict, g: torch.Generator):
-    """K3's inputs at one of ATTN_CASES over a ATTN_SLOTS-slot cache: the
-    case's dims (T, start, mask_from, window, H, KV, D), the bf16 caches and
-    RUNS queries [T, H*D] (N(0, 4)), drawn from g in that order."""
+    """K3's inputs at one of ATTN_CASES: the case's dims (T, start,
+    mask_from, window, H, KV, D), its cache slots S, the bf16 caches [S,
+    KV, D] and RUNS queries [T, H*D] (N(0, 4)), drawn from g in that
+    order."""
     dims = (case["T"], case["start_slot"], case["mask_from"], case["window"],
             case.get("H", 32), case.get("KV", 8), case.get("D", 128))
     T, H, KV, D = dims[0], *dims[4:]
-    kc = torch.randn((ATTN_SLOTS, KV, D), generator=g, device="cuda").to(
+    S = case.get("S", ATTN_SLOTS)
+    kc = torch.randn((S, KV, D), generator=g, device="cuda").to(
         torch.bfloat16)
-    vc = torch.randn((ATTN_SLOTS, KV, D), generator=g, device="cuda").to(
+    vc = torch.randn((S, KV, D), generator=g, device="cuda").to(
         torch.bfloat16)
     Qs = [torch.randn((T, H * D), generator=g, device="cuda") * 2.0
           for _ in range(RUNS)]
-    return dims, kc, vc, Qs
+    return dims, S, kc, vc, Qs
 
 
 def attention_agreement(dims: tuple, y: torch.Tensor,
@@ -692,7 +768,7 @@ def attention_agreement(dims: tuple, y: torch.Tensor,
     dead = start + torch.arange(T, device="cuda") < mf
     rows, rows_r = y.reshape(T * H, D), yr.reshape(T * H, D)
     live_rows = (~dead).repeat_interleave(H)
-    c = rows_agree(rows[live_rows], rows_r[live_rows])
+    c = float(min_row_cos(rows[live_rows], rows_r[live_rows]))
     err = float((y - yr).abs().max())
     scale = float(yr.abs().max())
     dead_zero = not bool(y[dead].any())
@@ -702,16 +778,15 @@ def attention_agreement(dims: tuple, y: torch.Tensor,
 
 
 def phase_attention(flush: torch.Tensor) -> list:
-    """K3 against its plain version at ATTN_CASES over a 512-slot cache,
-    in the forward_seq layout, with pv_f32 (P kept to about 24 bits, as
-    three bf16 parts), as forward_seq calls it. Times are taken with L2
-    flushed, as K1's and K2's are."""
-    S = ATTN_SLOTS
+    """K3 against its plain version at ATTN_CASES (a 512-slot cache unless
+    a case names its slots), in the forward_seq layout, with pv_f32 (P
+    kept to about 24 bits, as three bf16 parts), as forward_seq calls it.
+    Times are taken with L2 flushed, as K1's and K2's are."""
     g = torch.Generator(device="cuda")
     g.manual_seed(99)
     points = []
     for case in ATTN_CASES:
-        dims, kc, vc, Qs = attention_inputs(case, g)
+        dims, S, kc, vc, Qs = attention_inputs(case, g)
         T, start, mf, win, H, KV, D = dims
 
         def run(q, plain=False):
@@ -867,7 +942,10 @@ KERNEL_PARTS = {"k1_select": "namespace)::k1_select_kernel",
                 "k4_select": "namespace)::grid_select_kernel",
                 "k4_k5_stream": "rank_prefix::ring_stream_kernel",
                 "split_sum": "rank_prefix::reduce_splits",    # K4-K7's
-                "k6_k7_gather": "block_gather::ring_gather_kernel"}
+                "k6_k7_gather": "block_gather::ring_gather_kernel",
+                # PyTorch's dtype copies (torch ops, not a ported kernel):
+                # in a decode step mostly _attention's cache widening
+                "copies": "direct_copy_kernel_cuda"}
 K1_PARTS = ("k1_select", "k1_stream", "k1_reduce")
 # K1's parts as the kernels line names them: the stream and the split sum
 # are programmatic dependents, so their device time includes their wait
@@ -1074,46 +1152,58 @@ def phase_teacher(cfg, w, tokens) -> list:
     return rows
 
 
+def prefill_run(pre, cfg, prompts, effort: float, n_new: int = N_NEW,
+                phase: str = "prefill") -> dict:
+    """One effort of Engine(prefill=True) (pre) over the prompts: each runs
+    through one forward_seq pass (K2 per projection below effort 1, dense
+    copies at 1; K3 per layer), then greedy decode (K1). Time to first
+    token: the wall time of a call asking for one token (the reply read
+    back on the host included); decode ms per token: the rest of an
+    n_new-token call over its n_new - 1 steps. Launches exact: K3 once a
+    layer a call, K2 four times a layer a call and K1 four times a layer a
+    decode step below effort 1."""
+    L, ttft, decode, replies = cfg.n_layers, {}, [], []
+    torch.cuda.synchronize()
+    reset_launches()                    # the path's run starts here ...
+    for p in prompts:
+        t0 = time.perf_counter()
+        first = pre.generate(p, n_new=1, effort=effort).token_ids
+        t1 = time.perf_counter()
+        rep = pre.generate(p, n_new=n_new, effort=effort).token_ids
+        t2 = time.perf_counter()
+        ttft.setdefault(padded(len(p)), []).append((t1 - t0) * 1e3)
+        decode.append(((t2 - t1) - (t1 - t0)) * 1e3 / (n_new - 1))
+        replies.append(rep)
+        if rep[:1] != first:
+            raise AssertionError(f"prefill's first token differs between "
+                                 f"two calls ({phase}): {first} {rep}")
+    launches = dict(LAUNCHES)           # ... and is read here
+    calls, low = 2 * len(prompts), effort < 0.999
+    r = dict(effort=effort, requests=len(prompts),
+             ttft_ms={P: median(v) for P, v in ttft.items()},
+             ttft_ms_all={P: v for P, v in ttft.items()},
+             decode_ms_per_token=median(decode), launches=launches,
+             first_tokens=replies[0][:8])
+    emit({"phase": phase, **r})
+    check_replies(replies, cfg, n_new, f"{phase}, effort {effort}")
+    check_launches(launches, {
+        "flash_attention": L * calls,
+        "mxu_matvec_batch": 4 * L * calls if low else 0,
+        "mxu_matvec": 4 * L * len(prompts) * (n_new - 1) if low else 0},
+        f"{phase} at effort {effort}")
+    return r
+
+
 def phase_prefill(cfg, w, eng, prompts) -> list:
-    """Engine(prefill=True): each prompt runs through one forward_seq pass
-    (K2 per projection below effort 1, dense copies at 1; K3 per layer),
-    then greedy decode (K1). Time to first token: the wall time of a call
-    asking for one token (the reply read back on the host included);
-    decode ms per token: the rest of a 32-token call over its 31 steps."""
+    """Engine(prefill=True) on the four prompts at efforts 0.25, 0.5 and
+    1.0 (prefill_run), beside the token-loop engine's time to first token;
+    then device time by kernel over one 64-token prefill at 0.25."""
     pre = Engine(w, cfg, eos_id=-1, prefill=True)
     pre.generate(prompts[0], n_new=2, effort=0.25)       # warm-up
-    L, results = cfg.n_layers, []
+    results = []
     for effort in (0.25, 0.5, 1.0):
-        ttft, decode, replies = {}, [], []
-        torch.cuda.synchronize()
-        reset_launches()                # the path's run starts here ...
-        for p in prompts:
-            t0 = time.perf_counter()
-            first = pre.generate(p, n_new=1, effort=effort).token_ids
-            t1 = time.perf_counter()
-            rep = pre.generate(p, n_new=N_NEW, effort=effort).token_ids
-            t2 = time.perf_counter()
-            ttft.setdefault(padded(len(p)), []).append((t1 - t0) * 1e3)
-            decode.append(((t2 - t1) - (t1 - t0)) * 1e3 / (N_NEW - 1))
-            replies.append(rep)
-            if rep[:1] != first:
-                raise AssertionError(f"prefill's first token differs "
-                                     f"between two calls: {first} {rep}")
-        launches = dict(LAUNCHES)       # ... and is read here
-        calls, low = 2 * len(prompts), effort < 0.999
-        r = dict(effort=effort, requests=len(prompts),
-                 ttft_ms={P: median(v) for P, v in ttft.items()},
-                 ttft_ms_all={P: v for P, v in ttft.items()},
-                 decode_ms_per_token=median(decode), launches=launches,
-                 first_tokens=replies[0][:8])
+        r = prefill_run(pre, cfg, prompts, effort)
         results.append(r)
-        emit({"phase": "prefill", **r})
-        check_replies(replies, cfg, N_NEW, f"prefill, effort {effort}")
-        check_launches(launches, {
-            "flash_attention": L * calls,
-            "mxu_matvec_batch": 4 * L * calls if low else 0,
-            "mxu_matvec": 4 * L * len(prompts) * (N_NEW - 1) if low else 0},
-            f"prefill at effort {effort}")
         # beside it, the token-loop engine's time to first token on the
         # same prompts (every prompt slot one decode step)
         loop = {}
@@ -1286,19 +1376,19 @@ def serve_requests(cfg) -> list:
             for n in SERVE_LENS]
 
 
-def phase_serve(cfg, w, eng, prompts) -> list:
-    """Continuous batching: BatchEngine(batch_size=4) + ContinuousBatcher
-    serve 8 requests through 4 slots (prompt lengths 5-64, efforts mixed,
-    32 new tokens each), then a teacher check of one batched step against
-    the single-stream K1 route, then the HTTP server in batch mode."""
-    reqs = serve_requests(cfg)
+def serve_batch(cfg, w, reqs, efforts, n_new: int, phase: str) -> tuple:
+    """BatchEngine(batch_size=4) + ContinuousBatcher serve the requests
+    through 4 slots at their efforts, n_new tokens each (after a 2-token
+    warm-up request): tokens/s, ms a step and the run's launches (K2 4 a
+    layer a step and an admission, K3 once a layer an admission, K1
+    never); the step must be a captured graph. Returns (result, batcher)."""
     be = BatchEngine(w, cfg, batch_size=4, eos_id=-1)
     cb = ContinuousBatcher(be)
     cb.submit(reqs[0], 2, 0.25, lambda toks: None)        # warm-up
     cb.run_until_drained()
     done = {}
-    for i, (p, e) in enumerate(zip(reqs, SERVE_EFFORTS)):
-        cb.submit(p, N_NEW, e, lambda toks, i=i: done.__setitem__(i, toks))
+    for i, (p, e) in enumerate(zip(reqs, efforts)):
+        cb.submit(p, n_new, e, lambda toks, i=i: done.__setitem__(i, toks))
     torch.cuda.synchronize()
     reset_launches()                    # the path's run starts here ...
     t0 = time.perf_counter()
@@ -1310,16 +1400,31 @@ def phase_serve(cfg, w, eng, prompts) -> list:
     wall = time.perf_counter() - t0
     launches = dict(LAUNCHES)           # ... and is read here
     L, admits = cfg.n_layers, len(reqs)
-    r = dict(requests=admits, slots=4, new_tokens=N_NEW, steps=ticks,
-             wall_s=wall, tokens_per_s=admits * N_NEW / wall,
+    r = dict(requests=admits, slots=4, new_tokens=n_new, steps=ticks,
+             wall_s=wall, tokens_per_s=admits * n_new / wall,
              ms_per_step=wall * 1e3 / ticks, launches=launches,
+             captured=be._graph is not None,
              first_tokens=done.get(0, [])[:8])
-    emit({"phase": "serve", **r})
-    check_replies([done.get(i) or [] for i in range(admits)], cfg, N_NEW,
-                  "serve")
+    emit({"phase": phase, **r})
+    check_replies([done.get(i) or [] for i in range(admits)], cfg, n_new,
+                  phase)
     check_launches(launches, {"mxu_matvec_batch": 4 * L * (ticks + admits),
                               "flash_attention": L * admits,
-                              "mxu_matvec": 0}, "serve")
+                              "mxu_matvec": 0}, phase)
+    if not r["captured"]:
+        raise AssertionError(f"{phase}: the batched step was not captured")
+    return r, cb
+
+
+def phase_serve(cfg, w, eng, prompts) -> list:
+    """Continuous batching (serve_batch): 8 requests through 4 slots
+    (prompt lengths 5-64, efforts mixed, 32 new tokens each), then device
+    time by kernel over four 8-token requests, a teacher check of one
+    batched step against the single-stream K1 route, then the HTTP server
+    in batch mode."""
+    reqs = serve_requests(cfg)
+    r, cb = serve_batch(cfg, w, reqs, SERVE_EFFORTS, N_NEW, "serve")
+
     # where serving time goes: four requests of 8 tokens filling the slots
     def wave():
         for p, e in zip(reqs[:4], SERVE_EFFORTS):
@@ -2137,10 +2242,11 @@ def phase_int8_kv(cfg, w, w_plain) -> dict:
 
 
 RING_POSITIONS = 4160
-# 16 of Mistral-7B's 32 layers: the phase steps 4 x 4160 positions (220 s
-# of the run at 32 layers, 192 s at 28), and the cut keeps the whole run,
-# with the speculative and checkpoint phases, well inside its time limit
-RING_LAYERS = 16
+# 4 of Mistral-7B's 32 layers: the phase steps 4 x 4160 positions (220 s
+# of the run at 32 layers, 112.8 s at 16), and the cut keeps the whole run,
+# with the Llama and full-context phases, inside its time limit; the ring
+# of 4096 slots and the 4160 positions past it are what the phase tests
+RING_LAYERS = 4
 
 
 def phase_ring_kv(cfg, w) -> dict:
@@ -3238,15 +3344,17 @@ HF_MISTRAL = {
     "hidden_act": "silu"}
 CKPT_QUERIES = ("hello there", "tell me a story", "how are you doing",
                 "the quick brown fox")
+CKPT_HTTP_EFFORTS = (25, 50, 100, 25)
 
 
-def write_hf_mistral(d: Path, seed: int) -> dict:
-    """A random HF-format Mistral checkpoint in d: HF_MISTRAL as its
-    config.json and bf16 tensors ([out, in], HF_NAME_MAPS["mistral"]
-    names) in 5 GB shards, as HF ships them; made on the card from a seed.
-    Returns the bf16 card tensors by name."""
-    h = HF_MISTRAL
-    dim, hid, L = h["hidden_size"], h["intermediate_size"], CKPT_LAYERS
+def write_hf(d: Path, seed: int, h: dict = HF_MISTRAL) -> dict:
+    """A random HF-format checkpoint in d: h (HF_MISTRAL, or HF_LLAMA3:
+    the two families name their tensors alike) as its config.json and
+    bf16 tensors ([out, in], HF_NAME_MAPS["mistral"] names) in 5 GB
+    shards, as HF ships them; made on the card from a seed. Returns the
+    bf16 card tensors by name."""
+    dim, hid, L = (h["hidden_size"], h["intermediate_size"],
+                   h["num_hidden_layers"])
     hd = dim // h["num_attention_heads"]
     q, kv = h["num_attention_heads"] * hd, h["num_key_value_heads"] * hd
     names = HF_NAME_MAPS["mistral"]
@@ -3408,25 +3516,26 @@ def differing_fields(a, b) -> list:
     return diff
 
 
-def timed_generate(eng, prompts, effort) -> tuple:
+def timed_generate(eng, prompts, effort, n_new: int = CKPT_NEW) -> tuple:
     """(replies, ms a token): CUDA events around the prompts' requests."""
-    steps = sum(padded(len(p), eng.pad_to) + CKPT_NEW - 1 for p in prompts)
+    steps = sum(padded(len(p), eng.pad_to) + n_new - 1 for p in prompts)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    out = [eng.generate(p, n_new=CKPT_NEW, effort=effort) for p in prompts]
+    out = [eng.generate(p, n_new=n_new, effort=effort) for p in prompts]
     end.record()
     end.synchronize()
     return out, start.elapsed_time(end) / steps
 
 
-def ckpt_same_input(cfg, w, prompt) -> dict:
+def ckpt_same_input(cfg, w, prompt, efforts=(0.25, 0.5),
+                    phase: str = "ckpt_same_input") -> list:
     """Gate 3 on the loaded model's own inputs: every K1 call of two decode
     steps (forward_token, kernel route) against K1's plain version, and
-    every K2 and K3 call of a left-padded prefill (same_input_layers)
-    against theirs, at efforts 0.25 and 0.5: cos >= 0.9999 per layer and
-    equal C."""
+    every K2 and K3 call of a left-padded prefill of the prompt
+    (same_input_layers) against theirs, at each effort: cos >= 0.9999 per
+    layer and equal C. The other models' phases hold theirs so too."""
     k1 = bucketmul.mxu_matvec
     L, rows = cfg.n_layers, []
     P = padded(len(prompt))
@@ -3438,7 +3547,7 @@ def ckpt_same_input(cfg, w, prompt) -> dict:
                            rope_offset=off, mask_from=off, effort=effort,
                            impl=impl, attn_impl=attn_impl)[off:]
 
-    for effort in (0.25, 0.5):
+    for effort in efforts:
         cs, eq_c = [], []
 
         def both(bm, v, eff, expert=0, tau=None):
@@ -3470,26 +3579,27 @@ def ckpt_same_input(cfg, w, prompt) -> dict:
         r["min_cos"] = min(r["k1_min_cos"] + r["k2_min_cos"]
                            + r["k3_min_cos"])
         rows.append(r)
-        emit({"phase": "ckpt_same_input", **r})
+        emit({"phase": phase, **r})
         if not (r["min_cos"] >= 0.9999 and all(r["k1_c_equal"])
                 and all(r["k2_c_equal"])):
-            raise AssertionError(f"checkpoint same-input check: {r}")
+            raise AssertionError(f"same-input check ({phase}): {r}")
     return rows
 
 
-def ckpt_http(dst: Path, tok_json: Path, batch: int) -> dict:
+def ckpt_http(dst: Path, tok_json, batch: int) -> dict:
     """build_server(--ckpt, --tokenizer, --batch) on 127.0.0.1 (a free
     port), in this process: the four CKPT_QUERIES as concurrent /q requests
-    of 8 tokens at efforts 25, 50, 100 and 25, each answered 200 with
+    of 8 tokens at efforts CKPT_HTTP_EFFORTS, each answered 200 with
     decoded text (batched: the text of its token ids); the launches of the
-    run."""
+    run, and the prompt ids the server made of each query. tok_json None:
+    no tokenizer, so a reply is its token ids as text."""
     import asyncio
     import urllib.parse
     import urllib.request
     n = 8
-    srv = build_server(parse_args(["--ckpt", str(dst), "--tokenizer",
-                                   str(tok_json), "--batch", str(batch),
-                                   "--port", "0"]))
+    tok_args = ["--tokenizer", str(tok_json)] if tok_json else []
+    srv = build_server(parse_args(["--ckpt", str(dst), *tok_args, "--batch",
+                                   str(batch), "--port", "0"]))
 
     def fetch(port, q, effort):
         url = (f"http://127.0.0.1:{port}/q?query={urllib.parse.quote(q)}"
@@ -3503,7 +3613,7 @@ def ckpt_http(dst: Path, tok_json: Path, batch: int) -> dict:
         try:
             return await asyncio.gather(*[
                 loop.run_in_executor(None, fetch, srv.port, q, e)
-                for q, e in zip(CKPT_QUERIES, (25, 50, 100, 25))])
+                for q, e in zip(CKPT_QUERIES, CKPT_HTTP_EFFORTS)])
         finally:
             await srv.stop()
 
@@ -3516,14 +3626,15 @@ def ckpt_http(dst: Path, tok_json: Path, batch: int) -> dict:
     tok = srv.tokenizer
     ok = all(st == 200 and isinstance(b.get("reply"), str) and b["reply"]
              for st, b in got)
-    if batch:
+    if batch and tok is not None:
         # n tokens, or fewer ending at the end-of-sequence id 2
         ok &= all(b["reply"] == tok.decode(b["token_ids"])
                   and (len(b["token_ids"]) == n
                        or b["token_ids"][-1:] == [2]) for _, b in got)
     r = dict(batch=batch, status=[st for st, _ in got], seconds=seconds,
              replies=[b.get("reply") for _, b in got], launches=launches,
-             tokenizer_native=tok.native, ok=ok)
+             prompts=[srv._encode_query(q) for q in CKPT_QUERIES],
+             tokenizer_native=tok.native if tok is not None else None, ok=ok)
     emit({"phase": "ckpt_http", **r})
     del srv
     if not ok:
@@ -3541,7 +3652,7 @@ def phase_ckpt() -> dict:
         src, dst = tmp / "hf", tmp / "buckets"
         src.mkdir()
         t0 = time.perf_counter()
-        hf = write_hf_mistral(src, seed=12)
+        hf = write_hf(src, seed=12)
         out["write_hf_s"] = time.perf_counter() - t0
         cfg = config_from_hf(str(src))
         want = dataclasses.replace(mistral_7b(n_layers=CKPT_LAYERS,
@@ -4872,6 +4983,468 @@ def phase_parallel() -> dict:
     return out
 
 
+# ---- the Llama families and the full context -----------------------------
+
+# long_ctx: Mistral-7B at its default max_seq_len, on the main model's
+# weights; a prompt of LONG_PROMPT tokens decodes to the last slot
+LONG_SEQ = 2048
+LONG_PROMPT = 1984
+LONG_NEW = 64
+LONG_EFFORTS = (0.25, 1.0)
+# its batched requests: prompts of 500 to 1900 tokens at mixed efforts
+LONG_SERVE_LENS = (500, 1900, 1200, 760)
+LONG_SERVE_EFFORTS = (0.25, 1.0, 0.5, 0.25)
+LONG_SERVE_NEW = 16
+# llama2, llama3: the presets at 32 layers and their 4096 positions
+FAMILY_PROMPTS = (5, 17)
+FAMILY_EFFORTS = (0.25, 0.5, 1.0)
+FAMILY_EAGER_NEW = 8
+FAMILY_PREFILL = 4032              # + N_NEW new tokens = 4064 of 4096 slots
+PREFILL_EFFORTS = (0.25, 1.0)
+# Meta-Llama-3-8B's config.json (HF), depth cut to LLAMA3_CKPT_LAYERS
+LLAMA3_CKPT_LAYERS = 2
+HF_LLAMA3 = {
+    "architectures": ["LlamaForCausalLM"], "model_type": "llama",
+    "attention_bias": False, "attention_dropout": 0.0,
+    "bos_token_id": 128000, "eos_token_id": 128001, "hidden_act": "silu",
+    "hidden_size": 4096, "initializer_range": 0.02,
+    "intermediate_size": 14336, "max_position_embeddings": 8192,
+    "num_attention_heads": 32, "num_hidden_layers": LLAMA3_CKPT_LAYERS,
+    "num_key_value_heads": 8, "pretraining_tp": 1, "rms_norm_eps": 1e-5,
+    "rope_scaling": None, "rope_theta": 500000.0,
+    "tie_word_embeddings": False, "torch_dtype": "bfloat16",
+    "use_cache": True, "vocab_size": 128256}
+# Llama-2-7B's four fused projections (the points of phase_kernels_llama)
+LLAMA2_SHAPES = {"wqkv": (4096, 12288), "wo": (4096, 4096),
+                 "w13": (4096, 22016), "w2": (11008, 4096)}
+LLAMA_POINT_EFFORTS = (0.25, 1.0)
+LLAMA_POINT_TS = (4, 64)
+
+
+def phase_kernels_llama(flush: torch.Tensor) -> list:
+    """K1 and K2 alone at Llama-2-7B's four fused projections, int8
+    row-prefix with the chunk rows init_random_weights picks
+    (pick_chunk_rows: w2 43 chunks of 256 rows, a probe sample of 3669),
+    calibrated rows drawn as phase_kernels draws them, efforts 0.25 and
+    1.0 (K2: every slot at the effort, T 4 and 64): against their plain
+    versions (equal C, cos >= 0.9999 a slot, max|dy| <= 1e-2 max|y_ref|),
+    then device ms (L2 flushed, RUNS inputs, median) beside the bound, the
+    plain version and a dense bf16 torch.mm of the same shape."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(2468)
+    points = []
+    for name, (i, o) in LLAMA2_SHAPES.items():
+        rms = torch.exp(torch.randn(i, generator=g, device="cuda") * 1.2)
+        pi = calib_row_order(rms)
+        wt = torch.randn((i, o), generator=g, device="cuda") * 0.02
+        dense = wt[pi.long()].to(torch.bfloat16)
+        bc = BucketConfig(bucket_size=1, chunk_rows=128, dtype="int8")
+        bc = dataclasses.replace(bc, chunk_rows=pick_chunk_rows(bc, i, o))
+        bm = bucketize(wt, bc, in_perm=pi)
+        del wt
+        for T in (1,) + LLAMA_POINT_TS:
+            Vs = [rms[pi.long()] * torch.randn((T, i), generator=g,
+                                               device="cuda")
+                  for _ in range(RUNS)]
+            lib_ms = median([gpu_ms(lambda a: torch.mm(a, dense),
+                                    (V.to(torch.bfloat16),), flush)
+                             for V in Vs])
+            for effort in LLAMA_POINT_EFFORTS:
+                if T == 1:
+                    eq = effort_q16(effort, "cuda")
+                    vs = [V[0] for V in Vs]
+                    kern = lambda v: fused_stream.mxu_matvec(  # noqa: E731
+                        bm, v, eq, 0, return_len=True)
+                    plain = lambda v: fused_stream.mxu_matvec_ref(  # noqa
+                        bm, v, eq, 0, return_len=True)
+                else:
+                    eff = torch.full((T,), effort, device="cuda")
+                    vs = Vs
+                    kern = lambda V: fused_stream.mxu_matvec_batch(  # noqa
+                        bm, V, eff, 0, return_len=True)
+                    plain = lambda V: (  # noqa: E731
+                        fused_stream.mxu_matvec_batch_ref(
+                            bm, V, eff, 0, return_len=True))
+                (y, C), (yr, Cr) = kern(vs[0]), plain(vs[0])
+                torch.cuda.synchronize()
+                C, Cr = int(C), int(Cr)
+                y, yr = y.reshape(T, -1), yr.reshape(T, -1)
+                err = float((y - yr).abs().max())
+                scale = float(yr.abs().max())
+                p = dict(kernel="mxu_matvec" if T == 1 else
+                         "mxu_matvec_batch", shape=name, in_dim=i,
+                         out_dim=o, T=T, chunk_rows=bm.chunk_rows,
+                         n_chunks=bm.n_chunks, probes=bm.probes.shape[1],
+                         effort=effort, C=C, C_plain=Cr,
+                         min_slot_cos=rows_agree(y, yr), max_abs_err=err,
+                         max_abs_ref=scale)
+                if (C != Cr or not p["min_slot_cos"] >= 0.9999
+                        or not err <= 1e-2 * scale):
+                    raise AssertionError(f"{p['kernel']} disagrees with its "
+                                         f"plain version at a Llama-2 "
+                                         f"shape: {p}")
+                p["ms"] = median([gpu_ms(kern, (v,), flush) for v in vs])
+                p["plain_ms"] = median([gpu_ms(plain, (v,), flush)
+                                        for v in vs])
+                if T == 1:
+                    p["bytes"], p["flops"] = k1_bytes(bm, C), 0
+                else:
+                    p["bytes"] = k2_bytes(bm, C, T)
+                    p["flops"] = 2 * T * C * bm.chunk_rows * o
+                bytes_ms = p["bytes"] / HBM_BYTES_PER_S * 1e3
+                flops_ms = p["flops"] / BF16_FLOPS * 1e3
+                p["bound_ms"] = max(bytes_ms, flops_ms)
+                p["bound_by"] = ("bytes" if bytes_ms >= flops_ms
+                                 else "operations")
+                p["library_ms"] = lib_ms
+                points.append(p)
+                emit({"phase": "kernels_llama", **p})
+            del Vs
+        del bm, dense
+        torch.cuda.empty_cache()
+    return points
+
+
+def widen_bytes(cfg) -> int:
+    """The bytes one decode step moves to widen the caches in _attention:
+    both sides of every layer's [max_seq_len, KV, D] read in bf16, written
+    in f32 and read again by the score and value products."""
+    return (cfg.n_layers * 2 * cfg.max_seq_len * cfg.n_kv_heads
+            * cfg.head_dim * (2 + 4 + 4))
+
+
+def decode_profile(phase: str, cfg, eng, prompt) -> dict:
+    """device_profile over one request (8 new tokens at 0.25, captured
+    steps) at the engine's cache size: the ms a step of PyTorch's dtype
+    copies (KERNEL_PARTS' "copies": in a decode step mostly _attention's
+    widening of the whole cache; None where not measured) beside
+    widen_bytes at the card's memory rate."""
+    prof = profile_routes(phase, (("graph", eng),), prompt)["graph"]
+    parts = prof["kernel_ms"]
+    prof.update(slots=cfg.max_seq_len, copies_ms_per_step=(
+        None if parts is None else parts.get("copies", 0.0) / prof["steps"]),
+        widen_bound_ms_per_step=widen_bytes(cfg) / HBM_BYTES_PER_S * 1e3)
+    emit({"phase": phase, "slots": cfg.max_seq_len,
+          "copies_ms_per_step": prof["copies_ms_per_step"],
+          "widen_bound_ms_per_step": prof["widen_bound_ms_per_step"]})
+    return prof
+
+
+TEACHER_BLOCK = 32
+
+
+def teacher_row(phase: str, a, b, **kw) -> dict:
+    """The cosines of two passes' logits a position at a time: least,
+    mean, how many below 0.999, argmax agreement; emitted."""
+    c = torch.nn.functional.cosine_similarity(a.double(), b.double(), dim=-1)
+    r = dict(depth=4, **kw, positions=a.shape[0], min_cos=float(c.min()),
+             mean_cos=float(c.mean()), below_0999=int((c < 0.999).sum()),
+             argmax_agreement=float((a.argmax(-1) == b.argmax(-1)).float()
+                                    .mean()),
+             finite=bool(torch.isfinite(a).all()))
+    emit({"phase": phase, **r})
+    return r
+
+
+def seq_teacher(cfg, w, prompt, phase: str, efforts=(1.0, 0.25)) -> list:
+    """The kernel route (K2, K3) against the plain route (their plain
+    versions) at tau = 1 and depth 4 on the long prompt (a multiple of
+    TEACHER_BLOCK tokens), by the cosine of each position's logits (the
+    exact bf16 head), beside the plain route against itself with the
+    attention-norm weights moved by a relative 2^-20 (prefill_teacher's
+    witness), at each effort given as a device tensor (K2 selects and
+    streams at 1.0 too; the dense copies are not used).
+
+    Two spans. "whole": the prompt in one pass a route, each route's
+    positions reading its own keys and values, so any difference at one
+    position reaches every later one. "last_block": the prompt's last
+    TEACHER_BLOCK positions through each route on a copy of one cache
+    that the kernel route filled from the positions before, as the
+    decode teacher reads one history: the block's K3 reads the whole
+    cache, and its differences are the block's own. Required: cos >=
+    0.999 at every position of the last block at effort 1.0. The rest is
+    printed: below effort 1 a last-bit difference (the kernels sum in
+    another order) moves a slot's effort cutoff across one of its
+    threshold levels now and then, a few percent of its rows at once, and
+    on these random calibrated models the nudged plain route parts from
+    the plain route as far (PERF.md §6); the same-input gates hold
+    every call to its plain version on the same inputs at every layer."""
+    saved = fused_stream._TAU
+    fused_stream._TAU = 1.0
+    cfg4 = dataclasses.replace(cfg, n_layers=4)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(7)
+    nudge = torch.randn(w.layers.attn_norm.shape, generator=g, device="cuda")
+    w_nudged = dataclasses.replace(w, layers=dataclasses.replace(
+        w.layers, attn_norm=w.layers.attn_norm * (1 + 2.0**-20 * nudge)))
+    routes = {"kernel": (w, "kernel", "flash"),
+              "plain": (w, "plain", "plain"),
+              "plain_nudged": (w_nudged, "plain", "plain")}
+    ids = torch.tensor(prompt, dtype=torch.int32, device="cuda")
+    head = len(prompt) - TEACHER_BLOCK
+    rows = []
+    try:
+        for effort in efforts:
+            eff = torch.full((), effort, device="cuda")
+
+            def seq(route, ids, kv, start=0):
+                wr, impl, attn = routes[route]
+                return forward_seq(wr, cfg4, ids, *kv, start_slot=start,
+                                   effort=eff, impl=impl, attn_impl=attn)
+            kv = make_kv_cache(cfg4, "cuda")
+            seq("kernel", ids[:head], kv)
+            spans = {"whole": {r: seq(r, ids, make_kv_cache(cfg4, "cuda"))
+                               for r in routes},
+                     "last_block": {r: seq(r, ids[head:],
+                                           tuple(x.clone() for x in kv),
+                                           head) for r in routes}}
+            for span, out in spans.items():
+                for r in ("kernel", "plain_nudged"):
+                    rows.append(teacher_row(
+                        phase, out[r], out["plain"], effort=effort,
+                        span=span, pair=f"{r}_vs_plain",
+                        required=(span, r, effort) == ("last_block",
+                                                       "kernel", 1.0)))
+            del spans, kv
+    finally:
+        fused_stream._TAU = saved
+    bad = [r for r in rows if not r["finite"]
+           or (r["required"] and not r["min_cos"] >= 0.999)]
+    if bad:
+        raise AssertionError(f"kernel route vs plain ({phase}): {bad}")
+    return rows
+
+
+def timed_part(secs: dict, key: str, fn, *args):
+    """fn(*args), its wall seconds into secs[key]."""
+    t0 = time.perf_counter()
+    r = fn(*args)
+    secs[key] = time.perf_counter() - t0
+    return r
+
+
+def peak_gib() -> float:
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def phase_long_ctx(cfg, w, generate: list, prefill: list) -> dict:
+    """Mistral-7B at its default max_seq_len of 2048 on the main model's
+    weights (module docstring, `long_ctx`)."""
+    torch.cuda.reset_peak_memory_stats()
+    cfg_l = dataclasses.replace(cfg, max_seq_len=LONG_SEQ)
+    prompt = seeded_ids(cfg, (LONG_PROMPT,), 23)[0]
+    out, secs = {}, {}
+    pre = Engine(w, cfg_l, eos_id=-1, prefill=True)
+    warm([pre], prompt[:32], LONG_EFFORTS)
+    out["prefill"] = timed_part(secs, "prefill", lambda: [
+        prefill_run(pre, cfg_l, [prompt], e, LONG_NEW, "long_ctx_prefill")
+        for e in LONG_EFFORTS])
+    for r in out["prefill"]:
+        # beside it, the 512-slot cells at the same effort: decode after a
+        # prefill (prefill) and the token loop's (generate, graph)
+        r["decode_ms_per_token_512"] = next(
+            x["decode_ms_per_token"] for x in prefill
+            if x["effort"] == r["effort"])
+        r["generate_ms_per_token_512"] = next(
+            x["ms_per_token"] for x in generate
+            if x["effort"] == r["effort"] and x["route"] == "graph")
+    del pre
+    out["profile"] = timed_part(
+        secs, "profile", decode_profile, "long_ctx_profile", cfg_l,
+        Engine(w, cfg_l, eos_id=-1), prompt[:5])
+    out["same_input"] = timed_part(
+        secs, "same_input", ckpt_same_input, cfg_l, w, prompt, (0.25,),
+        "long_ctx_same_input")
+    out["teacher"] = timed_part(secs, "teacher", seq_teacher, cfg_l, w,
+                                prompt, "long_ctx_teacher")
+    reqs = seeded_ids(cfg, LONG_SERVE_LENS, 29)
+    out["serve"] = timed_part(secs, "serve", lambda: serve_batch(
+        cfg_l, w, reqs, LONG_SERVE_EFFORTS, LONG_SERVE_NEW,
+        "long_ctx_serve")[0])
+    out["runs"] = out["prefill"] + [out["serve"]]
+    out.update(peak_gib=peak_gib(), seconds=secs)
+    emit({"phase": "long_ctx", "peak_gib": out["peak_gib"],
+          "seconds": secs})
+    return out
+
+
+def family_decode(what: str, cfg, w) -> tuple:
+    """The token loop on a family's model: the prompts of FAMILY_PROMPTS
+    with N_NEW new tokens at FAMILY_EFFORTS through the captured steps
+    (CUDA events; K1 4 a layer a step below 1.0, none at 1.0: dense
+    copies), then one FAMILY_EAGER_NEW-token request at 0.25 through the
+    eager steps, its tokens the graph's first. Returns (rows, engine)."""
+    L, prompts = cfg.n_layers, seeded_ids(cfg, FAMILY_PROMPTS, 7)
+    steps = sum(padded(n) + N_NEW - 1 for n in FAMILY_PROMPTS)
+    eng = Engine(w, cfg, eos_id=-1)
+    warm([eng], prompts[0], (0.25, 1.0))
+    rows, graph = [], {}
+    for effort in FAMILY_EFFORTS:
+        torch.cuda.synchronize()
+        reset_launches()                # the path's run starts here ...
+        out, ms = timed_generate(eng, prompts, effort, N_NEW)
+        launches = dict(LAUNCHES)       # ... and is read here
+        graph[effort] = [x.token_ids for x in out]
+        r = dict(route="graph", effort=effort, steps=steps,
+                 ms_per_token=ms, launches=launches,
+                 first_tokens=graph[effort][0][:8])
+        rows.append(r)
+        emit({"phase": f"{what}_decode", **r})
+        check_replies(graph[effort], cfg, N_NEW, f"{what} decode {effort}")
+        check_launches(launches, {
+            "mxu_matvec": 4 * L * steps if effort < 0.999 else 0,
+            "mxu_matvec_batch": 0, "flash_attention": 0},
+            f"{what} decode at effort {effort}")
+    n = FAMILY_EAGER_NEW
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    got = Engine(w, cfg, eos_id=-1, capture=False).generate(
+        prompts[0], n_new=n, effort=0.25).token_ids
+    r = dict(route="eager", effort=0.25, steps=padded(len(prompts[0])) + n
+             - 1, seconds=time.perf_counter() - t0, launches=dict(LAUNCHES),
+             first_tokens=got)
+    rows.append(r)
+    emit({"phase": f"{what}_decode", **r})
+    check_launches(r["launches"], {"mxu_matvec": 4 * L * r["steps"],
+                                   "mxu_matvec_batch": 0,
+                                   "flash_attention": 0},
+                   f"{what} eager decode")
+    if got != graph[0.25][0][:n]:
+        raise AssertionError(f"{what}: eager tokens {got} vs graph "
+                             f"{graph[0.25][0][:n]}")
+    return rows, eng
+
+
+def phase_family(what: str, cfg, side=None) -> dict:
+    """One Llama preset at 32 layers and its 4096 positions, the main
+    model's recipe (module docstring, `llama2` and `llama3`). side(): a
+    job started once the timed parts are done (decode, profile, prefill,
+    serving), to run beside the gates; its handle is out["side"]."""
+    torch.cuda.reset_peak_memory_stats()
+    bcfg = BucketConfig(bucket_size=1, chunk_rows=128, dtype="int8")
+    t0 = time.perf_counter()
+    w = quantize_head(init_random_weights(cfg, bcfg, seed=0, calibrate=True,
+                                          fuse=True, keep_dense=True,
+                                          device="cuda"))
+    torch.cuda.synchronize()
+    out = dict(model_setup_s=time.perf_counter() - t0,
+               weights_gib=torch.cuda.memory_allocated() / 2**30,
+               w2_chunks=w.layers.w2.n_chunks,
+               w2_chunk_rows=w.layers.w2.chunk_rows)
+    emit({"phase": f"{what}_model", "config": dataclasses.asdict(cfg),
+          **out})
+    secs = {}
+    out["decode"], eng = timed_part(secs, "decode", family_decode, what,
+                                    cfg, w)
+    out["profile"] = timed_part(secs, "profile", decode_profile,
+                                f"{what}_profile", cfg, eng,
+                                seeded_ids(cfg, (5,), 7)[0])
+    del eng
+    prompt = seeded_ids(cfg, (FAMILY_PREFILL,), 31)[0]
+    pre = Engine(w, cfg, eos_id=-1, prefill=True)
+    warm([pre], prompt[:32], PREFILL_EFFORTS)
+    out["prefill"] = timed_part(secs, "prefill", lambda: [
+        prefill_run(pre, cfg, [prompt], e, N_NEW, f"{what}_prefill")
+        for e in PREFILL_EFFORTS])
+    del pre
+    out["serve"] = timed_part(secs, "serve", serve_batch, cfg, w,
+                              serve_requests(cfg), SERVE_EFFORTS, N_NEW,
+                              f"{what}_serve")[0]
+    out["serve"]["http"] = timed_part(secs, "http", serve_http, cfg, w,
+                                      f"{what}_http")
+    out["side"] = timed_part(secs, "side", side) if side else None
+    try:
+        out["same_input"] = timed_part(secs, "same_input", ckpt_same_input,
+                                       cfg, w, prompt, (0.25,),
+                                       f"{what}_same_input")
+        out["teacher"] = timed_part(secs, "teacher", seq_teacher, cfg, w,
+                                    prompt, f"{what}_teacher")
+    except BaseException:
+        if out["side"]:
+            out["side"]["stop"]()
+        raise
+    out["runs"] = out["decode"] + out["prefill"] + [out["serve"]]
+    out.update(peak_gib=peak_gib(), seconds=secs)
+    emit({"phase": what, "peak_gib": out["peak_gib"], "seconds": secs})
+    return out
+
+
+def llama3_ckpt_start() -> dict:
+    """The first half of `llama3_ckpt`: a random HF-format Llama-3-8B
+    checkpoint (HF_LLAMA3: full width, LLAMA3_CKPT_LAYERS deep, bf16,
+    seeded) in a temporary directory, config_from_hf's gate, and the
+    command line's conversion started on the card (`python3 -m
+    effort_tpu_torch convert --model auto`, int8 row-prefix, fused; one
+    subprocess), which phase_llama3_ckpt waits for."""
+    tmp = tempfile.TemporaryDirectory()
+    src, dst = Path(tmp.name) / "hf", Path(tmp.name) / "buckets"
+    src.mkdir()
+    t0 = time.perf_counter()
+    write_hf(src, seed=21, h=HF_LLAMA3)
+    out = dict(tmp=tmp, dst=dst, write_hf_s=time.perf_counter() - t0)
+    cfg = config_from_hf(str(src))
+    want = llama3_8b(n_layers=LLAMA3_CKPT_LAYERS)
+    out.update(cfg=cfg, config_fields_apart=[
+        f.name for f in dataclasses.fields(cfg)
+        if getattr(cfg, f.name) != getattr(want, f.name)])
+    if out["config_fields_apart"] != ["name"]:
+        tmp.cleanup()
+        raise AssertionError(f"config_from_hf: {cfg} vs {want}")
+    out["convert"] = cli_start([
+        "convert", "--model", "auto", "--src", str(src), "--dst", str(dst),
+        "--bucket-size", "1", "--chunk-rows", "128", "--dtype", "int8",
+        "--fuse"])
+    out["stop"] = lambda: (out["convert"]["proc"].kill(), tmp.cleanup())
+    return out
+
+
+def phase_llama3_ckpt(started: dict) -> dict:
+    """The checkpoint of llama3_ckpt_start, converted by the command line
+    (module docstring, `llama3_ckpt`). Gates: the conversion exits 0;
+    load_bucketized loads it with config_from_hf's config and its
+    buckets; build_server (single flight, no tokenizer) answers the four
+    CKPT_QUERIES, each reply's tokens those of an Engine in this process
+    on the same loaded weights."""
+    tmp, dst, cfg = started.pop("tmp"), started.pop("dst"), started.pop("cfg")
+    started.pop("stop")
+    out, run = started, started.pop("convert")
+    try:
+        conv = cli_wait(run)
+        out["convert"] = {k: conv[k] for k in ("args", "rc", "seconds")}
+        if conv["rc"] != 0:
+            raise AssertionError(f"cli convert: {conv['stderr']}")
+        t0 = time.perf_counter()
+        w, cfg_l, bcfg_l = load_bucketized(str(dst), device="cuda")
+        torch.cuda.synchronize()
+        out["load_s"] = time.perf_counter() - t0
+        bcfg = BucketConfig(bucket_size=1, chunk_rows=128, dtype="int8")
+        if cfg_l != cfg or bcfg_l != bcfg or w.layers.wqkv is None:
+            raise AssertionError(f"loaded {cfg_l} {bcfg_l}")
+        http = ckpt_http(dst, None, 0)
+        eng = Engine(w, cfg_l)
+        served = [json.loads(r) for r in http["replies"]]
+        local = [eng.generate(p, n_new=len(toks), effort=e / 100).token_ids
+                 for p, toks, e in zip(http["prompts"], served,
+                                       CKPT_HTTP_EFFORTS)]
+        out.update(http=http, served=served, in_process=local,
+                   same_tokens=served == local)
+        emit({"phase": "llama3_ckpt", **{k: v for k, v in out.items()
+                                          if k != "http"}})
+        if not out["same_tokens"] or not all(served):
+            raise AssertionError(f"served vs in-process tokens: {served} "
+                                 f"{local}")
+        del eng, w
+    finally:
+        if run["proc"].poll() is None:
+            run["proc"].kill()
+        tmp.cleanup()
+    out["runs"] = [dict(launches=http["launches"])]
+    if not http["launches"]["mxu_matvec"]:
+        raise AssertionError("the served checkpoint never launched K1")
+    return out
+
+
 def free_card() -> None:
     """Release what the last model left on the card: collect unreachable
     objects first (the servers' and batchers' reference cycles keep their
@@ -4900,12 +5473,19 @@ def summary_row(name: str, source: str, replaces: str, points: list,
             "library_ms": sum(p["library_ms"] for p in rows)}
 
 
-def k1_row(points: list, launches: int, shard_points: list) -> dict:
+LLAMA_POINT_KEYS = ("shape", "in_dim", "out_dim", "T", "n_chunks", "effort",
+                    "C", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "max_abs_err")
+
+
+def k1_row(points: list, launches: int, shard_points: list,
+           llama_points: list) -> dict:
     """K1's entry: one decode layer's four launches (SUMMARY), with where
     they spend their device time (parts_ms: selection, stream and split
-    sum, the last two with their waits; K1_PART_KEYS), and the parallel
+    sum, the last two with their waits; K1_PART_KEYS), the parallel
     phase's shard shapes beside it (shard_points: each shape's ms, plain
-    ms, bound and library ms at effort 0.25 and 1.0)."""
+    ms, bound and library ms at effort 0.25 and 1.0), and Llama-2-7B's
+    projections likewise (llama2_points)."""
     pick = lambda p: (p["dtype"], p["effort"], p["tau"]) == SUMMARY  # noqa
     row = summary_row("mxu_matvec", "effort_tpu_torch/csrc/mxu_matvec.cu",
                       "effort_tpu/kernels/fused_stream.py:270", points,
@@ -4918,6 +5498,8 @@ def k1_row(points: list, launches: int, shard_points: list) -> dict:
         {k: p[k] for k in ("shape", "in_dim", "out_dim", "effort", "C", "ms",
                            "plain_ms", "bound_ms", "library_ms",
                            "max_abs_err")} for p in shard_points]
+    row["llama2_points"] = [{k: p[k] for k in LLAMA_POINT_KEYS}
+                            for p in llama_points if p["T"] == 1]
     return row
 
 
@@ -4938,9 +5520,9 @@ def k3_row(points: list, launches: int, slots: list) -> dict:
     return row
 
 
-def k2_row(points: list, launches: int) -> dict:
-    """K2's entry: the T = 64 summary, and the T = 4 one under "_t4"
-    keys."""
+def k2_row(points: list, launches: int, llama_points: list) -> dict:
+    """K2's entry: the T = 64 summary, the T = 4 one under "_t4" keys, and
+    Llama-2-7B's projections at T = 4 and 64 (llama2_points)."""
     row = summary_row(
         "mxu_matvec_batch", "effort_tpu_torch/csrc/mxu_matvec_batch.cu",
         "effort_tpu/kernels/fused_stream.py:391", points, launches,
@@ -4957,6 +5539,8 @@ def k2_row(points: list, launches: int) -> dict:
              if (p["dtype"], p["T"], p["tau"]) == (SUMMARY_BATCH[0], T,
                                                    SUMMARY_BATCH[2])],
             ("k2_select", "k2_stream", "k2_reduce"))
+    row["llama2_points"] = [{k: p[k] for k in LLAMA_POINT_KEYS}
+                            for p in llama_points if p["T"] > 1]
     return row
 
 
@@ -5008,6 +5592,7 @@ def main() -> int:
     run("points_batch", phase_kernels_batch, flush)
     run("attention", phase_attention, flush)
     run("k3_device_slots", phase_k3_device_slots, flush)
+    run("points_llama", phase_kernels_llama, flush)
     run("points_rank", phase_kernels_rank, flush)
     del flush
     torch.cuda.empty_cache()
@@ -5028,6 +5613,8 @@ def main() -> int:
     run("eval", phase_eval, *model[:3],
         {r["effort"]: r["ms_per_token"] for r in out["generate"]
          if r["route"] == "graph"})
+    run("long_ctx", phase_long_ctx, *model[:2], out["generate"],
+        out["prefill"])
     w_plain = build_plain_model(model[0])
     run("spec", phase_spec, "mistral_plain", model[0], w_plain, model[3][2])
     run("batch_spec", phase_batch_spec, "mistral_plain", model[0], w_plain)
@@ -5045,6 +5632,14 @@ def main() -> int:
     run("train", phase_train, smi)
     free_card()
     run("parallel", phase_parallel)
+    free_card()
+    run("llama2", phase_family, "llama2", llama2_7b(n_layers=32))
+    free_card()
+    # the checkpoint's conversion runs beside llama3's gates
+    llama3 = run("llama3", phase_family, "llama3", llama3_8b(n_layers=32),
+                 llama3_ckpt_start)
+    free_card()
+    run("llama3_ckpt", phase_llama3_ckpt, llama3.pop("side"))
     free_card()
 
     cfg, w = build_rank_model()
@@ -5072,7 +5667,10 @@ def main() -> int:
     del w, eng
     free_card()
     run("moe_rank", phase_moe_rank, prompts)
-    emit({"phase": "phase_seconds", **out["phase_seconds"]})
+    new = ("long_ctx", "llama2", "llama3", "llama3_ckpt")
+    out["new_phase_seconds"] = sum(out["phase_seconds"][k] for k in new)
+    emit({"phase": "phase_seconds", **out["phase_seconds"],
+          "new_phases": out["new_phase_seconds"]})
 
     rank_launches = {k: sum(r["launches"][k]
                             for r in rank["decode"] + rank["routes"]
@@ -5084,21 +5682,25 @@ def main() -> int:
                   + [out["moe_serve"]])
     spec_runs = (out["spec"]["rows"] + [out["batch_spec"]]
                  + out["moe_spec"]["rows"])
+    new_runs = (out["long_ctx"]["runs"] + out["llama2"]["runs"]
+                + out["llama3"]["runs"] + out["llama3_ckpt"]["runs"])
     k1_runs = (out["generate"] + out["prefill"] + out["moe_decode"]
                + [out["moe_serve"], out["moe_serve"]["http_single"]]
                + spec_runs + out["ckpt"]["runs"] + out["session"]["runs"]
-               + out["eval"]["runs"] + out["train"]["runs"])
-    serve_runs += spec_runs + out["ckpt"]["runs"] + out["train"]["runs"]
+               + out["eval"]["runs"] + out["train"]["runs"] + new_runs)
+    serve_runs += (spec_runs + out["ckpt"]["runs"] + out["train"]["runs"]
+                   + new_runs)
     summary_rank = lambda p: (p["dtype"], p["effort"],   # noqa: E731
                               p.get("tau", 0.97)) == SUMMARY_RANK
     out["kernels"] = kernels = [
         k1_row(out["points"], sum(r["launches"].get("mxu_matvec", 0)
                                   for r in k1_runs)
                + out["parallel"]["launches"]["mxu_matvec"],
-               out["parallel"]["k1_shards"]),
+               out["parallel"]["k1_shards"], out["points_llama"]),
         k2_row(out["points_batch"],
                sum(r["launches"].get("mxu_matvec_batch", 0)
-                   for r in out["prefill"] + serve_runs)),
+                   for r in out["prefill"] + serve_runs),
+               out["points_llama"]),
         k3_row(out["attention"], sum(r["launches"].get("flash_attention", 0)
                                      for r in out["prefill"] + serve_runs),
                out["k3_device_slots"]),

@@ -213,6 +213,12 @@ def limited_quiz_sweep(engine, items: List[dict],
 _GREEDY = dict(sampled=False, top_k=0, penalized=False, logprobs_k=0)
 
 
+# decode_speed_sweep's clock, and the times it takes both lengths again
+# while the longer one is not the slower (a slope that is not positive)
+_clock = time.perf_counter
+_SLOPE_TRIES = 5
+
+
 def decode_speed_sweep(w, cfg, efforts: Sequence[float] = (1.0, 0.5,
                                                           0.35, 0.25),
                        include_dense: bool = True, impl: str = "kernel",
@@ -222,15 +228,19 @@ def decode_speed_sweep(w, cfg, efforts: Sequence[float] = (1.0, 0.5,
     overheads cancel; min of 3 per length). Each length is one generation
     of n greedy steps from a fresh token at position 0 (Engine's decode
     loop: on the card replays of the captured step, the device
-    synchronized before each clock read). Returns {"dense_toks_per_s",
-    "toks_per_s_<e>", "speedup_vs_dense_<e>"}. include_dense needs dense
-    copies (impl="dense"; attach_dense or stored copies)."""
+    synchronized before each clock read). A host under load can make the
+    shorter run the slower: both lengths are then timed again, up to
+    _SLOPE_TRIES times, and a RuntimeError says so if the slope never
+    comes out positive. Returns {"dense_toks_per_s", "toks_per_s_<e>",
+    "speedup_vs_dense_<e>"}. include_dense needs dense copies
+    (impl="dense"; attach_dense or stored copies)."""
     from effort_tpu_torch.models.generate import Engine
     from effort_tpu_torch.models.transformer import resolve_device
 
     device = resolve_device(device)
     on_card = device.type == "cuda"
-    toks_src = iter(range(2, 2 + 16 * (len(efforts) + 3) * 8))
+    toks_src = iter(range(2, 2 + 16 * (len(efforts) + 3) * 8
+                          * _SLOPE_TRIES))
 
     def sync():
         if on_card:
@@ -244,15 +254,21 @@ def decode_speed_sweep(w, cfg, efforts: Sequence[float] = (1.0, 0.5,
             def t(n):
                 tok = next(toks_src) % cfg.vocab_size
                 sync()
-                t0 = time.perf_counter()
+                t0 = _clock()
                 eng._launch([tok], n, effort, _GREEDY, {})
                 sync()
-                return time.perf_counter() - t0
+                return _clock() - t0
             t(n_lo)                       # warm: captures a cold key
             t(n_hi)
-            lo = min(t(n_lo) for _ in range(3))
-            hi = min(t(n_hi) for _ in range(3))
-            return (hi - lo) / (n_hi - n_lo)
+            for _ in range(_SLOPE_TRIES):
+                lo = min(t(n_lo) for _ in range(3))
+                hi = min(t(n_hi) for _ in range(3))
+                if hi > lo:
+                    return (hi - lo) / (n_hi - n_lo)
+            raise RuntimeError(
+                f"decode_speed_sweep: {n_hi} steps never took longer than "
+                f"{n_lo} in {_SLOPE_TRIES} tries (effort {effort}, "
+                f"{impl_})")
         return t_of
 
     out = {}

@@ -58,8 +58,8 @@ from effort_tpu_torch.kernels.prefix_stream import (_KIND, StreamSelection,
                                                     stream_product_ref,
                                                     tile_offsets)
 from effort_tpu_torch.ops.effort import effort_q16
-from effort_tpu_torch.ops.layouts import (BucketedMatrix, strided_sample,
-                                          strided_sample_len, take)
+from effort_tpu_torch.ops.layouts import (BucketedMatrix, sample_stride,
+                                          strided_sample, take)
 
 _NL = 32          # thresholds per cutoff-search level
 _RATIO = 0.62
@@ -327,7 +327,7 @@ def _check(bm: BucketedMatrix, v: torch.Tensor, expert):
             or (not bm.vals_packed and decoded != bm.n_buckets):
         raise ValueError(f"vals width {vals.shape[2]} does not fit "
                          f"out_dim {bm.out_dim} in 16-byte rows")
-    P = strided_sample_len(bm.in_dim, bm.probes.shape[1])
+    P = bm.probes.shape[1]
     if not 1 <= P <= _MAX_PROBES or tuple(bm.probes.shape) != (E, P) \
             or nc > _MAX_CHUNKS:
         raise ValueError(f"probes {tuple(bm.probes.shape)} / {nc} chunks "
@@ -395,7 +395,7 @@ def mxu_matvec(bm: BucketedMatrix, v: torch.Tensor, effort,
     tables = thresh_tables(dev)
     G, nc, in_dim = bm.chunk_rows, bm.n_chunks, bm.in_dim
     P = bm.probes.shape[1]
-    stride = max(1, -(-in_dim // P))
+    stride = sample_stride(in_dim, P)
     row_bytes = bm.vals.shape[2] * bm.vals.element_size()
     width = bm.vals.shape[2] * (2 if bm.vals_packed else 1)
     rb = _rows_per_block(-(-row_bytes // 512), in_dim)
@@ -455,7 +455,7 @@ def mxu_matvec_batch(bm: BucketedMatrix, V: torch.Tensor, efforts,
     tables = thresh_tables(dev)
     G, nc, in_dim = bm.chunk_rows, bm.n_chunks, bm.in_dim
     P = bm.probes.shape[1]
-    stride = max(1, -(-in_dim // P))
+    stride = sample_stride(in_dim, P)
     row_bytes = bm.vals.shape[2] * bm.vals.element_size()
     width = bm.vals.shape[2] * (2 if bm.vals_packed else 1)
     kind = _KIND[bm.vals.dtype]
@@ -546,7 +546,7 @@ def fused_limits(bm: BucketedMatrix, tile_blocks: int) -> Optional[str]:
         return why
     if nc % tile_blocks:
         return f"{nc} chunks not a multiple of {tile_blocks}"
-    P = strided_sample_len(bm.in_dim, bm.probes.shape[1])
+    P = bm.probes.shape[1]
     if not 1 <= P <= _MAX_PROBES or tuple(bm.probes.shape) != (E, P) \
             or K * nc > _MAX_MASSES:
         return (f"probes {tuple(bm.probes.shape)} / {K} ranks of {nc} "
@@ -629,7 +629,7 @@ def fused_matvec(bm: BucketedMatrix, v: torch.Tensor, effort,
         _KIND[bm.vals.dtype], vrow, bm.pos.data_ptr(), prow, vrow,
         bm.vals.shape[0] * G, bm.bucket_size, G, nc, K, tile_blocks,
         bm.n_buckets, P,
-        max(1, -(-in_dim // P)), float(tau), instance_ptr(expert, dev),
+        sample_stride(in_dim, P), float(tau), instance_ptr(expert, dev),
         u.data_ptr(),
         C.data_ptr(), cum.data_ptr(), base.data_ptr(), cutoff.data_ptr(),
         _K4_SCRATCH[dev].data_ptr(), partial.data_ptr(), splits, col_blocks,

@@ -266,18 +266,24 @@ def probe_sample_indices(in_dim: int, out_dim: int,
     return np.stack([dims, cols], axis=1).astype(np.int32)
 
 
-def strided_sample_len(in_dim: int, n_probes: int) -> int:
-    stride = max(1, -(-in_dim // n_probes))
-    return in_dim // stride
+def sample_stride(in_dim: int, n_samples: int) -> int:
+    """The stride of a stored sample of n_samples probes over in_dim rows:
+    in_dim // n_samples, the stride probe_sample_indices took (a sample of
+    P = in_dim // s probes gives s back for any in_dim >= s (s + 1)). A
+    budget's stride, ceil(in_dim / n), is not its inverse: Llama-2-7B's
+    w2 (11008 rows, 4096 probes: stride 3, 3669 probes) gives 4 from
+    3669, which the JAX package's runtime takes (its reference route
+    raises on that matrix, its kernel refuses it)."""
+    return max(1, in_dim // n_samples)
 
 
 def strided_sample(v: torch.Tensor, in_dim: int,
-                   n_probes: int) -> torch.Tensor:
-    """v[..., probe_dims] as a strided slice (matches
+                   n_samples: int) -> torch.Tensor:
+    """v[..., probe_dims]: the rows of a stored sample of n_samples probes
+    (bm.probes.shape[-1]) as a strided slice (matches
     probe_sample_indices)."""
-    stride = max(1, -(-in_dim // n_probes))
-    n = in_dim // stride
-    return v[..., :n * stride:stride]
+    stride = sample_stride(in_dim, n_samples)
+    return v[..., :n_samples * stride:stride]
 
 
 def pack_positions(pos: torch.Tensor, bucket_size: int) -> torch.Tensor:

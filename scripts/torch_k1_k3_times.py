@@ -12,8 +12,9 @@ over 10 fresh inputs:
             fused_stream.mxu_matvec_batch at the same four projections,
             T = 4 and 64 slots at chip_smoke.py's mixed efforts
   k3        flash_attention_seq at each of the checkout's chip_smoke.py
-            attention cases (ATTN_CASES, over a 512-slot cache; null where
-            the checkout's kernel refuses the case's heads)
+            attention cases (ATTN_CASES, over a 512-slot cache unless the
+            case names its slots; null where the checkout's kernel refuses
+            the case's heads)
   k4, k5    fused_stream.fused_matvec and prefix_stream.stream_matvec at
             the four projections, int8 rank-prefix values (B = 4, G = 16),
             effort 0.25, tau 0.97
@@ -116,7 +117,7 @@ def times(flush) -> dict:
                                    case["start_slot"], case["mask_from"],
                                    case["window"])
         H, KV, D = case.get("H", 32), case.get("KV", 8), case.get("D", 128)
-        S = 512
+        S = case.get("S", 512)
         kc = torch.randn((S, KV, D), generator=g, device="cuda").bfloat16()
         vc = torch.randn((S, KV, D), generator=g, device="cuda").bfloat16()
         Qs = [torch.randn((T, H * D), generator=g, device="cuda")

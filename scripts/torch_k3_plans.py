@@ -56,7 +56,7 @@ def plans(flush, sms: int) -> list:
     picker, out = fa.flash_plan, []
     try:
         for case in cs.ATTN_CASES:
-            dims, kc, vc, Qs = cs.attention_inputs(case, g)
+            dims, _, kc, vc, Qs = cs.attention_inputs(case, g)
             T, start, mf, win, H, KV, D = dims
             rep = H // KV
 
@@ -94,7 +94,7 @@ def parts() -> list:
         g.manual_seed(99)                          # chip_smoke's inputs
         res = {}
         for case in cs.ATTN_CASES:
-            dims, kc, vc, Qs = cs.attention_inputs(case, g)
+            dims, _, kc, vc, Qs = cs.attention_inputs(case, g)
             T, start, mf, win, H, KV, D = dims
             y, yr = (fa.flash_attention_seq(Qs[0], kc, vc, start, mf, H, D,
                                             window=win, plain=plain)

@@ -11,7 +11,7 @@ import torch
 from effort_tpu_torch.config import BucketConfig
 from effort_tpu_torch.kernels import LAUNCHES
 from effort_tpu_torch.kernels import fused_stream as port_fs
-from effort_tpu_torch.ops.bucketize import bucketize
+from effort_tpu_torch.ops.bucketize import bucketize, calib_row_order
 from effort_tpu_torch.utils import timing
 
 
@@ -166,6 +166,87 @@ def test_flash_attention_cuda_kernel_matches_plain(start, mask_from,
         flash_attention_ref(Q, K, V, start, mask_from, window),
         rtol=1e-4, atol=1e-4)
     assert LAUNCHES["flash_attention"] == launches + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bf16", "int8", "int4"])
+@pytest.mark.parametrize("G", [128, 256])
+def test_row_prefix_kernels_at_llama2_w2_chunks_match_plain(dtype, G):
+    """K1 and K2 on a matrix of Llama-2-7B's w2 rows (11008, a probe sample
+    of 3669) at 86 chunks of 128 and 43 of 256 (counts that are no power
+    of two; init_random_weights picks 256 at int8), 256 columns, against
+    their plain versions: the same stream length C and cos >= 0.9999 (K2 a
+    slot, T in {4, 64}) at efforts 0.1, 0.5 and 1.0 and tau 0.97 and 1."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(G)
+    rms = torch.exp(torch.randn(11008, generator=g, device="cuda") * 1.2)
+    order = calib_row_order(rms).long()
+    wt = torch.randn((11008, 256), generator=g, device="cuda") * 0.02
+    bm = bucketize(wt, BucketConfig(bucket_size=1, chunk_rows=G,
+                                    dtype=dtype), in_perm=order)
+    assert bm.n_chunks == 11008 // G and bm.probes.shape[1] == 3669
+    launches = (LAUNCHES["mxu_matvec"], LAUNCHES["mxu_matvec_batch"])
+    for e in (0.1, 0.5, 1.0):
+        for tau in (0.97, 1.0):
+            v = rms[order] * torch.randn(11008, generator=g, device="cuda")
+            y, C = port_fs.mxu_matvec(bm, v, e, 0, tau=tau,
+                                      return_len=True)
+            yr, Cr = port_fs.mxu_matvec_ref(bm, v, e, 0, tau=tau,
+                                            return_len=True)
+            torch.cuda.synchronize()
+            assert int(C) == int(Cr), (e, tau)
+            c = torch.nn.functional.cosine_similarity(
+                y.double(), yr.double(), dim=0)
+            assert float(c) >= 0.9999, (e, tau, float(c))
+            for T in (4, 64):
+                V = rms[order] * torch.randn((T, 11008), generator=g,
+                                             device="cuda")
+                y, C = port_fs.mxu_matvec_batch(bm, V, e, 0, tau=tau,
+                                                return_len=True)
+                yr, Cr = port_fs.mxu_matvec_batch_ref(bm, V, e, 0, tau=tau,
+                                                      return_len=True)
+                torch.cuda.synchronize()
+                assert int(C) == int(Cr), (e, tau, T)
+                c = torch.nn.functional.cosine_similarity(
+                    y.double(), yr.double(), dim=1)
+                assert float(c.min()) >= 0.9999, (e, tau, T, float(c.min()))
+    assert (LAUNCHES["mxu_matvec"], LAUNCHES["mxu_matvec_batch"]) == (
+        launches[0] + 6, launches[1] + 12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,S,start,mask_from", [(2304, 2304, 0, 0),
+                                                 (300, 4096, 3796, 0),
+                                                 (100, 2304, 2000, 37)])
+def test_flash_attention_mha_over_long_caches_matches_plain(T, S, start,
+                                                            mask_from):
+    """K3 with one query head a KV head (rep = 1, Llama-2-7B's attention:
+    H = KV = 4 here, D 128) over caches of more than 2048 slots: a whole
+    causal prefill, the last queries of a 4096-slot cache, and queries past
+    slot 2000 masked below slot 37; min row cos >= 0.9999 and max|dy| <=
+    1e-4 max|y_ref| (pv_f32), as the other K3 cases."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from effort_tpu_torch.kernels.flash_attention import flash_attention_seq
+    g = torch.Generator(device="cuda")
+    g.manual_seed(T + S)
+    H = KV = 4
+    D = 128
+    q = torch.randn((T, H * D), generator=g, device="cuda") * 2.0
+    kc = torch.randn((S, KV, D), generator=g, device="cuda").bfloat16()
+    vc = torch.randn((S, KV, D), generator=g, device="cuda").bfloat16()
+    launches = LAUNCHES["flash_attention"]
+    y = flash_attention_seq(q, kc, vc, start, mask_from, H, D)
+    yr = flash_attention_seq(q, kc, vc, start, mask_from, H, D, plain=True)
+    torch.cuda.synchronize()
+    c = torch.nn.functional.cosine_similarity(
+        y.reshape(-1, D).double(), yr.reshape(-1, D).double(), dim=1)
+    assert float(c.min()) >= 0.9999, float(c.min())
+    err = float((y - yr).abs().max())
+    assert err <= 1e-4 * float(yr.abs().max()), err
+    assert LAUNCHES["flash_attention"] == launches + 1
 
 
 # (T, S, start_slot, mask_from, window): a causal prefill; a left-padded

@@ -252,6 +252,44 @@ def test_decode_speed_sweep_structure(engine):
         assert f"speedup_vs_dense_{tag}" in out
 
 
+def _scripted_clock(durations):
+    """A stand-in for decode_speed_sweep's clock: each timed run (a clock
+    read before it and one after) lasts the next of `durations`."""
+    it, now, start = iter(durations), [0.0], [True]
+
+    def clock():
+        if not start[0]:
+            now[0] += next(it)
+        start[0] = not start[0]
+        return now[0]
+    return clock
+
+
+def test_decode_speed_sweep_retimes_a_negative_slope(engine, monkeypatch):
+    """A clock under which the 2-step runs first take longer than the
+    4-step ones: both lengths are timed again, and the slope of the second
+    try is the one returned. Runs: two warm-ups, then 3 at n_lo and 3 at
+    n_hi a try."""
+    monkeypatch.setattr(harness, "_clock", _scripted_clock(
+        [1, 1] + [5, 5, 5, 1, 1, 1] + [1, 2, 1, 3, 4, 3]))
+    out = harness.decode_speed_sweep(engine.w, engine.cfg, efforts=(0.5,),
+                                     include_dense=False, impl="reference",
+                                     n_lo=2, n_hi=4, device="cpu")
+    assert out == {"toks_per_s_50": 1.0}   # (min 3 - min 1) / (4 - 2)
+
+
+def test_decode_speed_sweep_raises_without_a_positive_slope(engine,
+                                                            monkeypatch):
+    """A slope that is never positive (the longer runs never slower) raises
+    after _SLOPE_TRIES tries, each of 3 runs a length."""
+    monkeypatch.setattr(harness, "_clock", _scripted_clock(
+        [1, 1] + [2, 2, 2, 2, 2, 2] * harness._SLOPE_TRIES))
+    with pytest.raises(RuntimeError, match="never took longer"):
+        harness.decode_speed_sweep(engine.w, engine.cfg, efforts=(0.5,),
+                                   include_dense=False, impl="reference",
+                                   n_lo=2, n_hi=4, device="cpu")
+
+
 def test_limited_quiz_sweep_counts():
     """A stub engine that knows the answers at high effort and guesses
     slot 0 at low effort."""
