@@ -31,6 +31,12 @@ tokens and the history are cut after EOS; the prediction after the last
 consumed token is kept for continue_turn; penalty counts cover the whole
 history plus the turn-boundary token. Sampled tokens come from a
 torch.Generator (Philox), so they are not the JAX package's (threefry).
+
+Spans (utils/profiling.py, recorded only while a profiler or recording()
+is on): session.turn around turn / continue_turn, with the cache
+positions its steps attend over and those they read as attributes;
+session.launch (_launch: the upload, the fill, the steps' enqueue) and
+session.read (_finish's host read) inside it.
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ from effort_tpu_torch.config import ModelConfig
 from effort_tpu_torch.models.generate import (Engine, _Key, _pick_token,
                                               _q16, _StepState, _to_device)
 from effort_tpu_torch.models.transformer import ModelWeights, forward_token
+from effort_tpu_torch.utils.profiling import annotate
 
 
 def _turn_step(w: ModelWeights, cfg: ModelConfig, st: _StepState, kv,
@@ -76,6 +83,14 @@ def _turn_step(w: ModelWeights, cfg: ModelConfig, st: _StepState, kv,
         st.counts.index_add_(0, pred.reshape(1).long(),
                              gen.to(torch.int32).reshape(1))
     st.pos += 1
+
+
+def live_positions(pos0: int, n: int, slots: int) -> int:
+    """The cache positions n steps from position pos0 attend over: step i
+    over min(pos0 + i + 1, slots) (a ring holds the last `slots`), summed
+    in closed form."""
+    full = max(0, min(n, slots - pos0))
+    return full * (pos0 + 1) + full * (full - 1) // 2 + (n - full) * slots
 
 
 def _bf16_of(a: np.ndarray) -> torch.Tensor:
@@ -176,8 +191,9 @@ class ChatSession:
                 consumed: list) -> List[int]:
         """The turn's one host read (its tokens ids[lo : lo + n_new], the
         next prediction after them, and the position); cut at EOS."""
-        host = torch.cat([st.ids[lo:lo + n_new + 1],
-                          st.pos.reshape(1)]).tolist()
+        with annotate("session.read"):
+            host = torch.cat([st.ids[lo:lo + n_new + 1],
+                              st.pos.reshape(1)]).tolist()
         self.pos = int(host[-1])
         self._next_tok = int(host[n_new])
         out = [int(t) for t in host[:n_new]]
@@ -202,9 +218,22 @@ class ChatSession:
         tokens are processed: the conversation so far lives in the cache.
         Sampling/penalty knobs match Engine.generate; penalty counts cover
         the WHOLE conversation history."""
-        return self._finish(*self._start_turn(
-            prompt_ids, n_new, effort, temperature, top_k, top_p, seed,
-            presence_penalty, frequency_penalty))
+        with annotate("session.turn") as span:
+            if span:
+                self._turn_attrs(span, len(prompt_ids) + n_new)
+            return self._finish(*self._start_turn(
+                prompt_ids, n_new, effort, temperature, top_k, top_p, seed,
+                presence_penalty, frequency_penalty))
+
+    def _turn_attrs(self, span, n_steps: int) -> None:
+        """A turn span's attributes: the cache positions its n_steps steps
+        attend over and those they read (each step every slot of the
+        cache, as _turn_step's attention is launched). Stated, not
+        measured: an attention that reads fewer positions changes
+        read_positions here."""
+        slots = self.k_cache.shape[1]
+        span["live_positions"] = live_positions(self.pos, n_steps, slots)
+        span["read_positions"] = n_steps * slots
 
     def _start_turn(self, prompt_ids: Sequence[int], n_new: int = 30,
                     effort: float = 1.0, temperature: float = 0.0,
@@ -222,9 +251,10 @@ class ChatSession:
         if presence_penalty != 0.0 or frequency_penalty != 0.0:
             counts0 = np.bincount(self.history + ids,
                                   minlength=self.cfg.vocab_size)
-        st = self._launch(ids, len(ids), len(ids) + n_new, effort,
-                          temperature, top_k, top_p, seed, presence_penalty,
-                          frequency_penalty, counts0)
+        with annotate("session.launch"):
+            st = self._launch(ids, len(ids), len(ids) + n_new, effort,
+                              temperature, top_k, top_p, seed,
+                              presence_penalty, frequency_penalty, counts0)
         return st, len(ids), n_new, ids
 
     def continue_turn(self, n_new: int = 30, effort: float = 1.0,
@@ -236,16 +266,21 @@ class ChatSession:
         prompt consumed): the chunked building block of turn_stream."""
         if self._next_tok is None:
             raise ValueError("continue_turn needs a prior turn")
-        self._check_len(n_new)
-        counts0 = None
-        if presence_penalty != 0.0 or frequency_penalty != 0.0:
-            counts0 = np.bincount(self.history,
-                                  minlength=self.cfg.vocab_size)
-            counts0[self._next_tok] += 1   # the turn-boundary token
-        st = self._launch([self._next_tok], 0, n_new, effort, temperature,
-                          top_k, top_p, seed, presence_penalty,
-                          frequency_penalty, counts0)
-        return self._finish(st, 0, n_new, [])
+        with annotate("session.turn") as span:
+            if span:
+                self._turn_attrs(span, n_new)
+            self._check_len(n_new)
+            counts0 = None
+            if presence_penalty != 0.0 or frequency_penalty != 0.0:
+                counts0 = np.bincount(self.history,
+                                      minlength=self.cfg.vocab_size)
+                counts0[self._next_tok] += 1   # the turn-boundary token
+            with annotate("session.launch"):
+                st = self._launch([self._next_tok], 0, n_new, effort,
+                                  temperature, top_k, top_p, seed,
+                                  presence_penalty, frequency_penalty,
+                                  counts0)
+            return self._finish(st, 0, n_new, [])
 
     def turn_stream(self, prompt_ids: Sequence[int], n_new: int = 30,
                     chunk: int = 8, **kw):

@@ -28,12 +28,17 @@
     captured graph, and the host reads the verified tokens and their
     counts after it.
 
-ContinuousBatcher is the scheduler loop the HTTP server drives.
+ContinuousBatcher is the scheduler loop the HTTP server drives. Its
+counts (always kept) and the spans of both classes (utils/profiling.py,
+recorded only while a profiler or recording() is on) name the boundaries:
+batcher.tick, batcher.queued, batcher.admit (.launch, .read),
+batcher.step (.launch, .read) and batcher.callback.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Dict, List, Sequence
 
 import torch
@@ -49,6 +54,7 @@ from effort_tpu_torch.models.transformer import (ModelWeights, forward_seq,
                                                  make_quant_kv_cache,
                                                  quantize_kv_rows,
                                                  resolve_device)
+from effort_tpu_torch.utils.profiling import annotate, mark
 
 
 @dataclasses.dataclass
@@ -161,25 +167,35 @@ class BatchEngine:
             raise ValueError(f"{P} + {n_new} (+ spec_k {self.spec_k}) "
                              f"positions exceed max_seq_len "
                              f"{self.cfg.max_seq_len}")
+        with annotate("batcher.admit", request_id):
+            self._admit(b, request_id, prompt_ids, n_new, effort, P)
+
+    def _admit(self, b: int, request_id: int, prompt_ids: Sequence[int],
+               n_new: int, effort: float, P: int) -> None:
         offset = P - len(prompt_ids)
-        ids_lp = _to_device([0] * offset + list(prompt_ids), self.device)
-        eff = torch.full((), float(effort), dtype=torch.float32,
-                         device=self.device)
-        if self.kv_quant:
-            kc, vc = self._scratch
-        else:
-            kc, vc = self.k_cache[:, b], self.v_cache[:, b]
-        logits = forward_seq(self.w, self.cfg, ids_lp, kc, vc, start_slot=0,
-                             rope_offset=offset, mask_from=offset,
-                             effort=eff, impl=self.prefill_impl)
-        if self.kv_quant:
-            # only the P rows written: rows >= P are masked until rewritten
-            for (data, scale), rows in ((self.k_cache, kc),
-                                        (self.v_cache, vc)):
-                xq, xs = quantize_kv_rows(rows[:, :P].to(torch.float32))
-                data[:, b, :P] = xq
-                scale[:, b, :P] = xs
-        first = int(torch.argmax(logits[-1]))
+        with annotate("batcher.admit.launch", request_id):
+            ids_lp = _to_device([0] * offset + list(prompt_ids),
+                                self.device)
+            eff = torch.full((), float(effort), dtype=torch.float32,
+                             device=self.device)
+            if self.kv_quant:
+                kc, vc = self._scratch
+            else:
+                kc, vc = self.k_cache[:, b], self.v_cache[:, b]
+            logits = forward_seq(self.w, self.cfg, ids_lp, kc, vc,
+                                 start_slot=0, rope_offset=offset,
+                                 mask_from=offset, effort=eff,
+                                 impl=self.prefill_impl)
+            if self.kv_quant:
+                # only the P rows written: rows >= P are masked until
+                # rewritten
+                for (data, scale), rows in ((self.k_cache, kc),
+                                            (self.v_cache, vc)):
+                    xq, xs = quantize_kv_rows(rows[:, :P].to(torch.float32))
+                    data[:, b, :P] = xq
+                    scale[:, b, :P] = xs
+        with annotate("batcher.admit.read", request_id):
+            first = int(torch.argmax(logits[-1]))
         st = self.slots[b]
         st.request_id = request_id
         st.prompt_len = len(prompt_ids)
@@ -258,18 +274,43 @@ class BatchEngine:
                 t.copy_(s)
         self._graph.replay()
 
-    def step(self) -> List[int]:
+    def positions(self, act: List[int]) -> tuple:
+        """(live, read): the cache positions the next step's attention
+        needs over the active slots `act` (each slot's position + 1, less
+        its left pad) and those it reads (every slot's whole cache, as
+        _step's attention is launched); a speculative step's spec_k draft
+        passes (its verify pass is not counted). Stated, not measured: an
+        attention that reads fewer positions changes `read` here."""
+        live = sum(self.pos_host[b] + 1 - self.slots[b].offset for b in act)
+        read = self.B * self.cfg.max_seq_len
+        if self.spec_k:
+            k = self.spec_k
+            live = k * live + len(act) * k * (k - 1) // 2
+            read *= k
+        return live, read
+
+    def step(self, positions: tuple = None) -> List[int]:
         """One batched decode step (a replay of the captured step on the
         card), speculative when spec_k > 0; returns the slots that
-        finished."""
+        finished. positions: positions(active()), where the caller has
+        it already."""
         act = self.active()
         if not act:
             return []
-        if self.spec_k:
-            return self._step_spec(act)
-        self._replay(self._step, ("batch", self.B, self.kv_quant),
-                     (self.preds, self.tokens, self.pos))
-        preds_host = self.preds.tolist()
+        with annotate("batcher.step", live_slots=len(act)) as span:
+            if span:
+                span["live_positions"], span["read_positions"] = \
+                    positions or self.positions(act)
+            if self.spec_k:
+                return self._step_spec(act)
+            return self._step_plain(act)
+
+    def _step_plain(self, act: List[int]) -> List[int]:
+        with annotate("batcher.step.launch"):
+            self._replay(self._step, ("batch", self.B, self.kv_quant),
+                         (self.preds, self.tokens, self.pos))
+        with annotate("batcher.step.read"):
+            preds_host = self.preds.tolist()
         finished = []
         last = self.cfg.max_seq_len - 1
         for b in act:
@@ -289,9 +330,11 @@ class BatchEngine:
         tokens (cut after an EOS), then finishes at EOS, at n_new tokens,
         or when spec_k more positions would pass the cache (the JAX
         package's _step_spec)."""
-        self._replay(self._spec_step, ("spec", self.B, self.spec_k),
-                     (self.tokens, self.pos, self.remaining))
-        out = self.spec_out.tolist()
+        with annotate("batcher.step.launch"):
+            self._replay(self._spec_step, ("spec", self.B, self.spec_k),
+                         (self.tokens, self.pos, self.remaining))
+        with annotate("batcher.step.read"):
+            out = self.spec_out.tolist()
         last = self.cfg.max_seq_len - 1
         finished = []
         self.pos_host = [min(p + row[-1], last)
@@ -319,12 +362,22 @@ class BatchEngine:
 
 class ContinuousBatcher:
     """Synchronous scheduler over a BatchEngine: admit-when-free,
-    step-while-active. The HTTP server drives it from a worker thread."""
+    step-while-active. The HTTP server drives it from a worker thread.
+
+    counts, kept always (a few adds a tick): requests submitted and
+    admitted, prompt tokens admitted, batched steps, tokens emitted (to
+    on_token and the callbacks), queue_wait_s (submission to admission,
+    summed), live_slot_steps (active slots summed over steps) and
+    live_positions / read_positions (BatchEngine.positions, summed)."""
 
     def __init__(self, engine: BatchEngine):
         self.eng = engine
         self.pending: List[tuple] = []      # (request_id, ids, n_new,
-        #                                      effort, callback, on_token)
+        #                         effort, callback, on_token, submitted at)
+        self.counts = {"submitted": 0, "admitted": 0, "prompt_tokens": 0,
+                       "steps": 0, "tokens": 0, "queue_wait_s": 0.0,
+                       "live_slot_steps": 0, "live_positions": 0,
+                       "read_positions": 0}
         self._next_id = 0
         self._callbacks: Dict[int, object] = {}
         self._on_token: Dict[int, object] = {}
@@ -336,7 +389,8 @@ class ContinuousBatcher:
         rid = self._next_id
         self._next_id += 1
         self.pending.append((rid, list(prompt_ids), n_new, effort,
-                             callback, on_token))
+                             callback, on_token, time.perf_counter()))
+        self.counts["submitted"] += 1
         return rid
 
     def has_work(self) -> bool:
@@ -344,27 +398,44 @@ class ContinuousBatcher:
 
     def tick(self) -> None:
         """Admit pending requests into free slots, then one decode step."""
-        free = self.eng.free_slots()
-        while self.pending and free:
-            rid, ids, n_new, effort, cb, on_tok = self.pending.pop(0)
-            b = free.pop(0)
-            self._callbacks[rid] = cb
-            if on_tok is not None:
-                self._on_token[rid] = on_tok
-            self.eng.admit(b, rid, ids, n_new, effort)
-            self._emit_from(b, 0)          # prefill produced a first token
-            if self.eng.slots[b].done:     # finished at prefill (n_new<=1)
-                self._finish(b)
-        act = self.eng.active()
-        pre = {b: len(self.eng.slots[b].generated) for b in act}
-        finished = self.eng.step()
-        for b in act:
-            self._emit_from(b, pre[b])
-        for b in finished:
-            self._finish(b)
+        with annotate("batcher.tick"):
+            c = self.counts
+            free = self.eng.free_slots()
+            while self.pending and free:
+                rid, ids, n_new, effort, cb, on_tok, t_sub = \
+                    self.pending.pop(0)
+                b = free.pop(0)
+                self._callbacks[rid] = cb
+                if on_tok is not None:
+                    self._on_token[rid] = on_tok
+                t_admit = time.perf_counter()
+                mark("batcher.queued", t_sub, t_admit, rid)
+                c["queue_wait_s"] += t_admit - t_sub
+                c["admitted"] += 1
+                c["prompt_tokens"] += len(ids)
+                self.eng.admit(b, rid, ids, n_new, effort)
+                with annotate("batcher.callback", rid):
+                    self._emit_from(b, 0)   # prefill produced a first token
+                    if self.eng.slots[b].done:   # finished at prefill
+                        self._finish(b)
+            act = self.eng.active()
+            live, read = self.eng.positions(act)
+            if act:
+                c["steps"] += 1
+                c["live_slot_steps"] += len(act)
+                c["live_positions"] += live
+                c["read_positions"] += read
+            pre = {b: len(self.eng.slots[b].generated) for b in act}
+            finished = self.eng.step((live, read))
+            with annotate("batcher.callback"):
+                for b in act:
+                    self._emit_from(b, pre[b])
+                for b in finished:
+                    self._finish(b)
 
     def _emit_from(self, b: int, start: int) -> None:
         st = self.eng.slots[b]
+        self.counts["tokens"] += len(st.generated) - start
         on_tok = self._on_token.get(st.request_id)
         if on_tok is not None:
             for tok in st.generated[start:]:

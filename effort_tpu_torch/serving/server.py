@@ -9,6 +9,8 @@
      (per-position argmax ids, for benchmarks driven from outside)
   GET /health                                 -> {"status": "ok"}
   GET /stats                                  -> queue/throughput counters
+     (requests, tokens, busy_rejects; in continuous-batching mode also
+      "batcher": ContinuousBatcher.counts, the scheduler's counters)
   POST /v1/completions                        -> OpenAI-compatible
      completions: {prompt, max_tokens, temperature, top_p, seed, stream}
      plus the extension field "effort" (0-1)
@@ -219,7 +221,10 @@ class EffortServer:
             if path.path == "/health":
                 await self._respond(writer, 200, {"status": "ok"})
             elif path.path == "/stats":
-                await self._respond(writer, 200, self.stats)
+                stats = dict(self.stats)
+                if self.batcher is not None:
+                    stats["batcher"] = dict(self.batcher.counts)
+                await self._respond(writer, 200, stats)
             elif path.path == "/q" or openai:
                 await self._handle_generation(writer, params, openai)
             else:

@@ -4,14 +4,16 @@ PyTorch's idiom).
   - trace(): context manager around torch.profiler.profile (CPU and, on
     the card, CUDA activities), writing a Chrome trace (chrome://tracing,
     Perfetto) into log_dir: per-kernel device timelines;
-  - annotate(): a named span (torch.profiler.record_function, plus an NVTX
-    range on the card) for host-side regions in the trace;
+  - annotate() / mark(): the program's spans, at its layer boundaries.
+    Each recorded span is a torch.profiler.record_function annotation (in
+    the trace, on the kernels' clock) and an entry of an in-memory log on
+    time.perf_counter() (recorded(), clear()). Spans are on while a
+    profiler session is active or inside recording(); otherwise annotate
+    does one flag check and returns a shared null context;
   - sass_dump(): what the compiler made of a kernel: `cuobjdump -sass` of
     the library kernels/_build.py built from csrc/<name>.cu (the JAX
     package's hlo_dump shows XLA's optimized HLO; the port's kernels are
     nvcc's, so their machine code is what there is to inspect);
-  - StepTimer: the prep/eval split of the reference's per-token print
-    (eval waits for the device: dispatch is asynchronous);
   - warn_of_sync(): torch.cuda.set_sync_debug_mode("warn") inside the
     context, restored on exit: every operation that waits for the card
     warns (catching accidental per-token syncs in a decode loop).
@@ -21,15 +23,18 @@ Default output directories are under build/ at the root of the checkout.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
-from typing import Iterator, Optional
+from typing import Iterator, NamedTuple, Optional
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 _OUT = Path(__file__).resolve().parents[2] / "build"
 
@@ -61,16 +66,171 @@ def trace(log_dir: Optional[str] = None,
                  f".json"))
 
 
+# spans the log keeps; the oldest go first (about 100 MB of host memory
+# when full)
+LOG_MAX = 1 << 18
+
+
+class SpanRecord(NamedTuple):
+    """One span of the log: name, start and end (seconds on
+    time.perf_counter(); t1 is None while the span is open), parent (the
+    position in the same recorded() list of the span open around it, None
+    at the top or when that span has left the log), rid (the request or
+    key it belongs to, or None) and attrs (ints set by the code)."""
+    name: str
+    t0: float
+    t1: Optional[float]
+    parent: Optional[int]
+    rid: object
+    attrs: dict
+
+
+class _Span:
+    """An open span: the context annotate() returns when spans are on.
+    `span[key] = n` sets an attribute before the span ends."""
+    __slots__ = ("name", "rid", "attrs", "t0", "t1", "parent", "at", "_rf")
+
+    def __init__(self, name: str, rid, attrs: dict):
+        self.name, self.rid, self.attrs = name, rid, attrs
+        self.t0 = self.t1 = self.parent = None
+
+    def __setitem__(self, key: str, value: int) -> None:
+        self.attrs[key] = value
+
+    def __enter__(self) -> "_Span":
+        self._rf = torch.profiler.record_function(self.name)
+        self._rf.__enter__()
+        _LOG.add(self, push=True)
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.t1 = time.perf_counter()
+        _LOG.pop()
+        rf, self._rf = self._rf, None
+        rf.__exit__(*exc)
+        return False
+
+
+class _Off:
+    """The shared null context of annotate() when spans are off: it is
+    false, and ignores attributes set on it."""
+    __slots__ = ()
+
+    def __enter__(self) -> "_Off":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+    def __bool__(self) -> bool:
+        return False
+
+    def __setitem__(self, key: str, value: int) -> None:
+        pass
+
+
+_OFF = _Off()
+
+
+class _Log:
+    """The spans recorded in this process, oldest first, at most maxlen;
+    each span takes an index when it opens (its place among every span
+    ever added), so a child names its parent before the parent ends.
+    Open spans are kept a stack a thread."""
+
+    def __init__(self, maxlen: int = LOG_MAX):
+        self.spans = collections.deque(maxlen=maxlen)
+        self.added = 0
+        self.dropped = 0
+        self.recording = 0
+        self.lock = threading.Lock()
+        self.local = threading.local()
+
+    def _stack(self) -> list:
+        st = getattr(self.local, "stack", None)
+        if st is None:
+            st = self.local.stack = []
+        return st
+
+    def add(self, span: _Span, push: bool) -> None:
+        stack = self._stack()
+        with self.lock:
+            span.parent = stack[-1].at if stack else None
+            span.at = self.added
+            self.added += 1
+            if len(self.spans) == self.spans.maxlen:
+                self.dropped += 1
+            self.spans.append(span)
+        if push:
+            stack.append(span)
+
+    def pop(self) -> None:
+        self._stack().pop()
+
+
+_LOG = _Log()
+
+
+def annotate(name: str, rid=None, **attrs):
+    """A span of the program around the `with` block: `name`, the request
+    or key it serves (rid), int attributes (set here, or on the yielded
+    span before it ends). On while a torch.profiler session is active or
+    inside recording(): a record_function annotation (in the trace, on the
+    kernels' clock) and an entry of the log (time.perf_counter(), the host
+    clock). Off otherwise: one flag check, and a shared null context that
+    reads no clock and calls nothing."""
+    if not (_autograd_profiler._is_profiler_enabled or _LOG.recording):
+        return _OFF
+    return _Span(name, rid, attrs)
+
+
+def mark(name: str, t0: float, t1: float, rid=None, **attrs) -> None:
+    """Record a span whose start lies in an earlier call (t0, t1 on
+    time.perf_counter()), under the span open now; the log only (a trace
+    annotation cannot start in the past). On and off as annotate()."""
+    if not (_autograd_profiler._is_profiler_enabled or _LOG.recording):
+        return
+    span = _Span(name, rid, attrs)
+    span.t0, span.t1 = t0, t1
+    _LOG.add(span, push=False)
+
+
 @contextlib.contextmanager
-def annotate(name: str):
-    """Host-side span annotation visible in the trace timeline (and, on
-    the card, as an NVTX range)."""
-    with torch.profiler.record_function(name):
-        if _on_card():
-            with torch.cuda.nvtx.range(name):
-                yield
-        else:
-            yield
+def recording() -> Iterator[None]:
+    """Spans on inside the context, with no profiler session (for
+    operators and tests); the log keeps what they record."""
+    with _LOG.lock:
+        _LOG.recording += 1
+    try:
+        yield
+    finally:
+        with _LOG.lock:
+            _LOG.recording -= 1
+
+
+def recorded() -> list:
+    """The log's spans, oldest first, as SpanRecords."""
+    with _LOG.lock:
+        spans = list(_LOG.spans)
+        first = _LOG.added - len(spans)
+    return [SpanRecord(s.name, s.t0, s.t1,
+                       s.parent - first if s.parent is not None
+                       and s.parent >= first else None,
+                       s.rid, dict(s.attrs)) for s in spans]
+
+
+def dropped() -> int:
+    """Spans the log's bound has dropped since the last clear()."""
+    return _LOG.dropped
+
+
+def clear() -> None:
+    """Empty the log (spans open now stay open; their children name no
+    parent)."""
+    with _LOG.lock:
+        _LOG.spans.clear()
+        _LOG.dropped = 0
 
 
 def sass_dump(name: str = "mxu_matvec",
@@ -96,39 +256,6 @@ def sass_dump(name: str = "mxu_matvec",
     with open(os.path.join(dump_dir, f"{name}.sass.txt"), "w") as f:
         f.write(txt)
     return txt
-
-
-class StepTimer:
-    """prep/eval split timer, the analog of the reference's per-token
-    "prep ms / eval ms / tps" print: prep = host time before dispatch,
-    eval = until the device is done (synchronized on exit)."""
-
-    def __init__(self):
-        self.prep_s = 0.0
-        self.eval_s = 0.0
-        self.steps = 0
-
-    @contextlib.contextmanager
-    def prep(self):
-        t0 = time.perf_counter()
-        yield
-        self.prep_s += time.perf_counter() - t0
-
-    @contextlib.contextmanager
-    def eval(self):
-        t0 = time.perf_counter()
-        yield
-        if _on_card():
-            torch.cuda.synchronize()
-        self.eval_s += time.perf_counter() - t0
-        self.steps += 1
-
-    def summary(self, n_layers_norm: int = 32) -> str:
-        n = max(1, self.steps)
-        tps = n / max(self.eval_s, 1e-9)
-        return (f"prep {self.prep_s / n * 1e3:.1f} ms, "
-                f"eval {self.eval_s / n * 1e3:.1f} ms/token, "
-                f"{tps:.1f} tps")
 
 
 @contextlib.contextmanager

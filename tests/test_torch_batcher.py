@@ -28,6 +28,7 @@ from effort_tpu_torch.models.bridge import model_weights_from_numpy
 from effort_tpu_torch.models.generate import Engine
 from effort_tpu_torch.ops.effort import effort_q16
 from effort_tpu_torch.serving.batcher import BatchEngine, ContinuousBatcher
+from effort_tpu_torch.utils import profiling
 from test_torch_bridge import cos, jax_weights_to_numpy
 
 torch.set_num_threads(2)
@@ -312,3 +313,87 @@ def test_speculative_batching_streams_all_tokens(rank_model):
         steps[0] += 1
     assert streamed == res[0] == jres[0] == jstream
     assert len(res[0]) == 6 and steps[0] < 5
+
+
+def test_scheduler_spans_and_counts(model, monkeypatch):
+    """Five requests through two slots under recording(): every span of
+    the scheduler, with its request's id where it serves one; the
+    counts agree with the requests run."""
+    monkeypatch.setattr(profiling, "_LOG", profiling._Log())
+    _, tw = model
+    be = BatchEngine(tw, _cfg(), batch_size=2, pad_to=PAD, device="cpu")
+    cb = ContinuousBatcher(be)
+    prompts = [[1 + i, 2 + i, 3] + [4] * i for i in range(5)]
+    out, rids = {}, []
+    with profiling.recording():
+        for i, p in enumerate(prompts):
+            rids.append(cb.submit(p, 3 + i % 2, 0.5,
+                                  lambda t, i=i: out.__setitem__(i, t)))
+        cb.run_until_drained()
+    spans = profiling.recorded()
+    by = {}
+    for s in spans:
+        by.setdefault(s.name, []).append(s)
+    assert set(by) == {"batcher.tick", "batcher.queued", "batcher.admit",
+                       "batcher.admit.launch", "batcher.admit.read",
+                       "batcher.step", "batcher.step.launch",
+                       "batcher.step.read", "batcher.callback"}
+    for name in ("batcher.queued", "batcher.admit", "batcher.admit.launch",
+                 "batcher.admit.read"):
+        assert sorted(s.rid for s in by[name]) == rids, name
+    for s in spans:
+        if s.name != "batcher.tick":
+            top = s
+            while top.parent is not None:
+                top = spans[top.parent]
+            assert top.name == "batcher.tick", s
+    for s in by["batcher.admit.launch"] + by["batcher.admit.read"]:
+        assert spans[s.parent].name == "batcher.admit"
+    c = cb.counts
+    assert c["submitted"] == c["admitted"] == 5
+    assert c["prompt_tokens"] == sum(map(len, prompts))
+    assert c["tokens"] == sum(len(t) for t in out.values())
+    assert c["steps"] == len(by["batcher.step"])
+    assert c["live_slot_steps"] == sum(s.attrs["live_slots"]
+                                       for s in by["batcher.step"])
+    assert c["live_positions"] == sum(s.attrs["live_positions"]
+                                      for s in by["batcher.step"])
+    assert c["read_positions"] == c["steps"] * 2 * _cfg().max_seq_len
+    assert 0 < c["live_positions"] < c["read_positions"]
+    waits = [s.t1 - s.t0 for s in by["batcher.queued"]]
+    assert min(waits) >= 0
+    assert c["queue_wait_s"] == pytest.approx(sum(waits))
+
+
+def test_scheduler_counts_without_spans(model):
+    """With spans off the counts are kept all the same, and nothing is
+    logged."""
+    _, tw = model
+    before = profiling._LOG.added
+    be = BatchEngine(tw, _cfg(), batch_size=2, pad_to=PAD, device="cpu")
+    cb = ContinuousBatcher(be)
+    got = []
+    for p in PROMPTS:
+        cb.submit(p, 2, 0.5, got.append)
+    cb.run_until_drained()
+    assert profiling._LOG.added == before
+    assert cb.counts["admitted"] == 3 and cb.counts["queue_wait_s"] >= 0
+    assert cb.counts["tokens"] == sum(map(len, got)) == 6
+
+
+def test_step_positions_leave_out_the_left_pad(model, monkeypatch):
+    """BatchEngine.positions: each live slot's position + 1 less its left
+    pad, over every slot's whole cache; the step span carries the same."""
+    monkeypatch.setattr(profiling, "_LOG", profiling._Log())
+    _, tw = model
+    be = BatchEngine(tw, _cfg(), batch_size=3, pad_to=PAD, device="cpu")
+    be.admit(0, 0, [1, 2, 3], 4, 0.5)
+    be.admit(2, 1, [4, 5, 6, 7, 8], 4, 0.5)
+    want = ((3 + 1) + (5 + 1), 3 * _cfg().max_seq_len)
+    assert be.positions(be.active()) == want
+    with profiling.recording():
+        be.step()
+    (step,) = [s for s in profiling.recorded() if s.name == "batcher.step"]
+    assert step.attrs == {"live_slots": 2, "live_positions": want[0],
+                          "read_positions": want[1]}
+    assert be.positions(be.active())[0] == want[0] + 2

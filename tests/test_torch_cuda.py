@@ -1012,6 +1012,47 @@ def test_batch_engine_captures_its_step(kv_dtype):
 
 
 @pytest.mark.cuda
+def test_program_spans_under_a_trace_on_card(tmp_path):
+    """Under trace() on the card the program's spans are logged and in the
+    Chrome trace beside the kernels: the scheduler's, and a captured
+    turn's session.turn with its launch and read inside."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import json
+    import os
+    from effort_tpu_torch.models.session import ChatSession
+    from effort_tpu_torch.serving.batcher import (BatchEngine,
+                                                  ContinuousBatcher)
+    from effort_tpu_torch.utils import profiling
+    cfg, w = _tiny_dense()
+    be = BatchEngine(w, cfg, batch_size=2, pad_to=8, eos_id=-1)
+    cb = ContinuousBatcher(be)
+    sess = ChatSession(w, cfg, pad_to=8, eos_id=-1)
+    profiling.clear()
+    with profiling.trace(str(tmp_path)):
+        for p in ([1, 5, 9], [4, 8, 15, 16, 23], [7, 7, 3]):
+            cb.submit(p, 4, 0.5, lambda t: None)
+        cb.run_until_drained()
+        sess.turn([1, 5, 9], n_new=4, effort=0.5)
+    spans = profiling.recorded()
+    assert be._graph is not None and len(sess.engine._graphs) == 1
+    names = {s.name for s in spans}
+    assert {"batcher.tick", "batcher.admit", "batcher.step",
+            "batcher.callback", "session.turn", "session.launch",
+            "session.read"} <= names
+    for s in spans:
+        if s.name in ("session.launch", "session.read"):
+            assert spans[s.parent].name == "session.turn"
+    (f,) = os.listdir(tmp_path)
+    with open(tmp_path / f) as fh:
+        events = json.load(fh)["traceEvents"]
+    notes = [e["name"] for e in events if e.get("cat") == "user_annotation"]
+    assert sorted(notes) == sorted(s.name for s in spans
+                                   if s.name != "batcher.queued")
+    assert any(e.get("cat") == "kernel" for e in events)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("T", [4, 8, 64])
 def test_flash_attention_device_slots_equal_int_slots(T):
     """K3 with start_slot and mask_from as 0-d int32 CUDA tensors (read on

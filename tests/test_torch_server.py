@@ -190,3 +190,23 @@ def test_batch_server_speculative(weights):
     assert all(st == 200 for st, _ in plain + spec)
     assert [b["token_ids"] for _, b in spec] == \
         [b["token_ids"] for _, b in ref]
+
+
+def test_batch_server_stats_carry_the_batchers_counts(weights):
+    """/stats of a batch server: its own three counters and the batcher's
+    counts, which agree with the requests it served."""
+    srv = _batch_server(weights)
+
+    def client(port):
+        for i in range(2):
+            st, body = _get(port, f"/q?query=s{i}&effort=50&numtokens=3")
+            assert st == 200
+        st, body = _get(port, "/stats")
+        assert st == 200
+        assert {"requests", "tokens", "busy_rejects"} <= set(body)
+        c = body["batcher"]
+        assert c["submitted"] == c["admitted"] == 2
+        assert c["tokens"] == body["tokens"]
+        assert c["steps"] >= 2 and c["queue_wait_s"] >= 0
+        assert c == srv.batcher.counts
+    _run(srv, client)

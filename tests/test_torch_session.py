@@ -22,8 +22,9 @@ from effort_tpu.models.session import ChatSession as JaxSession
 from effort_tpu_torch.config import BucketConfig, tiny_test_model
 from effort_tpu_torch.models.bridge import model_weights_from_numpy
 from effort_tpu_torch.models.generate import Engine
-from effort_tpu_torch.models.session import ChatSession
+from effort_tpu_torch.models.session import ChatSession, live_positions
 from effort_tpu_torch.models.transformer import init_random_weights
+from effort_tpu_torch.utils import profiling
 from test_torch_bridge import jax_weights_to_numpy
 
 torch.set_num_threads(2)
@@ -59,6 +60,42 @@ def pairs():
 
 
 # ---- JAX's tests/test_session.py, on the port --------------------------
+
+def test_turn_spans(model, monkeypatch):
+    """A turn and a continue_turn under recording(): session.turn with
+    session.launch and session.read inside; its live positions the sum of
+    each step's position + 1 from the turn's first position, its read
+    positions every slot of the cache each step."""
+    monkeypatch.setattr(profiling, "_LOG", profiling._Log())
+    cfg, w = model
+    s = ChatSession(w, cfg, pad_to=4, **CPU)
+    s.turn([1, 5, 9], n_new=4, effort=0.6)
+    pos0 = s.pos
+    with profiling.recording():
+        s.turn([7, 2], n_new=3, effort=0.6)
+        s.continue_turn(n_new=2, effort=0.6)
+    spans = profiling.recorded()
+    assert [(x.name, x.parent) for x in spans] == [
+        ("session.turn", None), ("session.launch", 0), ("session.read", 0),
+        ("session.turn", None), ("session.launch", 3), ("session.read", 3)]
+    slots = cfg.max_seq_len
+    first, cont = spans[0].attrs, spans[3].attrs
+    assert first == {
+        "live_positions": sum(p + 1 for p in range(pos0, pos0 + 5)),
+        "read_positions": 5 * slots}
+    assert cont == {
+        "live_positions": sum(p + 1 for p in range(pos0 + 5, pos0 + 7)),
+        "read_positions": 2 * slots}
+
+
+@pytest.mark.parametrize("pos0,n,slots", [(0, 1, 8), (0, 8, 8), (3, 4, 8),
+                                          (5, 9, 8), (9, 3, 8), (7, 1, 8)])
+def test_live_positions_closed_form(pos0, n, slots):
+    """The closed form against the sum it stands for (a ring of `slots`
+    holds at most that many)."""
+    assert live_positions(pos0, n, slots) == sum(
+        min(pos0 + i + 1, slots) for i in range(n))
+
 
 def test_pad_invariance(model):
     """Outputs do not depend on the prompt padding bucket."""
