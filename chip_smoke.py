@@ -43,6 +43,16 @@ Phases, one JSON line each (a failure raises and exits non-zero):
             read on the card, against the int call: T in {4, 8, 64} x
             start slots {0, 37, 448} and a 128-slot window, Mistral-7B
             heads, y bit for bit; ms of both forms
+  decode_attention
+            K8 (decode_attention, csrc/decode_attention.cu) against its
+            plain version (attn_core on the widened caches) at the main
+            paths' shapes: Mistral-7B chat (1 slot, 2048 slots of cache,
+            position 1024), 16 serving slots (2048, ragged positions and
+            left pads, about 17% of the cache live, as the serve mix) and
+            Llama-2-7B's MHA (1 slot, 4096, position 2048): max|dy| <=
+            K8_TOL max|y_ref|; times beside the bound (the live rows'
+            bytes), the plain version and torch's SDPA with the same
+            boolean mask (timed only, never called by the port)
   kernels_llama
             K1 and K2 alone at Llama-2-7B's four fused projections (wqkv
             4096->12288, wo 4096->4096, w13 4096->22016, w2 11008->4096:
@@ -56,7 +66,7 @@ Phases, one JSON line each (a failure raises and exits non-zero):
             through the captured steps (each decode step one replayed CUDA
             graph, Engine's default on the card) and the eager ones
             (capture=False): the same tokens; K1's launch count must be
-            4 * 32 per decode step, K2's and K3's 0, on both
+            4 * 32 per decode step, K8's 32, K2's and K3's 0, on both
   profile   device time by kernel over one request, and the card's busy
             share of that request's wall time, graph and eager
   teacher   logits of the kernel route against the route through K1's
@@ -129,19 +139,23 @@ Phases, one JSON line each (a failure raises and exits non-zero):
             32, 64 new tokens, k in {4, 8} x draft efforts {0.25, 0.5,
             1.0}; tokens a round, ms a token, host reads a round, beside
             the captured greedy decode at 1.0. Gates: its tokens (a first
-            divergence only at a near tie: the reference's top two logits
-            within NEAR_TIE and the spec token its runner-up); at draft
-            1.0 at least k - 1 tokens a round; one status read a round;
-            exact launches; a generation's rounds replayed bit for bit
-            against eager ones; one round under
-            set_sync_debug_mode("error")
+            divergence only at a near tie: the spec token the reference's
+            runner-up, their gap within the largest difference of the
+            decode step's logits (K8) from forward_seq's (K3) teacher-
+            forced over the same tokens; the same difference over every
+            position with the plain attention forced printed beside it,
+            spec_route_witness); at draft 1.0 at least k - 1 tokens a
+            round; one status read a round; exact launches; a
+            generation's rounds replayed bit for bit against eager ones;
+            one round under set_sync_debug_mode("error")
   batch_spec
             BatchEngine(batch_size=4, spec_k=4) on the same model, the 8
             serving requests at mixed efforts: ms and tokens a step; at
             tau = 1 the requests at effort 1.0 give plain batched decode's
-            tokens (near-tie rule); every first divergence printed, at
-            tau = 1 and at the default tau (where K2's prefix, the longest
-            of its rows', depends on which rows share the launch)
+            tokens (near-tie rule as spec's); every first divergence
+            printed, at tau = 1 and at the default tau (where K2's prefix,
+            the longest of its rows', depends on which rows share the
+            launch)
   int8_kv   the int8 KV cache: under 0.6x the bf16 cache's bytes; its
             attention read against the bf16 cache's on the same inputs
             at every layer and position (128 teacher-forced, depth 32,
@@ -401,6 +415,9 @@ from effort_tpu_torch.convert.convert import (HF_NAME_MAPS,
 from effort_tpu_torch.kernels import LAUNCHES, _build, reset_launches
 from effort_tpu_torch.kernels import (fused_stream, gather_dma, gather_mul,
                                       prefix_stream)
+from effort_tpu_torch.kernels.decode_attention import (attn_core,
+                                                      decode_attention,
+                                                      decode_plan)
 from effort_tpu_torch.kernels.flash_attention import flash_attention_seq
 from effort_tpu_torch.eval import harness
 from effort_tpu_torch.models import tester, transformer
@@ -484,6 +501,18 @@ ATTN_CASES = (
     dict(name="prefill4032_s4096", T=4032, start_slot=0, mask_from=0,
          window=0, S=4096),
 )
+# K8's cases: one query token a slot against B slots of an S-slot bf16
+# cache; "pos" the slots' positions ("serve": 16 ragged positions from 40
+# to 660 with left pads of up to 30, about 17% of the cache live)
+DECODE_CASES = (
+    dict(name="chat", B=1, S=2048, KV=8, rep=4, D=128, pos=[1024]),
+    dict(name="serve", B=16, S=2048, KV=8, rep=4, D=128, pos="serve"),
+    dict(name="llama2", B=1, S=4096, KV=32, rep=1, D=128, pos=[2048]),
+)
+# K8 against its plain version: max|dy| <= K8_TOL max|y_ref| (f32 sums in
+# other orders; as K3's PV_F32_TOL)
+K8_TOL = 1e-4
+SUMMARY_DECODE = "chat"
 # the summary line's times: one layer's four launches of the generate
 # phase's layout (int8) at effort 0.25 and the default tau
 SUMMARY = ("int8", 0.25, 0.97)
@@ -832,6 +861,81 @@ def phase_attention(flush: torch.Tensor) -> list:
     return points
 
 
+def decode_inputs(case: dict, g: torch.Generator):
+    """K8's inputs at one of DECODE_CASES: the bf16 caches [B, S, KV, D],
+    RUNS queries [B, H*D] (N(0, 1)), the positions and left pads ([B]
+    int32) and the live mask [B, S]."""
+    B, S, KV, rep, D = (case[k] for k in ("B", "S", "KV", "rep", "D"))
+    k = torch.randn((B, S, KV, D), generator=g, device="cuda").to(
+        torch.bfloat16)
+    v = torch.randn((B, S, KV, D), generator=g, device="cuda").to(
+        torch.bfloat16)
+    qs = [torch.randn((B, KV * rep * D), generator=g, device="cuda")
+          for _ in range(RUNS)]
+    if case["pos"] == "serve":
+        pos = torch.linspace(40, 660, B).round().to(torch.int32)
+        offs = (torch.arange(B, dtype=torch.int32) * 7) % 31
+    else:
+        pos = torch.tensor(case["pos"], dtype=torch.int32)
+        offs = torch.zeros(B, dtype=torch.int32)
+    pos, offs = pos.cuda(), offs.cuda()
+    t = torch.arange(S, device="cuda")
+    live = (t <= pos[:, None]) & (t >= offs[:, None])
+    return k, v, qs, pos, offs, live
+
+
+def phase_decode_attention(flush: torch.Tensor) -> list:
+    """K8 against its plain version at DECODE_CASES, times with L2 flushed
+    beside the bound (the live rows' bytes and q, out once) and SDPA."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(98)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    points = []
+    for case in DECODE_CASES:
+        B, S, KV, rep, D = (case[k] for k in ("B", "S", "KV", "rep", "D"))
+        H = KV * rep
+        k, v, qs, pos, offs, live = decode_inputs(case, g)
+
+        def run(q):
+            return decode_attention(q, k, v, pos, offs)
+
+        def plain(q):
+            return attn_core(q, k.float(), v.float(), live, KV, rep, D)
+        y, yr = run(qs[0]), plain(qs[0])
+        torch.cuda.synchronize()
+        err, scale = float((y - yr).abs().max()), float(yr.abs().max())
+        c = float(min_row_cos(y.reshape(B * H, D), yr.reshape(B * H, D)))
+        if not err <= K8_TOL * scale:
+            raise AssertionError(f"K8 disagrees with its plain version at "
+                                 f"{case['name']}: max|dy| {err}, max|y| "
+                                 f"{scale}")
+        n_live = int(live.sum())
+        plan = decode_plan(B, KV, rep, S, D, sms)
+        p = dict(case=case["name"], B=B, S=S, KV=KV, rep=rep, D=D,
+                 live_rows=n_live, live_share=n_live / (B * S),
+                 chunk=plan.chunk, n_chunks=plan.n_chunks, max_abs_err=err,
+                 max_abs_ref=scale, min_row_cos=c)
+        p["bytes"] = 2 * n_live * KV * D * 2 + 2 * B * H * D * 4
+        p["flops"] = 4 * H * D * n_live
+        p["bound_ms"] = p["bytes"] / HBM_BYTES_PER_S * 1e3
+        p["bound_by"] = "bytes"
+        p["ms"] = median([gpu_ms(run, (q,), flush) for q in qs])
+        p["plain_ms"] = median([gpu_ms(plain, (q,), flush) for q in qs])
+        # yardstick only: torch's SDPA with the same boolean mask
+        kf = k.permute(0, 2, 1, 3).repeat_interleave(rep, 1)
+        vf = v.permute(0, 2, 1, 3).repeat_interleave(rep, 1)
+        qb = [q.reshape(B, H, 1, D).to(torch.bfloat16) for q in qs]
+        mask = live[:, None, None, :]
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        p["library_ms"] = median([gpu_ms(
+            lambda q: sdpa(q, kf, vf, attn_mask=mask), (q,), flush)
+            for q in qb])
+        del kf, vf
+        points.append(p)
+        emit({"phase": "decode_attention", **p})
+    return points
+
+
 def build_model():
     """Mistral-7B width and depth, int8 row-prefix buckets, fused wqkv and
     w13, int8 LM head, dense copies kept; random calibrated weights from
@@ -918,7 +1022,9 @@ def phase_generate(cfg, w, eng, prompts):
                           f"generate, {route}, effort {effort}")
             check_launches(launches, {"mxu_matvec": want,
                                       "mxu_matvec_batch": 0,
-                                      "flash_attention": 0},
+                                      "flash_attention": 0,
+                                      "decode_attention":
+                                          cfg.n_layers * steps},
                            f"generate ({route}) at effort {effort}")
             if route == "graph":
                 replies[effort] = out
@@ -943,8 +1049,10 @@ KERNEL_PARTS = {"k1_select": "namespace)::k1_select_kernel",
                 "k4_k5_stream": "rank_prefix::ring_stream_kernel",
                 "split_sum": "rank_prefix::reduce_splits",    # K4-K7's
                 "k6_k7_gather": "block_gather::ring_gather_kernel",
-                # PyTorch's dtype copies (torch ops, not a ported kernel):
-                # in a decode step mostly _attention's cache widening
+                "k8": "namespace)::decode_kernel",
+                # PyTorch's dtype copies (torch ops, not a ported kernel;
+                # the plain decode attention's cache widening, where the
+                # int8 and ring caches take it)
                 "copies": "direct_copy_kernel_cuda"}
 K1_PARTS = ("k1_select", "k1_stream", "k1_reduce")
 # K1's parts as the kernels line names them: the stream and the split sum
@@ -1739,11 +1847,14 @@ RANK_ROUTES = {"auto": "fused_matvec", "stream": "stream_matvec",
 
 
 def only(name: str, steps: int, L: int, per_layer: int = 4) -> dict:
-    """The launch counts of a decode path that runs kernel `name` alone:
-    per_layer launches a layer a step (4 projections of a dense layer; 6 of
-    an MoE layer: wqkv, wo, and w13, w2 of its two experts), every other
-    kernel 0."""
-    return {k: (per_layer * L * steps if k == name else 0) for k in LAUNCHES}
+    """The launch counts of a decode path whose projections run kernel
+    `name` alone: per_layer launches a layer a step (4 projections of a
+    dense layer; 6 of an MoE layer: wqkv, wo, and w13, w2 of its two
+    experts), every other projection and prefill kernel 0; and K8, the
+    decode attention, once a layer a step."""
+    want = {k: (per_layer * L * steps if k == name else 0) for k in LAUNCHES}
+    want["decode_attention"] = L * steps
+    return want
 
 
 def phase_rank_decode(cfg, w, prompts) -> dict:
@@ -2958,9 +3069,11 @@ SPEC_KS = (4, 8)
 SPEC_DRAFTS = (0.25, 0.5, 1.0)
 SPEC_PROMPT = 32
 SPEC_NEW = 64
-# a first divergence from the reference tokens passes only where the
-# reference step's top two logits lie within NEAR_TIE of each other
-# (absolute, in logits) and the spec token is the reference's runner-up
+# the trainer's argmax gate holds where its top two logits lie more than
+# NEAR_TIE apart (served_gate). The speculative phases' token gates take
+# no constant: a first divergence passes only where the spec token is the
+# reference route's runner-up and the reference's top-two gap lies within
+# the two routes' measured disagreement there (tie_reading)
 NEAR_TIE = 0.05
 
 
@@ -3022,23 +3135,66 @@ def timed_ms(fn):
 
 def first_divergence(ref: list, got: list, gaps) -> dict:
     """Where `got` first parts from the reference tokens `ref`, or None;
-    gaps(i) gives the reference step's (top-1 minus top-2 logit, its
-    runner-up token) at index i. A near tie passes (NEAR_TIE)."""
+    gaps(i) gives tie_reading's (gap, runner-up, route gap) at index i. A
+    near tie passes: `got` the runner-up, the gap within the route gap."""
     i = next((j for j, (a, b) in enumerate(zip(ref, got)) if a != b), None)
     if i is None:
         return None if len(ref) == len(got) else dict(
             index=min(len(ref), len(got)), near_tie=False,
             why="lengths differ")
-    gap, runner = gaps(i)
+    gap, runner, route_gap = gaps(i)
     return dict(index=i, ref=ref[i], got=got[i], gap=gap,
-                got_is_runner_up=got[i] == runner,
-                near_tie=got[i] == runner and gap <= NEAR_TIE)
+                route_gap=route_gap, got_is_runner_up=got[i] == runner,
+                near_tie=got[i] == runner and gap <= route_gap)
 
 
-def top2_gap(logits: torch.Tensor):
-    top = torch.topk(logits.float(), 2)
+def tie_reading(ref: torch.Tensor, other: torch.Tensor) -> tuple:
+    """(top-1 minus top-2 of the reference route's logits `ref`, its
+    runner-up token, the largest |ref - other|): `other` the logits of the
+    route that parted from it, teacher-forced over the same tokens. Two
+    routes that round differently can swap two tokens whose gap lies
+    within the logits' measured difference, and no others."""
+    top = torch.topk(ref.float(), 2)
     v, i = top.values.tolist(), top.indices.tolist()
-    return v[0] - v[1], i[1]
+    return v[0] - v[1], i[1], float((ref.float() - other.float()).abs()
+                                    .max())
+
+
+def route_witness(what: str, cfg, w, eng, prompt: list, ref: list,
+                  n_new: int) -> dict:
+    """Why spec tokens part from the greedy tokens: the decode step's
+    logits teacher-forced over prompt + ref with K8 (eng's) and with the
+    plain attention (an engine captured with transformer.k8_route off),
+    each against the verify's route (forward_seq: K3, bf16 queries), their
+    largest logit difference over the positions and the positions whose
+    argmax parts; and the plain attention's own greedy tokens against
+    K8's, their first divergence read as the gate reads spec's. Printed,
+    not gated."""
+    ids = prompt + ref
+    n = len(ids)
+    k8 = eng.token_logits(ids, 1.0)
+    saved = transformer.k8_route
+    transformer.k8_route = lambda *a: False
+    try:
+        plain_eng = Engine(w, cfg, eos_id=-1)
+        plain = plain_eng.token_logits(ids, 1.0)
+        plain_ref = plain_eng.generate(prompt, n_new=n_new,
+                                       effort=1.0).token_ids
+    finally:
+        transformer.k8_route = saved
+    k3 = eng._forward_seq(ids, 1.0)[-n:]
+
+    def parts(a, b):
+        return dict(max_abs=float((a - b).abs().max()),
+                    argmax_parts=int((a.argmax(-1) != b.argmax(-1)).sum()))
+    at = len(prompt) - 1
+    r = dict(model=what, positions=n, k8_vs_plain=parts(k8, plain),
+             k8_vs_k3=parts(k8, k3), plain_vs_k3=parts(plain, k3),
+             plain_greedy_vs_k8=first_divergence(
+                 ref, plain_ref, lambda i: tie_reading(k8[at + i],
+                                                       plain[at + i])))
+    emit({"phase": "spec_route_witness", **r})
+    return r
 
 
 def spec_launches_want(cfg, eng, k: int, draft: float, rounds: int,
@@ -3069,7 +3225,9 @@ def phase_spec(what: str, cfg, w, prompt, ks=SPEC_KS, drafts=SPEC_DRAFTS,
     the rounds' own, the prompt pass taken off), host reads a round,
     launches; beside it the captured greedy decode at 1.0. Gates: the
     tokens are that decode's (a first divergence only at a near tie,
-    NEAR_TIE; printed only with gate_tokens=False); at draft 1.0 at least
+    first_divergence against the routes' measured disagreement there;
+    printed only with gate_tokens=False; route_witness beside it); at
+    draft 1.0 at least
     k - 1 tokens a round; one status read a round, no routing read, exact
     launch counts; a generation's rounds replayed equal the eager rounds
     (capture=False) bit for bit (ids, status, the last verify logits) with
@@ -3086,14 +3244,18 @@ def phase_spec(what: str, cfg, w, prompt, ks=SPEC_KS, drafts=SPEC_DRAFTS,
     gap_cache = {}
 
     def gaps(i):
+        """The greedy route (the decode step: K8) at index i against the
+        verify's (forward_seq: K3), teacher-forced over the same tokens."""
         if i not in gap_cache:
-            gap_cache[i] = top2_gap(eng.token_logits(prompt + ref[:i],
-                                                     1.0)[-1])
+            ids = prompt + ref[:i]
+            gap_cache[i] = tie_reading(eng.token_logits(ids, 1.0)[-1],
+                                       eng._forward_seq(ids, 1.0)[-1])
         return gap_cache[i]
     out = dict(model=what, prompt=n, new_tokens=n_new,
                decode_ms_per_token=ref_ms / steps, prompt_pass_ms=prompt_ms,
                rows=[])
     emit({"phase": "spec_reference", **out})
+    out["witness"] = route_witness(what, cfg, w, eng, prompt, ref, n_new)
     for k in ks:
         for de in drafts:
             eng.generate_speculative(prompt, n_new=4, draft_effort=de, k=k)
@@ -3142,12 +3304,14 @@ def phase_spec(what: str, cfg, w, prompt, ks=SPEC_KS, drafts=SPEC_DRAFTS,
 def short_rounds(eng, prompt, n_new: int, k: int) -> dict:
     """The rounds of a speculative generation with drafts at 1.0 that
     accept fewer than k - 1 drafts before n_new: a draft at 1.0 (the
-    decode step: f32 attention) and the verify (K3: queries rounded to
-    bf16) part only where the verify's top two logits nearly tie, so each
-    such round must stop at a near tie (NEAR_TIE) with the draft the
-    verify's runner-up. One status read more a round (inspection, not
-    the timed run)."""
-    rounds, gaps = [], []
+    decode step: K8, f32) and the verify (K3: queries rounded to bf16)
+    part only where the verify's top two logits nearly tie, so each such
+    round must stop at a near tie with the draft the verify's runner-up:
+    the verify's gap within its logits' largest difference from the
+    decode step's, teacher-forced over the same tokens after the run
+    (tie_reading). One status read more a round (inspection, not the
+    timed run)."""
+    n, rounds, missed = len(prompt), [], []
     last = [1]
 
     def on_round(sp):
@@ -3157,15 +3321,21 @@ def short_rounds(eng, prompt, n_new: int, k: int) -> dict:
         if emitted >= k or n_gen >= n_new:
             return
         j = emitted - 1                 # the verify's pick the draft missed
-        gap, runner = top2_gap(sp.logits[j])
-        gaps.append(dict(at=j, gap=gap,
-                         draft_is_runner_up=int(sp.consumed[j + 1])
-                         == runner))
-    eng._spec_launch(prompt, n_new, 1.0, k, on_round=on_round)
+        missed.append((n + n_gen - 1, j, sp.logits[j].clone(),
+                       int(sp.consumed[j + 1])))
+    st, _, _ = eng._spec_launch(prompt, n_new, 1.0, k, on_round=on_round)
+    ids = st.ids[:n + n_new].tolist()
+    gaps = []
+    for at, j, verify, draft in missed:
+        gap, runner, route_gap = tie_reading(
+            verify, eng.token_logits(ids[:at], 1.0)[-1])
+        gaps.append(dict(at=j, gap=gap, route_gap=route_gap,
+                         draft_is_runner_up=draft == runner))
     return dict(rounds=len(rounds), short=len(gaps),
                 max_gap=max((g["gap"] for g in gaps), default=0.0),
                 all_near_ties=all(g["draft_is_runner_up"]
-                                  and g["gap"] <= NEAR_TIE for g in gaps))
+                                  and g["gap"] <= g["route_gap"]
+                                  for g in gaps))
 
 
 def spec_graph_vs_eager(what: str, cfg, w, eng, prompt, k: int = 4,
@@ -3208,19 +3378,19 @@ def spec_graph_vs_eager(what: str, cfg, w, eng, prompt, k: int = 4,
 
 def serve_with_gaps(be, reqs, efforts, n_new: int):
     """Requests through a ContinuousBatcher over `be`; returns (tokens by
-    request, {(request, index): (top-2 gap, runner-up)} of each plain
-    step's logits, steps, wall ms)."""
-    cb, done, gaps = ContinuousBatcher(be), {}, {}
+    request, {(request, index): logits} of each plain step, steps, wall
+    ms)."""
+    cb, done, logits = ContinuousBatcher(be), {}, {}
     step = be.step
 
-    def recorded():
+    def recorded(positions=None):
         act = be.active()
-        finished = step()
+        finished = step(positions)
         if not be.spec_k:
             for b in act:
                 st = be.slots[b]
-                gaps[(st.request_id, len(st.generated) - 1)] = top2_gap(
-                    be.logits[b])
+                logits[(st.request_id, len(st.generated) - 1)] = \
+                    be.logits[b].clone()
         return finished
     be.step = recorded
     for i, (p, e) in enumerate(zip(reqs, efforts)):
@@ -3230,7 +3400,7 @@ def serve_with_gaps(be, reqs, efforts, n_new: int):
         cb.tick()
         steps += 1
     torch.cuda.synchronize()
-    return done, gaps, steps, (time.perf_counter() - t0) * 1e3
+    return done, logits, steps, (time.perf_counter() - t0) * 1e3
 
 
 def phase_batch_spec(what: str, cfg, w, k: int = 4,
@@ -3240,7 +3410,9 @@ def phase_batch_spec(what: str, cfg, w, k: int = 4,
     the same efforts; ms and tokens a step (host clock; the spec steps
     warm first), launches, at the default tau. Gate, at tau = 1: the
     requests at effort 1.0 give the plain tokens, a first divergence only
-    at a near tie of the plain step (NEAR_TIE). At tau < 1 K2 streams the
+    at a near tie of the plain step (first_divergence, against the plain
+    step's logits' largest difference from the verify's route, K2 and K3,
+    teacher-forced over the request's tokens). At tau < 1 K2 streams the
     longest prefix of the rows it is given (the verify's B * k rows, plain
     decode's B), so an effort-1.0 request's logits depend on the requests
     beside it; at tau = 1 every row streams every chunk and only rounding
@@ -3249,10 +3421,26 @@ def phase_batch_spec(what: str, cfg, w, k: int = 4,
     part at this depth (PERF.md §6). Every first divergence is printed."""
     reqs = serve_requests(cfg)
 
+    def verify_route(ids: list, effort: float) -> torch.Tensor:
+        """The last logits of forward_seq over ids as BatchEngine admits
+        a prompt: the effort a device scalar (K2 at every effort, on the
+        buckets the verify's forward_seq_batch reads), K3 attention."""
+        k, v = make_kv_cache(cfg, "cuda")
+        return forward_seq(w, cfg, torch.tensor(ids, dtype=torch.int32,
+                                                device="cuda"), k, v,
+                           effort=torch.full((), float(effort),
+                                             device="cuda"))[-1]
+
     def compare(r: dict) -> dict:
-        plain, gaps, p_steps, _ = serve_with_gaps(
+        plain, logits, p_steps, _ = serve_with_gaps(
             BatchEngine(w, cfg, batch_size=4, eos_id=-1), reqs,
             SERVE_EFFORTS, N_NEW)
+
+        def gaps(i, j):
+            if (i, j) not in logits:
+                return math.inf, -1, 0.0
+            return tie_reading(logits[(i, j)], verify_route(
+                reqs[i] + plain[i][:j], SERVE_EFFORTS[i]))
         be = BatchEngine(w, cfg, batch_size=4, eos_id=-1, spec_k=k,
                          spec_draft_effort=draft)
         serve_with_gaps(be, reqs[:1], (0.25,), 2)                # warm-up
@@ -3265,8 +3453,7 @@ def phase_batch_spec(what: str, cfg, w, k: int = 4,
                       N_NEW, "batch_spec")
         return {i: d for i in range(len(reqs))
                 if (d := first_divergence(
-                    plain[i], spec[i],
-                    lambda j, i=i: gaps.get((i, j), (math.inf, -1))))}
+                    plain[i], spec[i], lambda j, i=i: gaps(i, j)))}
 
     run = {}
     divs = compare(run)
@@ -4573,6 +4760,9 @@ PAR_ROUTES_APART = 0.1
 # torch.where), so 4 + 3 * 2
 PAR_PER_LAYER = {"tp": 7, "sp": 7, "pp": 7, "tp_sp": 7, "ep": 10,
                  "tp_ep": 10}
+# the modes whose decode attention is K8 (sp and tp_sp attend over their
+# shard of the sequence through their own hook)
+PAR_K8 = ("tp", "pp", "ep", "tp_ep")
 # K1 at the shard shapes of Mistral-7B at tp = 4 (the head, bf16 in the
 # model, timed as K1 too)
 K1_SHARDS = {"wq": (4096, 1024), "wk": (4096, 256), "wv": (4096, 256),
@@ -4845,17 +5035,22 @@ def ep_tokens_reference(job: dict, res: list, w) -> list:
 def mode_launches(job: dict, res: list) -> dict:
     """Gate (d): every rank's K1 launches in each run equal what the mode
     gives (PAR_PER_LAYER * layers a step; ep tokens 3 a slot of every
-    local expert's n_ep * C), and no other kernel ran."""
+    local expert's n_ep * C), K8 once a layer a step where the mode's
+    attention is forward_token's (PAR_K8: not the sequence-sharded
+    modes'), and no other kernel ran."""
     L, per = job["cfg"].n_layers, PAR_PER_LAYER[job["mode"]]
-    total = 0
+    total = k8 = 0
     for r in res:
         for run in r["runs"]:
             want = {"mxu_matvec": per * L * run["steps"]}
+            if job["mode"] in PAR_K8:
+                want["decode_attention"] = L * run["steps"]
             if run["launches"] != want:
                 raise AssertionError(f"{job['mode']} rank {r['rank']} "
                                      f"launches {run['launches']}, want "
                                      f"{want}")
             total += want["mxu_matvec"]
+            k8 += want.get("decode_attention", 0)
         for c in r["ffn_tokens"]:
             n_ep = job["n"]
             cfg = job["cfg"]
@@ -4866,7 +5061,8 @@ def mode_launches(job: dict, res: list) -> dict:
                 raise AssertionError(f"ep tokens rank {r['rank']} launches "
                                      f"{c['launches']}, want {want}")
             total += want["mxu_matvec"]
-    return dict(per_rank_step=per * L, mxu_matvec=total)
+    return dict(per_rank_step=per * L, mxu_matvec=total,
+                decode_attention=k8)
 
 
 def phase_parallel() -> dict:
@@ -4881,7 +5077,7 @@ def phase_parallel() -> dict:
     tokens (PAR_COS; the tp-sharded modes also run on bf16 shards for it,
     their int8 shards held by int8_floor), the MoE routes (routes_held),
     and the ep tokens;
-    (c) the greedy tokens at 0.25 recorded; (d) exact K1 launches
+    (c) the greedy tokens at 0.25 recorded; (d) exact K1 and K8 launches
     (mode_launches). Every gate is read before the phase fails. Host ms a
     step and peak GiB a rank are printed; times of ranks sharing a card
     under gloo are labelled so and compare with nothing."""
@@ -4904,12 +5100,14 @@ def phase_parallel() -> dict:
           "backend": backend, "ranks_per_card": ranks_per_card})
     label = (f"{backend}, {ranks_per_card} ranks a card" + (
         ", host-staged" if backend == "gloo" else ""))
-    modes, launches, failed, refs = {}, 0, [], {}
+    modes, failed, refs = {}, [], {}
+    launches = {"mxu_matvec": 0, "decode_attention": 0}
     for j, job in enumerate(jobs):
         mres = [r[j] for r in res]
         key = job_key(job)
         count_d = mode_launches(job, mres)
-        launches += count_d["mxu_matvec"]
+        for kernel in launches:
+            launches[kernel] += count_d[kernel]
         m = modes[key] = dict(
             n=job["n"], layers=job["cfg"].n_layers, label=label,
             dtype=job["bcfg"].dtype, launches=count_d,
@@ -4974,7 +5172,7 @@ def phase_parallel() -> dict:
         del w
         free_card()
     out["modes"] = modes
-    out["launches"] = {"mxu_matvec": launches}
+    out["launches"] = launches
     out["seconds"] = time.perf_counter() - t0
     emit({"phase": "parallel", "seconds": out["seconds"],
           "launches": out["launches"], "label": label})
@@ -5520,6 +5718,19 @@ def k3_row(points: list, launches: int, slots: list) -> dict:
     return row
 
 
+def k8_row(points: list, launches: int) -> dict:
+    """K8's entry: one chat layer's call (SUMMARY_DECODE), and each case's
+    ms, plain ms, library ms and bound beside it (by_case)."""
+    row = summary_row(
+        "decode_attention", "effort_tpu_torch/csrc/decode_attention.cu",
+        "none (XLA in the JAX package: effort_tpu/models/transformer.py:205)",
+        points, launches, lambda p: p["case"] == SUMMARY_DECODE)
+    row["by_case"] = {p["case"]: {k: p[k] for k in (
+        "ms", "plain_ms", "library_ms", "bound_ms", "live_rows", "chunk")}
+        for p in points}
+    return row
+
+
 def k2_row(points: list, launches: int, llama_points: list) -> dict:
     """K2's entry: the T = 64 summary, the T = 4 one under "_t4" keys, and
     Llama-2-7B's projections at T = 4 and 64 (llama2_points)."""
@@ -5592,6 +5803,7 @@ def main() -> int:
     run("points_batch", phase_kernels_batch, flush)
     run("attention", phase_attention, flush)
     run("k3_device_slots", phase_k3_device_slots, flush)
+    run("decode_attention", phase_decode_attention, flush)
     run("points_llama", phase_kernels_llama, flush)
     run("points_rank", phase_kernels_rank, flush)
     del flush
@@ -5717,7 +5929,13 @@ def main() -> int:
         gather_row(
             "gather_bucket_matvec", "effort_tpu_torch/csrc/gather_mul.cu",
             "effort_tpu/kernels/gather_mul.py:36",
-            out["points_rank"]["k7"], rank_launches["gather_bucket_matvec"])]
+            out["points_rank"]["k7"], rank_launches["gather_bucket_matvec"]),
+        k8_row(out["decode_attention"], sum(
+            r["launches"].get("decode_attention", 0) for r in {
+                id(r): r for r in k1_runs + serve_runs + rank["decode"]
+                + rank["routes"] + out["moe_rank"]["decode"]
+                + [out["rank_http"]]}.values())
+            + out["parallel"]["launches"]["decode_attention"])]
     out["seconds"] = time.perf_counter() - t_start
     OUT_DIR.mkdir(exist_ok=True)
     with open(OUT_DIR / "chip_smoke.json", "w") as f:

@@ -34,7 +34,8 @@ torch.Generator (Philox), so they are not the JAX package's (threefry).
 
 Spans (utils/profiling.py, recorded only while a profiler or recording()
 is on): session.turn around turn / continue_turn, with the cache
-positions its steps attend over and those they read as attributes;
+positions its steps attend over and those their attention reads as
+attributes (_turn_attrs);
 session.launch (_launch: the upload, the fill, the steps' enqueue) and
 session.read (_finish's host read) inside it.
 """
@@ -51,7 +52,9 @@ import torch
 from effort_tpu_torch.config import ModelConfig
 from effort_tpu_torch.models.generate import (Engine, _Key, _pick_token,
                                               _q16, _StepState, _to_device)
-from effort_tpu_torch.models.transformer import ModelWeights, forward_token
+from effort_tpu_torch.models.transformer import (ModelWeights, active_window,
+                                                 attention_reads,
+                                                 forward_token)
 from effort_tpu_torch.utils.profiling import annotate
 
 
@@ -227,13 +230,17 @@ class ChatSession:
 
     def _turn_attrs(self, span, n_steps: int) -> None:
         """A turn span's attributes: the cache positions its n_steps steps
-        attend over and those they read (each step every slot of the
-        cache, as _turn_step's attention is launched). Stated, not
-        measured: an attention that reads fewer positions changes
-        read_positions here."""
+        attend over (within the sliding window) and those their attention
+        reads (transformer.attention_reads: K8 loads the live rows, the
+        plain version and the KV modes' hooks every slot). Stated in
+        closed form, not measured."""
         slots = self.k_cache.shape[1]
-        span["live_positions"] = live_positions(self.pos, n_steps, slots)
-        span["read_positions"] = n_steps * slots
+        live = live_positions(self.pos, n_steps,
+                              active_window(self.cfg) or slots)
+        span["live_positions"] = live
+        span["read_positions"] = attention_reads(
+            live, n_steps, slots, self.cfg, self.k_cache.dtype, self.device,
+            hooked=self._kv[3] is not None)
 
     def _start_turn(self, prompt_ids: Sequence[int], n_new: int = 30,
                     effort: float = 1.0, temperature: float = 0.0,

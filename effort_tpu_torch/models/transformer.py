@@ -35,6 +35,10 @@ random-weight synthesis.
     sliding_window slots (ring_kv_hooks) and int8 rows with one f32 scale
     a (slot, kv head) (quant_kv_hooks; forward_token_batch's kv_quant).
   - The residual h stays f32 between layers; attention runs in f32.
+    Decode attention over a bf16 cache on the card is K8
+    (kernels/decode_attention: each slot's live rows only, read in place;
+    k8_route); the int8 and ring caches and the CPU run its plain version
+    (_attn_core), which widens every slot of the cache.
   - Tensor parallelism (parallel/tp.py): with tp = (mesh, axis) the passes
     run a rank's shard of every projection (cfg the local config) and sum
     over the axis after wo and after the FFN's down projection (an MoE
@@ -53,6 +57,10 @@ import torch
 import torch.distributed as dist
 
 from effort_tpu_torch.config import BucketConfig, ModelConfig
+from effort_tpu_torch.kernels.decode_attention import (attn_core,
+                                                      decode_attention,
+                                                      decode_limits,
+                                                      head_groups)
 from effort_tpu_torch.kernels.flash_attention import flash_attention_seq
 from effort_tpu_torch.ops.bucketize import (bucketize, calib_row_order,
                                             pick_chunk_rows)
@@ -351,16 +359,39 @@ def quant_kv_hooks(cfg: ModelConfig):
 def _attn_core(q, kf, vf, live, cfg: ModelConfig):
     """Masked-softmax attention read for one query token per slot; leading
     axes are slots. q [..., H*D]; kf/vf [..., S, KV, D] f32;
-    live [..., S] bool."""
-    KV, rep, D = cfg.n_kv_heads, cfg.kv_repeats, cfg.head_dim
-    lead = q.shape[:-1]
-    qh = q.reshape(*lead, KV, rep, D).to(torch.float32)
-    scores = torch.einsum("...krd,...tkd->...krt", qh, kf) / math.sqrt(D)
-    scores = torch.where(live[..., None, None, :], scores,
-                         torch.full_like(scores, -math.inf))
-    probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("...krt,...tkd->...krd", probs, vf)
-    return out.reshape(*lead, cfg.n_heads * D)
+    live [..., S] bool (K8's plain version, kernels/decode_attention)."""
+    return attn_core(q, kf, vf, live, cfg.n_kv_heads, cfg.kv_repeats,
+                     cfg.head_dim)
+
+
+def k8_route(device, cache_dtype, cfg: ModelConfig) -> bool:
+    """Whether decode attention over a cache of cache_dtype on `device`
+    runs K8 (kernels/decode_attention): bf16 caches on the card, heads the
+    kernel takes. The int8 and ring caches, the CPU and other heads take
+    the plain version (_attn_core)."""
+    return (device.type == "cuda" and cache_dtype == torch.bfloat16
+            and decode_limits(cfg.head_dim, cfg.kv_repeats) is None)
+
+
+def attention_reads(live: int, calls: int, S: int, cfg: ModelConfig,
+                    cache_dtype, device, hooked: bool = False) -> int:
+    """The cache rows `calls` decode attention calls over caches of S rows
+    read, `live` the sum of the rows they attend over: on K8's route
+    (k8_route, with no attn_fn hook in _attention's place) those rows,
+    once a head group of its launch (head_groups), else every row of
+    every call (the plain version and the hooks widen the whole cache).
+    Stated in closed form from the route the calls take, not measured."""
+    if not hooked and k8_route(device, cache_dtype, cfg):
+        return live * head_groups(cfg.kv_repeats)
+    return calls * S
+
+
+def _int32(x):
+    """A position for K8: an int, or an int32 device tensor (others are
+    converted on the card)."""
+    if isinstance(x, torch.Tensor) and x.dtype != torch.int32:
+        return x.to(torch.int32)
+    return x
 
 
 def active_window(cfg: ModelConfig) -> int:
@@ -387,7 +418,13 @@ def _live_slots(pos, mask_from, S: int, cfg: ModelConfig, device):
 
 
 def _attention(q, k_cache, v_cache, pos, cfg: ModelConfig, mask_from=0):
-    """q: [n_heads*head_dim]; caches: [S, n_kv, hd]. Returns [n_heads*hd]."""
+    """q: [n_heads*head_dim]; caches: [S, n_kv, hd]. Returns [n_heads*hd].
+    K8 on the live rows where k8_route takes the cache, else the plain
+    version over every slot."""
+    if k8_route(q.device, k_cache.dtype, cfg):
+        return decode_attention(q[None], k_cache[None], v_cache[None],
+                                _int32(pos), _int32(mask_from),
+                                active_window(cfg))[0]
     live = _live_slots(pos, mask_from, k_cache.shape[0], cfg, q.device)
     return _attn_core(q, k_cache.to(torch.float32),
                       v_cache.to(torch.float32), live, cfg)
@@ -799,9 +836,11 @@ def forward_token_batch(w: ModelWeights, cfg: ModelConfig,
     launch. An MoE FFN runs slot by slot (_moe_rows: the JAX package's
     vmap; K1 a slot and expert on the kernel route, with device
     instances, so the step waits on no host read of the routing).
-    kv_quant: the caches are int8 (data [L, B, S, KV, D], scale
-    [L, B, S, KV]) pairs per side (make_quant_kv_cache), each new row
-    quantized per kv head. Returns logits [B, vocab] f32."""
+    Attention is K8 a layer over each slot's live rows on the card
+    (k8_route), reading pos and offs there. kv_quant: the caches are int8
+    (data [L, B, S, KV, D], scale [L, B, S, KV]) pairs per side
+    (make_quant_kv_cache), each new row quantized per kv head, and
+    attention takes the plain version. Returns logits [B, vocab] f32."""
     B = toks.shape[0]
     dev = w.device
     KV, D, H = cfg.n_kv_heads, cfg.head_dim, cfg.n_heads
@@ -811,7 +850,11 @@ def forward_token_batch(w: ModelWeights, cfg: ModelConfig,
     cos, sin = rope_angles(pos - offs, D, cfg.rope_theta, dev)
     cos, sin = cos[:, None], sin[:, None]
     S = (k_cache[0] if kv_quant else k_cache).shape[2]
-    live = _live_slots(pos, offs, S, cfg, dev)                    # [B, S]
+    k8 = not kv_quant and k8_route(dev, k_cache.dtype, cfg)
+    if k8:
+        pos32, offs32 = _int32(pos), _int32(offs)
+    else:
+        live = _live_slots(pos, offs, S, cfg, dev)                # [B, S]
     bidx, pidx = torch.arange(B, device=dev), pos.long()
     lw = w.layers
     for l in range(cfg.n_layers):
@@ -832,8 +875,12 @@ def forward_token_batch(w: ModelWeights, cfg: ModelConfig,
         else:
             k_cache[l, bidx, pidx] = K.to(k_cache.dtype)
             v_cache[l, bidx, pidx] = V.to(v_cache.dtype)
-            attn = _attn_core(Q, k_cache[l].to(torch.float32),
-                              v_cache[l].to(torch.float32), live, cfg)
+            if k8:
+                attn = decode_attention(Q, k_cache[l], v_cache[l], pos32,
+                                        offs32, active_window(cfg))
+            else:
+                attn = _attn_core(Q, k_cache[l].to(torch.float32),
+                                  v_cache[l].to(torch.float32), live, cfg)
         X = X + bucket_matmul(lw.wo, attn, pe["wo"], l, impl)
         Fn = rms_norm(X, lw.ffn_norm[l], cfg.norm_eps)
         X = X + (_ffn_seq(lw, l, Fn, pe, cfg, impl) if cfg.n_experts == 1

@@ -44,9 +44,12 @@ from typing import Dict, List, Sequence
 import torch
 
 from effort_tpu_torch.config import ModelConfig
+from effort_tpu_torch.kernels.decode_attention import live_rows
 from effort_tpu_torch.models.generate import _to_device
 from effort_tpu_torch.models.graphs import StepGraph
-from effort_tpu_torch.models.transformer import (ModelWeights, forward_seq,
+from effort_tpu_torch.models.transformer import (ModelWeights, active_window,
+                                                 attention_reads,
+                                                 forward_seq,
                                                  forward_seq_batch,
                                                  forward_token_batch,
                                                  make_batch_kv_cache,
@@ -276,17 +279,26 @@ class BatchEngine:
 
     def positions(self, act: List[int]) -> tuple:
         """(live, read): the cache positions the next step's attention
-        needs over the active slots `act` (each slot's position + 1, less
-        its left pad) and those it reads (every slot's whole cache, as
-        _step's attention is launched); a speculative step's spec_k draft
-        passes (its verify pass is not counted). Stated, not measured: an
-        attention that reads fewer positions changes `read` here."""
-        live = sum(self.pos_host[b] + 1 - self.slots[b].offset for b in act)
-        read = self.B * self.cfg.max_seq_len
-        if self.spec_k:
-            k = self.spec_k
-            live = k * live + len(act) * k * (k - 1) // 2
-            read *= k
+        needs over the active slots `act` (each slot's rows from its left
+        pad, or its sliding window, to its position) and those it reads
+        over every slot, idle ones included (the step runs them all):
+        transformer.attention_reads, K8's live rows or the plain version's
+        whole cache; a speculative step's spec_k draft passes at
+        positions + i, clamped to the last row (its verify pass is not
+        counted). Stated, not measured."""
+        S, last = self.cfg.max_seq_len, self.cfg.max_seq_len - 1
+        win = active_window(self.cfg)
+
+        def rows(slots, i):
+            return sum(live_rows(min(self.pos_host[b] + i, last),
+                                 self.slots[b].offset, win, S)
+                       for b in slots)
+        passes = range(self.spec_k or 1)
+        live = sum(rows(act, i) for i in passes)
+        cache = self.k_cache[0] if self.kv_quant else self.k_cache
+        read = attention_reads(sum(rows(range(self.B), i) for i in passes),
+                               len(passes) * self.B, S, self.cfg,
+                               cache.dtype, self.device)
         return live, read
 
     def step(self, positions: tuple = None) -> List[int]:

@@ -740,8 +740,9 @@ def test_rank_prefix_wrappers_raise_on_what_they_do_not_take():
 def test_rank_prefix_engine_routes_on_the_card():
     """A small rank-prefix model decodes on the card through "auto" (K4
     only: 4 launches a layer a step with fused projections), "stream" (K5
-    only) and "gather" (K6 only); the kernel route matches the plain route
-    at tau = 1 (logits cos >= 0.999)."""
+    only) and "gather" (K6 only), each beside K8's attention once a layer
+    a step; the kernel route matches the plain route at tau = 1 (logits
+    cos >= 0.999)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     import dataclasses
@@ -763,7 +764,9 @@ def test_rank_prefix_engine_routes_on_the_card():
         got = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
         steps = 8 + 4 - 1
         assert got[name] == 4 * cfg.n_layers * steps, (impl, got)
-        assert sum(got.values()) == got[name], (impl, got)
+        assert got["decode_attention"] == cfg.n_layers * steps, (impl, got)
+        assert sum(got.values()) == got[name] + got["decode_attention"], (
+            impl, got)
     saved = port_fs._TAU
     port_fs._TAU = 1.0
     try:
@@ -826,7 +829,7 @@ def test_moe_decode_step_waits_on_no_host_read(B):
     """One MoE decode step (forward_token, K1 or K4 with the routed
     instance on the card) raises nothing under
     torch.cuda.set_sync_debug_mode("error"), and launches 6 kernels a
-    layer (wqkv, wo, and w13, w2 of two experts)."""
+    layer (wqkv, wo, and w13, w2 of two experts) beside K8's attention."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from effort_tpu_torch.models import transformer as tf
@@ -847,7 +850,9 @@ def test_moe_decode_step_waits_on_no_host_read(B):
     torch.cuda.synchronize()
     assert bool(torch.isfinite(lg).all())
     got = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
-    assert got[name] == 6 * cfg.n_layers and sum(got.values()) == got[name]
+    assert got[name] == 6 * cfg.n_layers
+    assert got["decode_attention"] == cfg.n_layers
+    assert sum(got.values()) == got[name] + cfg.n_layers
 
 
 @pytest.mark.cuda
@@ -1264,7 +1269,8 @@ def test_tp_ranks_on_one_card_match_single_device():
     building its own bf16 shard, K1 on the kernel route at tau = 1)
     against the single-device model of the same draws, teacher-forced over
     the same tokens: cos >= 0.999 (the JAX tests' tp bound) at every step,
-    and each rank's K1 launches 7 a layer a step."""
+    and each rank's K1 launches 7 a layer a step, K8 (its local heads) one
+    a layer a step."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from effort_tpu_torch.config import tiny_test_model
@@ -1294,4 +1300,224 @@ def test_tp_ranks_on_one_card_match_single_device():
         assert float(c) >= 0.999
     for r in res:
         assert r[0]["runs"][0]["launches"] == {
-            "mxu_matvec": 7 * cfg.n_layers * run["steps"]}
+            "mxu_matvec": 7 * cfg.n_layers * run["steps"],
+            "decode_attention": cfg.n_layers * run["steps"]}
+
+
+# ---- K8: decode attention over the live rows of a bf16 cache ------------
+
+# K8 against the plain version: max|dy| <= K8_TOL max|y_ref|. Both sum in
+# f32, in other orders (the kernel by chunks and tiles, then a combine of
+# the chunks' partials; the plain version through cuBLAS's GEMV and a
+# softmax over every slot); as K3's PV_F32_TOL
+K8_TOL = 1e-4
+
+
+def _k8_inputs(B, S, KV, rep, D, seed):
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    k = torch.randn((B, S, KV, D), generator=g, device="cuda").to(
+        torch.bfloat16)
+    v = torch.randn((B, S, KV, D), generator=g, device="cuda").to(
+        torch.bfloat16)
+    q = torch.randn((B, KV * rep * D), generator=g, device="cuda")
+    return q, k, v
+
+
+def _k8_against_plain(q, k, v, pos, mask_from, window):
+    """K8 and _attn_core's arithmetic (attn_core on the widened caches,
+    the live mask of _live_slots) on the same inputs: slots with a live row
+    within K8_TOL, slots with none exactly 0 from K8."""
+    from effort_tpu_torch.kernels.decode_attention import (attn_core,
+                                                            decode_attention)
+    B, S, KV, D = k.shape
+    rep = q.shape[1] // (KV * D)
+    y = decode_attention(q, k, v, pos, mask_from, window)
+    t = torch.arange(S, device="cuda")
+    live = (t <= pos[:, None]) & (t >= mask_from[:, None])
+    if window:
+        live &= t > pos[:, None] - window
+    yr = attn_core(q, k.float(), v.float(), live, KV, rep, D)
+    torch.cuda.synchronize()
+    some = live.any(dim=1)
+    assert not y[~some].any()
+    if some.any():
+        err = float((y[some] - yr[some]).abs().max())
+        assert err <= K8_TOL * float(yr[some].abs().max()), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("KV,rep", [(8, 4), (32, 1), (2, 2)])
+@pytest.mark.parametrize("S", [2048, 4096])
+@pytest.mark.parametrize("B", [1, 16])
+def test_decode_attention_cuda_kernel_matches_plain(B, S, KV, rep, D):
+    """K8 against the plain version on the same bf16 caches: positions 0,
+    one short of a chunk, at a chunk and S - 1 (one slot a call at B = 1,
+    ragged across the slots at B = 16), left pads, a sliding window of a
+    chunk and 3, and a slot with no live position; one launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from effort_tpu_torch.kernels.decode_attention import decode_plan
+    q, k, v = _k8_inputs(B, S, KV, rep, D, seed=B + S + KV + D)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    CH = decode_plan(B, KV, rep, S, D, sms).chunk
+    edges = [0, CH - 1, CH, S - 1, S // 2 + 3, 2 * CH + 17]
+    i32 = dict(dtype=torch.int32, device="cuda")
+    if B == 1:
+        cases = [(torch.tensor([p], **i32), torch.zeros(1, **i32), 0)
+                 for p in edges]
+        cases += [(torch.tensor([300], **i32), torch.tensor([5], **i32), 0),
+                  (torch.tensor([S - 1], **i32), torch.zeros(1, **i32),
+                   CH + 3),
+                  (torch.tensor([40], **i32), torch.tensor([41], **i32), 0)]
+    else:
+        g = torch.Generator(device="cuda")
+        g.manual_seed(7)
+        pos = torch.randint(0, S, (B,), generator=g, device="cuda",
+                            dtype=torch.int32)
+        pos[:len(edges)] = torch.tensor(edges, **i32)
+        offs = torch.randint(0, 40, (B,), generator=g, device="cuda",
+                             dtype=torch.int32)
+        offs[0] = 0
+        offs[B - 1] = pos[B - 1] + 1                 # no live position
+        cases = [(pos, torch.zeros(B, **i32), 0), (pos, offs, 0),
+                 (pos, offs, CH + 3)]
+    launches = LAUNCHES["decode_attention"]
+    for pos, mf, window in cases:
+        _k8_against_plain(q, k, v, pos, mf, window)
+    assert LAUNCHES["decode_attention"] == launches + len(cases)
+
+
+@pytest.mark.cuda
+def test_decode_attention_under_a_captured_graph_equals_eager():
+    """K8 captured once, replayed as the positions and left pads in its
+    buffers move (the kernel reads them on the card): each replay equals
+    the eager call at the same positions, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from effort_tpu_torch.kernels.decode_attention import decode_attention
+    B, S = 4, 2048
+    q, k, v = _k8_inputs(B, S, 8, 4, 128, seed=11)
+    pos = torch.tensor([5, 700, 1500, 2047], dtype=torch.int32,
+                       device="cuda")
+    offs = torch.tensor([0, 3, 0, 9], dtype=torch.int32, device="cuda")
+    out = torch.empty((B, q.shape[1]), device="cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        out.copy_(decode_attention(q, k, v, pos, offs))
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out.copy_(decode_attention(q, k, v, pos, offs))
+    for step in range(4):
+        pos.copy_(torch.tensor([5 + 300 * step, 700 - step, 1500 + step,
+                                2047 - 500 * step], dtype=torch.int32))
+        offs.copy_(torch.tensor([step, 3, 0, 9 + step], dtype=torch.int32))
+        graph.replay()
+        want = decode_attention(q, k, v, pos, offs)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want), step
+
+
+@pytest.mark.cuda
+def test_decode_attention_on_two_streams_at_once_equals_one_stream():
+    """Launches enqueued in turn on two streams, which may run at once,
+    each combine their own chunks (a stream's own tickets): every output
+    equals the same call's on the default stream, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from effort_tpu_torch.kernels.decode_attention import decode_attention
+    calls = []
+    for i in range(8):
+        q, k, v = _k8_inputs(1 + i % 2, 2048, 8, 4, 128, seed=20 + i)
+        pos = torch.full((q.shape[0],), 1024 + 100 * i, dtype=torch.int32,
+                         device="cuda")
+        calls.append((q, k, v, pos, pos * 0))
+    want = [decode_attention(*c) for c in calls]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    got = []
+    for _ in range(4):
+        for i, c in enumerate(calls):
+            with torch.cuda.stream(streams[i % 2]):
+                got.append(decode_attention(*c))
+    for st in streams:
+        torch.cuda.current_stream().wait_stream(st)
+    torch.cuda.synchronize()
+    for j, y in enumerate(got):
+        assert torch.equal(y, want[j % len(calls)]), j
+
+
+@pytest.mark.cuda
+def test_decode_attention_wrapper_raises_on_what_it_does_not_take():
+    """On CUDA tensors K8's wrapper launches or raises: f32 caches, caches
+    on the CPU, heads 264 or 12 wide, 65 query heads to a KV head, int64
+    or wrongly sized positions and an int position for several slots are
+    refused before any launch, and nothing is counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from effort_tpu_torch.kernels.decode_attention import decode_attention
+    q, k, v = _k8_inputs(2, 64, 2, 2, 64, seed=3)
+    pos = torch.tensor([3, 9], dtype=torch.int32, device="cuda")
+    before = dict(LAUNCHES)
+    with pytest.raises(ValueError, match="bf16"):
+        decode_attention(q, k.float(), v.float(), pos, pos * 0)
+    with pytest.raises(ValueError, match="tensors on"):
+        decode_attention(q, k.cpu(), v.cpu(), pos, pos * 0)
+    for D in (264, 12):
+        qd, kd, vd = _k8_inputs(2, 64, 2, 2, D, seed=4)
+        with pytest.raises(ValueError, match="from 8 to 256"):
+            decode_attention(qd, kd, vd, pos, pos * 0)
+    qr, kr, vr = _k8_inputs(2, 64, 1, 65, 64, seed=5)
+    with pytest.raises(ValueError, match="rep 65"):
+        decode_attention(qr, kr, vr, pos, pos * 0)
+    with pytest.raises(ValueError, match="int32"):
+        decode_attention(q, k, v, pos.long(), pos * 0)
+    with pytest.raises(ValueError, match="int32"):
+        decode_attention(q, k, v, pos[:1], pos * 0)
+    with pytest.raises(ValueError, match="int32 tensor"):
+        decode_attention(q, k, v, 3, 0)
+    assert LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_decode_attention_launches_once_a_layer_a_step():
+    """LAUNCHES["decode_attention"] rises by n_layers a step: Engine's
+    captured decode steps, a captured chat turn, and BatchEngine's captured
+    step (its admissions run K3, not K8); the int8 cache's steps take the
+    plain version and launch none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from effort_tpu_torch.models.generate import Engine
+    from effort_tpu_torch.models.session import ChatSession
+    from effort_tpu_torch.models.transformer import k8_route
+    from effort_tpu_torch.serving.batcher import (BatchEngine,
+                                                  ContinuousBatcher)
+    cfg, w = _tiny_dense()
+    L = cfg.n_layers
+    prompt = [1, 5, 9, 13]
+    for kw, per_step in (({}, L), ({"quant_kv": True}, 0)):
+        eng = Engine(w, cfg, pad_to=8, eos_id=-1, **kw)
+        eng.generate(prompt, n_new=3, effort=0.5)           # capture
+        before = LAUNCHES["decode_attention"]
+        eng.generate(prompt, n_new=6, effort=0.5)
+        steps = 8 + 6 - 1
+        assert LAUNCHES["decode_attention"] - before == per_step * steps, kw
+    sess = ChatSession(w, cfg, pad_to=4, eos_id=-1)
+    assert k8_route(sess.device, sess.k_cache.dtype, cfg)
+    sess.turn([1, 5, 9], n_new=2, effort=0.5)               # capture
+    before = LAUNCHES["decode_attention"]
+    sess.turn([7, 2], n_new=5, effort=0.5)
+    assert LAUNCHES["decode_attention"] - before == L * (2 + 5)
+    be = BatchEngine(w, cfg, batch_size=2, pad_to=8, eos_id=-1)
+    assert be.capture and k8_route(be.device, be.k_cache.dtype, cfg)
+    cb = ContinuousBatcher(be)
+    for p in ([1, 5, 9], [4, 8, 15, 16, 23], [7, 7, 3]):
+        cb.submit(p, 4, 0.5, lambda t: None)
+    before = LAUNCHES["decode_attention"]
+    cb.run_until_drained()
+    assert be._graph is not None
+    assert LAUNCHES["decode_attention"] - before == L * cb.counts["steps"]
