@@ -5,10 +5,10 @@ turn feeds its prompt and decodes its reply through the session's one
 captured step, greedy at the mix's effort. The window runs whole turns
 until --seconds have passed (a traced run: until trace_tokens tokens).
 
-When a conversation ends, its keys and values (the session's cache
-rows, the program's state) are copied to pinned host buffers made
-before set-up, without a wait: the reference then takes each position
-one step from the program's own state.
+When a conversation ends, its cache rows (the program's state, as its
+architecture names them: keys and values for Mistral) are copied to
+pinned host buffers made before set-up, without a wait: the reference
+then takes each position one step from the program's own state.
 """
 
 from __future__ import annotations
@@ -23,11 +23,10 @@ class Driver:
     def __init__(self, run):
         self.run = run
         self.mix = run.mix
-        d = run.dims
-        shape = (d.n_layers, d.max_seq_len, d.n_kv_heads, d.head_dim)
         pin = run.device == "cuda"
-        self.pool = [tuple(torch.empty(shape, dtype=torch.bfloat16,
-                                       pin_memory=pin) for _ in range(2))
+        shapes = run.arch.state_shapes(run.dims, run.dims.max_seq_len)
+        self.pool = [tuple(torch.empty(shape, dtype=dtype, pin_memory=pin)
+                           for shape, dtype in shapes)
                      for _ in range(self.mix["snapshots"])]
 
     def setup(self) -> None:
@@ -84,11 +83,12 @@ class Driver:
         left: the conversation is not judged)."""
         if not self.pool:
             return
-        k, v = self.pool.pop(0)
+        bufs = self.pool.pop(0)
         n = len(c["seq"])
-        k[:, :n].copy_(self.sess.k_cache[:, :n], non_blocking=True)
-        v[:, :n].copy_(self.sess.v_cache[:, :n], non_blocking=True)
-        c["state"] = (k[:, :n], v[:, :n])
+        for buf, rows in zip(bufs, self.run.arch.state_of(self.sess, None,
+                                                          0, n)):
+            buf[:, :n].copy_(rows, non_blocking=True)
+        c["state"] = tuple(buf[:, :n] for buf in bufs)
 
     def end_to_end(self, rec: dict) -> dict:
         """The rate over the whole window; beside it, for the run's
@@ -110,7 +110,7 @@ class Driver:
         """What the reference runs over. "judged": every conversation of
         the window that has its state (the first `snapshots`), each
         (tokens, positions whose logits chose a served token, the served
-        tokens); "state": their keys and values. In a traced run "steps":
+        tokens); "state": their cache rows. In a traced run "steps":
         every token of a judged conversation is one step, each {"kind":
         "step", "tokens": [(item, position consumed)]}; their work is read
         from the same pass."""

@@ -10,10 +10,11 @@ traced run: trace_ticks ticks).
 
 The judged sample is drawn while the window runs: of the requests that
 finish in it, every `sample_every`-th from a phase drawn from the seed,
-and the longest so far. As each finishes, its keys and values (its
-slot's cache rows, the program's state) are copied to pinned host
-buffers made before set-up, without a wait: the reference then takes
-each position one step from the program's own state.
+and the longest so far. As each finishes, its slot's cache rows (the
+program's state, as its architecture names them: keys and values for
+Mistral) are copied to pinned host buffers made before set-up, without
+a wait: the reference then takes each position one step from the
+program's own state.
 """
 
 from __future__ import annotations
@@ -43,13 +44,12 @@ class Driver:
         self.reqs: list = []
         self.finished = 0
         self._items = iter(run.plan.items)
-        d = run.dims
         rows = max(p + r for p, r in run.plan.items)
-        shape = (d.n_layers, rows, d.n_kv_heads, d.head_dim)
+        shapes = run.arch.state_shapes(run.dims, rows)
         pin = run.device == "cuda"
         # one buffer for the longest request, the rest for the sample
-        self.pool = [tuple(torch.empty(shape, dtype=torch.bfloat16,
-                                       pin_memory=pin) for _ in range(2))
+        self.pool = [tuple(torch.empty(shape, dtype=dtype, pin_memory=pin)
+                           for shape, dtype in shapes)
                      for _ in range(self.mix["check_requests"])]
         self.long_buf = self.pool.pop()
         self.longest, self.longest_n = None, 0
@@ -121,19 +121,18 @@ class Driver:
                 self._copy(req, self.long_buf)
             self.longest, self.longest_n = req, n
 
-    def _copy(self, req: Request, buf: tuple) -> None:
+    def _copy(self, req: Request, bufs: tuple) -> None:
         """The request's cache rows (its slot's, from its left pad on) to
-        buf, without a wait; the rows stay until the slot's next
+        bufs, without a wait; the rows stay until the slot's next
         admission, which comes after this callback."""
         eng = self.eng
         b = next(i for i, s in enumerate(eng.slots)
                  if s.request_id == req.rid)
         off = eng.slots[b].offset
         n = len(req.prompt) + req.n_new - 1       # every consumed token
-        k, v = buf
-        k[:, :n].copy_(eng.k_cache[:, b, off:off + n], non_blocking=True)
-        v[:, :n].copy_(eng.v_cache[:, b, off:off + n], non_blocking=True)
-        req.state = (k[:, :n], v[:, :n])
+        for buf, rows in zip(bufs, self.run.arch.state_of(eng, b, off, n)):
+            buf[:, :n].copy_(rows, non_blocking=True)
+        req.state = tuple(buf[:, :n] for buf in bufs)
 
     def window(self, seconds: float, traced: bool) -> dict:
         ticks = 0
@@ -176,11 +175,11 @@ class Driver:
         """What the reference runs over. "judged": the sample of requests
         finished in the window (the longest, and every sample_every-th
         from the seed's phase), each (tokens, positions whose logits chose
-        a served token, the served tokens); "state": their keys and
-        values. In a traced run, "work_items": every request that took
-        part in the traced window, with its whole known sequence, and
-        "steps": each admission and batched step of the window in order,
-        as {"kind", "tokens": [(work item, position consumed)]}."""
+        a served token, the served tokens); "state": their cache rows. In
+        a traced run, "work_items": every request that took part in the
+        traced window, with its whole known sequence, and "steps": each
+        admission and batched step of the window in order, as {"kind",
+        "tokens": [(work item, position consumed)]}."""
         t0, t1 = rec["t0"], rec["t1"]
         judged = [q for q in self.reqs if q.state is not None]
         out = {"judged": [self._item(q) for q in judged],

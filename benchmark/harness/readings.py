@@ -32,7 +32,7 @@ class Readings:
                  card: str):
         self.run, self.trace, self.items, self.steps = run, trace, items, \
             steps
-        self.d = run.dims
+        self.d, self.arch = run.dims, run.arch
         self.probes = run.cfg_file["bucket"]["probes"]
         self.peaks = W.peaks(card)
         self.t0, self.t1 = trace.window()
@@ -128,20 +128,21 @@ class Readings:
     def step_work(self) -> W.Work:
         """Everything the traced steps need: the products, attention over
         the live keys, the head (one row a step and sequence), embeddings,
-        norms, router and the new cache rows."""
+        norms, router and the new cache rows (the counts of attention, the
+        head and each token's own are the architecture's)."""
         total = self.products()
-        L = self.d.n_layers
+        a, L = self.arch, self.d.n_layers
         for s, pos in zip(self.steps, self.step_pos):
             if s["kind"] == "admit":
                 n = len(pos)
-                total += _times(W.attention(n * (n + 1) // 2, n, n, self.d),
+                total += _times(a.attention(n * (n + 1) // 2, n, n, self.d),
                                 L)
-                total += W.head(self.d, 1)
+                total += a.head(self.d, 1)
             else:
                 for p in pos:
-                    total += _times(W.attention(p + 1, p + 1, 1, self.d), L)
-                total += W.head(self.d, len(pos))
-            total += W.token_overhead(self.d, len(pos))
+                    total += _times(a.attention(p + 1, p + 1, 1, self.d), L)
+                total += a.head(self.d, len(pos))
+            total += a.token_overhead(self.d, len(pos))
         return total
 
     def least_s(self, work: W.Work) -> float:

@@ -4,56 +4,25 @@ A cell of BENCHMARK.json names a configuration and a traffic mix; the
 harness finds everything else from those names:
 
   <file named by the configuration entry>           sizes and assumptions
+  architectures/<its model_type>.py                 the model: its shapes,
+                        build, cache state, reference and work counts
   traffic/<mix>.json                                the mix's parameters
   drivers/<driver>.py                               the code a mix names
   metrics/<metric>.py                               one per-layer reader
                         (or metrics/<first part of the name>.py, shared)
   limits/<cell>.json                                the correctness limits
 
-so a later change adds a configuration, a mix, a cell or a metric by
-adding files and entries, and edits none.
+so a later change adds a configuration (of an architecture the harness
+has, or with a module of a new one), a mix, a cell or a metric by adding
+files and entries, and edits none.
 """
 
 from __future__ import annotations
 
-import dataclasses
 import importlib.util
 import json
+import sys
 from pathlib import Path
-
-
-@dataclasses.dataclass(frozen=True)
-class Dims:
-    """A model configuration's shapes, read from its published keys."""
-    dim: int
-    hidden: int
-    n_layers: int
-    n_heads: int
-    n_kv_heads: int
-    head_dim: int
-    vocab: int
-    n_experts: int
-    top_k: int
-    norm_eps: float
-    rope_theta: float
-    max_seq_len: int
-    sliding_window: object
-
-
-def dims_of(cfg: dict) -> Dims:
-    """Dims from a configuration file's Hugging Face keys."""
-    heads = cfg["num_attention_heads"]
-    return Dims(
-        dim=cfg["hidden_size"], hidden=cfg["intermediate_size"],
-        n_layers=cfg["num_hidden_layers"], n_heads=heads,
-        n_kv_heads=cfg.get("num_key_value_heads", heads),
-        head_dim=cfg.get("head_dim") or cfg["hidden_size"] // heads,
-        vocab=cfg["vocab_size"], n_experts=cfg.get("num_local_experts", 1),
-        top_k=cfg.get("num_experts_per_tok", 1) if
-        cfg.get("num_local_experts", 1) > 1 else 1,
-        norm_eps=cfg["rms_norm_eps"], rope_theta=cfg["rope_theta"],
-        max_seq_len=cfg["max_position_embeddings"],
-        sliding_window=cfg.get("sliding_window"))
 
 
 def load_json(path: Path) -> dict:
@@ -76,11 +45,27 @@ class Manifest:
                 return w
         raise KeyError(f"no workload {name!r} in BENCHMARK.json")
 
-    def config(self, name: str) -> dict:
+    def _config_entry(self, name: str) -> dict:
         for c in self.data["configs"]:
             if c["name"] == name:
-                return load_json(self.root / c["file"])
+                return c
         raise KeyError(f"no configuration {name!r} in BENCHMARK.json")
+
+    def config(self, name: str) -> dict:
+        return load_json(self.root / self._config_entry(name)["file"])
+
+    def architecture(self, name: str):
+        """The module of configuration `name`'s architecture:
+        architectures/<model_type>.py, model_type as the configuration's
+        file states it. A file that states none, or names a module that
+        is not there, fails with the path looked for."""
+        model_type = self.config(name).get("model_type")
+        if not model_type:
+            raise ValueError(
+                f"{self._config_entry(name)['file']} states no model_type:"
+                f" looked for {self.bench / 'architectures'}/"
+                f"<model_type>.py")
+        return self.module("architectures", model_type)
 
     def metrics(self, cell: str, kind: str) -> list:
         """The `kind` ("end_to_end" or "per_layer") metric entries that
@@ -100,13 +85,18 @@ class Manifest:
         else the file of the name's first part: one reader serves every
         metric of one quantity (idle_share.py for idle_share.decode and
         idle_share.serve), and a later name.py of its own takes over."""
-        path = self.bench / kind / f"{name}.py"
-        if not path.is_file():
-            path = self.bench / kind / f"{name.split('.')[0]}.py"
-        if not path.is_file():
-            raise FileNotFoundError(f"no {kind} module for {name!r}")
+        tried = list(dict.fromkeys(
+            str(self.bench / kind / f"{n}.py")
+            for n in (name, name.split(".")[0])))
+        path = next((p for p in tried if Path(p).is_file()), None)
+        if path is None:
+            raise FileNotFoundError(f"no {kind} module for {name!r}: "
+                                    f"looked for {' and '.join(tried)}")
         spec = importlib.util.spec_from_file_location(
             f"bench_{kind}_{name.replace('.', '_').replace('-', '_')}", path)
         mod = importlib.util.module_from_spec(spec)
+        # registered first, as an import would: a dataclass looks its
+        # module up while the module runs
+        sys.modules[spec.name] = mod
         spec.loader.exec_module(mod)
         return mod

@@ -48,8 +48,9 @@ def _randn(shape, seed: int, device) -> torch.Tensor:
 
 
 class RawModel:
-    """The raw weights of one model configuration (`dims` from
-    harness.spec.Dims) for one seed, made block by block on `device`."""
+    """The raw weights of one model configuration (`dims`, the Dims of
+    architectures/mistral.py) for one seed, made block by block on
+    `device`."""
 
     def __init__(self, dims, seed: int, device):
         self.d = dims

@@ -6,6 +6,9 @@ written once, whatever a kernel reads again; where the work depends on
 the data (the streamed prefix of an effort product), the count is what
 the reference selection finds these inputs need, never what the program
 reports. Peaks come from peaks.json beside this package, by card name.
+What depends on the model (attention, the head, what each token adds)
+is counted by the same rule in its architecture's module,
+architectures/<model_type>.py.
 """
 
 from __future__ import annotations
@@ -53,30 +56,3 @@ def effort_product(in_dim: int, out_dim: int, rows: int, probes: int,
                 + T * in_dim * 4 + probes * 4 + T * out_dim * 4,
                 flops=2.0 * T * rows * out_dim)
 
-
-def attention(n_live: int, n_keys: int, T: int, dims) -> Work:
-    """T queries over their live keys: each live key and value (bf16)
-    read once, the queries and outputs (f32) once; 4 H D operations per
-    live (query, key) pair."""
-    H, KV, D = dims.n_heads, dims.n_kv_heads, dims.head_dim
-    return Work(bytes=2 * n_keys * KV * D * 2 + 2 * T * H * D * 4,
-                flops=4.0 * H * D * n_live)
-
-
-def head(dims, T: int = 1) -> Work:
-    """The int8 head for T rows: the codes and column scales once."""
-    return Work(bytes=dims.vocab * dims.dim + dims.vocab * 4
-                + T * (dims.dim * 4 + dims.vocab * 4),
-                flops=2.0 * T * dims.vocab * dims.dim)
-
-
-def token_overhead(dims, T: int = 1) -> Work:
-    """Embedding rows, norm weights and router of T tokens through every
-    layer, and the new key and value rows written."""
-    L, E = dims.n_layers, dims.n_experts
-    w = Work(bytes=T * dims.dim * 2 + (2 * L + 1) * dims.dim * 4
-             + T * L * 2 * dims.n_kv_heads * dims.head_dim * 2)
-    if E > 1:
-        w += Work(bytes=L * dims.dim * E * 2,
-                  flops=2.0 * T * L * dims.dim * E)
-    return w

@@ -4,14 +4,17 @@
         --trace <0|1>
 
 From the root of a checkout that holds the port (effort_tpu_torch). The
-cell (BENCHMARK.json) names a configuration and a traffic mix; the mix
-names its driver. The run: set-up (weights made on the card from the
-seed, the program's own assembly, warm-up of every shape the traffic
-uses), the measured window (--trace 1: a shorter traced window under
-torch.profiler), then, with the program freed, the reference over a
-sample of what the window served, which decides `correct`. The last line
-of standard output is one JSON object; the numbers compared, each beside
-its limit, are the last lines of standard error.
+cell (BENCHMARK.json) names a configuration and a traffic mix; the
+configuration's model_type names its architecture
+(architectures/<model_type>.py: shapes, build, cache state, reference,
+work counts), and the mix names its driver. The run: set-up (weights
+made on the card from the seed, the program's own assembly, warm-up of
+every shape the traffic uses), the measured window (--trace 1: a shorter
+traced window under torch.profiler), then, with the program freed, the
+architecture's own reference over a sample of what the window served,
+which decides `correct`. The last line of standard output is one JSON
+object; the numbers compared, each beside its limit, are the last lines
+of standard error.
 
 --variant int4 builds the program with int4 buckets where the
 configuration states int8: the lower-precision control, for the control
@@ -54,16 +57,18 @@ def loaded_forbidden() -> list:
 
 
 class Run:
-    """What a driver needs: the cell's data, the seed's plan, the spans,
-    and build() for the program, on `device`."""
+    """What a driver needs: the cell's data, its architecture (`arch`),
+    the seed's plan, the spans, and build() for the program, on
+    `device`."""
 
     def __init__(self, man, cell: dict, seed: int, variant: str,
                  device: str):
-        from harness import spec, traffic
+        from harness import traffic
         from harness.trace import Spans
         self.cell, self.seed = cell, seed
+        self.arch = man.architecture(cell["config"])
         self.cfg_file = man.config(cell["config"])
-        self.dims = spec.dims_of(self.cfg_file)
+        self.dims = self.arch.dims(self.cfg_file)
         self.mix = man.traffic(cell["traffic"])
         self.plan = traffic.Plan(self.mix, seed, self.dims.vocab,
                                  self.dims.max_seq_len)
@@ -75,9 +80,9 @@ class Run:
         self.device = device
 
     def build(self):
-        from harness import program
-        w, cfg, self.src = program.build(self.cell["config"], self.dims,
-                                         self.bucket, self.seed, self.device)
+        w, cfg, self.src = self.arch.build(self.cell["config"], self.dims,
+                                           self.bucket, self.seed,
+                                           self.device)
         return w, cfg, self.src
 
     def sync(self) -> None:
@@ -91,12 +96,11 @@ def reference_logits(run, items: list, work=None, state=None,
     """The reference's logits at each item's served positions, each
     position one step from the program's state when `state` is given."""
     import torch
-    from reference.model import Reference
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     b = run.cfg_file["bucket"]
-    ref = Reference(run.src, run.dims, probes=b["probes"],
-                    base_rows=b["chunk_rows"])
+    ref = run.arch.Reference(run.src, run.dims, probes=b["probes"],
+                             base_rows=b["chunk_rows"])
     with torch.no_grad():
         return ref.forward([it[0] for it in items], [it[1] for it in items],
                            run.mix["effort"], run.mix["reference_tau"], work,

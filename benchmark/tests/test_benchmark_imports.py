@@ -1,6 +1,6 @@
 """What the benchmark loads: no JAX and nothing of the JAX package, by
 whole top-level module name (the port's name begins with the JAX
-package's), and a reference that loads nothing of the program."""
+package's), and references that load nothing of the program."""
 
 import json
 import subprocess
@@ -30,10 +30,11 @@ def test_run_metrics_reference_and_port_load_no_jax():
     mods = _top_level("""
 import run
 run._paths()
-from harness import spec, program, readings, trace, traffic, weights, work
-from reference import effort, model
+from harness import spec, readings, trace, traffic, weights, work
 from pathlib import Path
 man = spec.Manifest(Path({repo!r}))
+for c in man.data["configs"]:
+    man.architecture(c["name"])
 for m in man.data["per_layer"]:
     man.module("metrics", m["name"])
 for mix in {{c["traffic"] for c in man.data["workloads"]}}:
@@ -45,7 +46,15 @@ import effort_tpu_torch.models.session, effort_tpu_torch.serving.batcher
 
 
 def test_reference_loads_nothing_of_the_program():
-    mods = _top_level("from reference import effort, model")
+    """Each configuration's reference, from the module its architecture
+    takes it from, loads nothing of the program or of the harness."""
+    from harness import spec
+    man = spec.Manifest(REPO)
+    names = sorted({man.architecture(c["name"]).Reference.__module__
+                    for c in man.data["configs"]})
+    assert names
+    mods = _top_level(f"import importlib\nfor n in {names!r}:\n"
+                      f"    importlib.import_module(n)")
     assert not mods & (FORBIDDEN | {"effort_tpu_torch", "harness"})
 
 

@@ -5,24 +5,20 @@ program. The quantization and the selection must give the port's
 numbers bit for bit on one matrix, and the whole teacher-forced pass the
 port's plain route's logits to f32 rounding (same selections)."""
 
+import json
+
 import pytest
 import torch
 
-from harness import program
-from harness.spec import dims_of
+from architectures import mistral
 from reference import effort as fx
-from reference.model import Reference
+from support import DATA
 
 from effort_tpu_torch.config import BucketConfig
 from effort_tpu_torch.kernels import fused_stream
 from effort_tpu_torch.models.transformer import (forward_token,
                                                  make_kv_cache, rms_norm)
 from effort_tpu_torch.ops.bucketize import bucketize, calib_row_order
-
-TINY = dict(hidden_size=256, intermediate_size=512, num_hidden_layers=2,
-            num_attention_heads=4, num_key_value_heads=2, vocab_size=512,
-            rms_norm_eps=1e-5, rope_theta=1e6, max_position_embeddings=256,
-            sliding_window=None)
 
 
 @pytest.mark.parametrize("shape", [(256, 384), (512, 256)])
@@ -57,16 +53,13 @@ def test_quantize_and_select_match_the_port(shape):
             y.abs().max()))
 
 
-@pytest.mark.parametrize("experts", [1, 4])
-def test_reference_follows_the_port_plain_route(experts):
-    hf = dict(TINY)
-    if experts > 1:
-        hf.update(num_local_experts=experts, num_experts_per_tok=2)
-    d = dims_of(hf)
-    w, cfg, src = program.build("tiny", d, dict(
-        bucket_size=1, chunk_rows=32, probes=4096, dtype="int8"), 123,
-        "cpu")
-    ref = Reference(src, d, base_rows=32)
+@pytest.mark.parametrize("config", ["tiny", "tiny-moe"])
+def test_reference_follows_the_port_plain_route(config):
+    # the Mistral decoder, and Mixtral's 4 experts, top 2
+    hf = json.loads((DATA / f"{config}.json").read_text())
+    d = mistral.dims(hf)
+    w, cfg, src = mistral.build(config, d, hf["bucket"], 123, "cpu")
+    ref = mistral.Reference(src, d, base_rows=32)
     ids = torch.randint(3, 512, (48,),
                         generator=torch.Generator().manual_seed(9)).tolist()
     for effort in (0.25, 0.5):
