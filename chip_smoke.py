@@ -53,6 +53,16 @@ Phases, one JSON line each (a failure raises and exits non-zero):
             K8_TOL max|y_ref|; times beside the bound (the live rows'
             bytes), the plain version and torch's SDPA with the same
             boolean mask (timed only, never called by the port)
+  mla_decode
+            K9 (mla_decode, csrc/mla_decode.cu), DeepSeek-V2-Lite's latent
+            decode attention (16 heads x 576 over one bf16 latent row a
+            position, the first 512 columns the value), against its plain
+            version over a 4096-row cache at 256, 1024 and 4096 live rows:
+            max|dy| <= K9_TOL max|y_ref|; times beside the bound (the live
+            rows' bytes, q and out once, or the operations at the bf16
+            peak, whichever is larger) and the plain version; then a
+            captured ChatSession turn of a 3-layer model at those widths
+            (mla_model): K9 n_layers times a step
   kernels_llama
             K1 and K2 alone at Llama-2-7B's four fused projections (wqkv
             4096->12288, wo 4096->4096, w13 4096->22016, w2 11008->4096:
@@ -405,8 +415,9 @@ import numpy as np
 import torch
 
 from effort_tpu_torch import cli
-from effort_tpu_torch.config import (BucketConfig, ModelConfig, llama2_7b,
-                                     llama3_8b, mistral_7b, mixtral_8x7b)
+from effort_tpu_torch.config import (BucketConfig, ModelConfig,
+                                     deepseek_v2_lite, llama2_7b, llama3_8b,
+                                     mistral_7b, mixtral_8x7b)
 from effort_tpu_torch.convert.calibrate import collect_act_rms
 from effort_tpu_torch.convert.convert import (HF_NAME_MAPS,
                                               _bucketize_and_store,
@@ -419,6 +430,8 @@ from effort_tpu_torch.kernels.decode_attention import (attn_core,
                                                       decode_attention,
                                                       decode_plan)
 from effort_tpu_torch.kernels.flash_attention import flash_attention_seq
+from effort_tpu_torch.kernels.mla_decode import (mla_decode, mla_decode_ref,
+                                                 mla_plan)
 from effort_tpu_torch.eval import harness
 from effort_tpu_torch.models import tester, transformer
 from effort_tpu_torch.models.generate import Engine, _pick_token
@@ -513,6 +526,15 @@ DECODE_CASES = (
 # other orders; as K3's PV_F32_TOL)
 K8_TOL = 1e-4
 SUMMARY_DECODE = "chat"
+# K9's cases: one query token of DeepSeek-V2-Lite's 16 heads x 576 over a
+# 4096-row bf16 latent cache (the chat cell's positions), these rows live;
+# its softmax scale; K9 against its plain version: max|dy| <= K9_TOL
+# max|y_ref| (f32 sums in other orders; as K8_TOL)
+MLA_LIVE = (256, 1024, 4096)
+MLA_SLOTS = 4096
+MLA_SCALE = 0.11472
+K9_TOL = 1e-4
+SUMMARY_MLA = 1024
 # the summary line's times: one layer's four launches of the generate
 # phase's layout (int8) at effort 0.25 and the default tau
 SUMMARY = ("int8", 0.25, 0.97)
@@ -934,6 +956,100 @@ def phase_decode_attention(flush: torch.Tensor) -> list:
         points.append(p)
         emit({"phase": "decode_attention", **p})
     return points
+
+
+def mla_model():
+    """DeepSeek-V2-Lite's attention widths (K9's 16 heads x 576) at 3
+    layers, the first dense: hidden 512, 8 routed experts of 256 (top 2)
+    and one shared, vocabulary 1024, int8 row-prefix buckets and head;
+    N(0, 0.02^2) weights, unit norms."""
+    cfg = deepseek_v2_lite(dim=512, hidden_dim=1024, n_layers=3,
+                           n_experts=8, n_experts_per_tok=2,
+                           moe_hidden_dim=256, n_shared_experts=1,
+                           vocab_size=1024, max_seq_len=256)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(23)
+    L, d, H, V = cfg.n_layers, cfg.dim, cfg.n_heads, cfg.vocab_size
+    M, R = L - cfg.first_dense_layers, cfg.kv_lora_rank
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda") * 0.02
+    raw = {"tok_embeddings": rnd(V, d), "output": rnd(d, V),
+           "wq": rnd(L, d, H * cfg.qk_head_dim),
+           "wkv_a": rnd(L, d, cfg.latent_dim),
+           "wkv_b": rnd(L, R, H * (cfg.qk_nope_head_dim + cfg.v_head_dim)),
+           "wo": rnd(L, H * cfg.v_head_dim, d), "ffn_gate": rnd(M, d, 8),
+           "kv_norm": torch.ones(L, R, device="cuda"),
+           "attn_norm": torch.ones(L, d, device="cuda"),
+           "ffn_norm": torch.ones(L, d, device="cuda"),
+           "norm": torch.ones(d, device="cuda")}
+    for pre, n, f in (("dense_", cfg.first_dense_layers, cfg.hidden_dim),
+                      ("", M * cfg.n_experts, cfg.moe_hidden_dim),
+                      ("shared_", M, cfg.moe_hidden_dim)):
+        raw.update({pre + "w1": rnd(n, d, f), pre + "w3": rnd(n, d, f),
+                    pre + "w2": rnd(n, f, d)})
+    return cfg, quantize_head(assemble_weights(
+        raw, cfg, BucketConfig(bucket_size=1, chunk_rows=128,
+                               dtype="int8")))
+
+
+def phase_mla_decode(flush: torch.Tensor) -> dict:
+    """K9 against its plain version at MLA_LIVE live rows of MLA_SLOTS,
+    times with L2 flushed beside the bound; then K9's launches over a
+    captured chat turn of mla_model, counted from 0 just before it."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(99)
+    H, W, R = 16, 576, 512
+    cache = torch.randn((1, MLA_SLOTS, W), generator=g, device="cuda").to(
+        torch.bfloat16)
+    qs = [torch.randn((1, H, W), generator=g, device="cuda")
+          for _ in range(RUNS)]
+    zero = torch.zeros(1, dtype=torch.int32, device="cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    points = []
+    for live in MLA_LIVE:
+        pos = torch.full((1,), live - 1, dtype=torch.int32, device="cuda")
+
+        def run(q):
+            return mla_decode(q, cache, pos, zero, MLA_SCALE)
+
+        def plain(q):
+            return mla_decode_ref(q, cache, pos, zero, MLA_SCALE)
+        y, yr = run(qs[0]), plain(qs[0])
+        torch.cuda.synchronize()
+        err, scale = float((y - yr).abs().max()), float(yr.abs().max())
+        if not err <= K9_TOL * scale:
+            raise AssertionError(f"K9 disagrees with its plain version at "
+                                 f"{live} live rows: max|dy| {err}, max|y| "
+                                 f"{scale}")
+        p = dict(live_rows=live, S=MLA_SLOTS, H=H, W=W, R=R,
+                 blocks=mla_plan(MLA_SLOTS, sms).blocks, max_abs_err=err,
+                 max_abs_ref=scale)
+        p["bytes"] = live * W * 2 + H * (W + R) * 4
+        p["flops"] = 2 * H * (W + R) * live
+        by_bytes = p["bytes"] / HBM_BYTES_PER_S
+        by_flops = p["flops"] / BF16_FLOPS
+        p["bound_ms"] = max(by_bytes, by_flops) * 1e3
+        p["bound_by"] = "bytes" if by_bytes >= by_flops else "operations"
+        p["ms"] = median([gpu_ms(run, (q,), flush) for q in qs])
+        p["plain_ms"] = median([gpu_ms(plain, (q,), flush) for q in qs])
+        points.append(p)
+        emit({"phase": "mla_decode", **p})
+    del cache, qs
+    cfg, w = mla_model()
+    sess = ChatSession(w, cfg, pad_to=4, eos_id=-1, capture=True)
+    sess.turn([1, 5, 9], n_new=2, effort=0.25)              # capture
+    LAUNCHES["mla_decode"] = 0
+    sess.turn([7, 2], n_new=5, effort=0.25)
+    launches = LAUNCHES["mla_decode"]
+    want = cfg.n_layers * (2 + 5)
+    if launches != want:
+        raise AssertionError(f"K9 launched {launches} times over a chat "
+                             f"turn of 7 steps, not {want}")
+    emit({"phase": "mla_decode", "turn_launches": launches})
+    del sess, w
+    torch.cuda.empty_cache()
+    return {"points": points, "launches": launches}
 
 
 def build_model():
@@ -5731,6 +5847,23 @@ def k8_row(points: list, launches: int) -> dict:
     return row
 
 
+def k9_row(points: list, launches: int) -> dict:
+    """K9's entry: one call at SUMMARY_MLA live rows, each case's ms,
+    plain ms and bound beside it (by_live), and its launches over the
+    mla_decode phase's chat turn (no library kernel to time it against)."""
+    top = next(p for p in points if p["live_rows"] == SUMMARY_MLA)
+    row = {"name": "mla_decode", "route": "cuda",
+           "source": "effort_tpu_torch/csrc/mla_decode.cu",
+           "replaces": "none (the JAX package has no latent attention)",
+           "launches": launches,
+           "max_abs_err": max(p["max_abs_err"] for p in points)}
+    row.update({k: top[k] for k in ("ms", "plain_ms", "bound_ms",
+                                    "bound_by")})
+    row["by_live"] = {p["live_rows"]: {k: p[k] for k in (
+        "ms", "plain_ms", "bound_ms", "blocks")} for p in points}
+    return row
+
+
 def k2_row(points: list, launches: int, llama_points: list) -> dict:
     """K2's entry: the T = 64 summary, the T = 4 one under "_t4" keys, and
     Llama-2-7B's projections at T = 4 and 64 (llama2_points)."""
@@ -5804,6 +5937,7 @@ def main() -> int:
     run("attention", phase_attention, flush)
     run("k3_device_slots", phase_k3_device_slots, flush)
     run("decode_attention", phase_decode_attention, flush)
+    run("mla_decode", phase_mla_decode, flush)
     run("points_llama", phase_kernels_llama, flush)
     run("points_rank", phase_kernels_rank, flush)
     del flush
@@ -5935,7 +6069,8 @@ def main() -> int:
                 id(r): r for r in k1_runs + serve_runs + rank["decode"]
                 + rank["routes"] + out["moe_rank"]["decode"]
                 + [out["rank_http"]]}.values())
-            + out["parallel"]["launches"]["decode_attention"])]
+            + out["parallel"]["launches"]["decode_attention"]),
+        k9_row(out["mla_decode"]["points"], out["mla_decode"]["launches"])]
     out["seconds"] = time.perf_counter() - t_start
     OUT_DIR.mkdir(exist_ok=True)
     with open(OUT_DIR / "chip_smoke.json", "w") as f:

@@ -51,9 +51,18 @@ class BucketConfig:
         return max(1, int(round(self.percent_load * self.bucket_size)))
 
 
+# the fields of DeepSeek-V2's decoder; at their defaults they leave a
+# Llama / Mistral / Mixtral config as it was, and its saved JSON holds none
+# of them (ModelConfig.as_dict)
+_MLA_FIELDS = ("kv_lora_rank", "qk_nope_head_dim", "qk_rope_head_dim",
+               "v_head_dim", "moe_hidden_dim", "n_shared_experts",
+               "first_dense_layers", "gate_scoring", "rope_scaling")
+
+
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Transformer architecture config (Llama/Mistral/Mixtral family)."""
+    """Transformer architecture config (Llama/Mistral/Mixtral family, and
+    DeepSeek-V2's latent attention and fine-grained experts)."""
 
     name: str = "mistral-7b"
     dim: int = 4096
@@ -75,17 +84,80 @@ class ModelConfig:
     # projection's effective effort is max(effort, floor). None/{} =
     # uniform effort.
     effort_floors: Optional[dict] = None
+    # Multi-head latent attention (DeepSeek-V2), on when kv_lora_rank > 0:
+    # q is qk_nope_head_dim + qk_rope_head_dim wide a head, keys and values
+    # come from one kv_lora_rank-wide latent row and one shared
+    # qk_rope_head_dim-wide rotary key a position (the cache holds those),
+    # values are v_head_dim wide; head_dim and n_kv_heads are then unused
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+    # width of a routed expert (0: hidden_dim, Mixtral's), shared experts
+    # (n_shared_experts of that width act as one FFN n times as wide, added
+    # for every token), and leading dense layers (hidden_dim wide) before
+    # the MoE layers
+    moe_hidden_dim: int = 0
+    n_shared_experts: int = 0
+    first_dense_layers: int = 0
+    # the gates: "topk", the softmax of the top-k logits (Mixtral), or
+    # "all", the softmax over every logit and then the top k, not
+    # renormalised (DeepSeek-V2; renormalised, those gates equal "topk"'s)
+    gate_scoring: str = "topk"
+    # YaRN (DeepSeek-V2's rope_scaling dict: factor,
+    # original_max_position_embeddings, beta_fast, beta_slow, mscale,
+    # mscale_all_dim); None = plain RoPE
+    rope_scaling: Optional[dict] = None
+
+    def __post_init__(self):
+        if self.gate_scoring not in ("topk", "all"):
+            raise ValueError(f"gate_scoring {self.gate_scoring!r}")
 
     @property
     def is_moe(self) -> bool:
         return self.n_experts > 1
 
     @property
+    def is_mla(self) -> bool:
+        return self.kv_lora_rank > 0
+
+    @property
+    def qk_head_dim(self) -> int:
+        """MLA: a query head's width, its "nope" part then its rotary."""
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+    @property
+    def latent_dim(self) -> int:
+        """MLA: a cache row's width, the latent then the rotary key."""
+        return self.kv_lora_rank + self.qk_rope_head_dim
+
+    @property
+    def expert_dim(self) -> int:
+        """A routed expert's hidden width."""
+        return self.moe_hidden_dim or self.hidden_dim
+
+    def moe_layer(self, l: int) -> int:
+        """The index of layer l among the MoE layers (its gate, its shared
+        expert, and its routed experts' instances from moe_layer(l) *
+        n_experts)."""
+        return l - self.first_dense_layers
+
+    @property
     def kv_repeats(self) -> int:
         return self.n_heads // self.n_kv_heads
 
+    def as_dict(self) -> dict:
+        """The fields as a dict, without DeepSeek-V2's fields at their
+        defaults: a Llama / Mistral / Mixtral config saves what it saved
+        before they existed (the JAX package's schema)."""
+        d = dataclasses.asdict(self)
+        for f in dataclasses.fields(self):
+            if f.name in _MLA_FIELDS and d[f.name] == f.default:
+                del d[f.name]
+        return d
+
     def to_json(self) -> str:
-        return json.dumps(dataclasses.asdict(self), indent=2)
+        return json.dumps(self.as_dict(), indent=2)
 
     @staticmethod
     def from_json(s: str) -> "ModelConfig":
@@ -123,6 +195,32 @@ def mixtral_8x7b(**kw) -> ModelConfig:
     return dataclasses.replace(
         ModelConfig(name="mixtral-8x7b", n_experts=8, n_experts_per_tok=2,
                     rope_theta=1e6),
+        **kw,
+    )
+
+
+def deepseek_v2_lite(**kw) -> ModelConfig:
+    """DeepSeek-V2-Lite (deepseek-ai/DeepSeek-V2-Lite config.json;
+    DeepSeek-V2, arXiv:2405.04434 2.1-2.2): 27 layers at hidden 2048; MLA
+    with 16 heads, no q-LoRA, latent 512, q/k heads 128 + 64 rotary, v
+    128; YaRN (factor 40 from 4096 positions); layer 0 a dense FFN of
+    10944, then 64 routed experts of 1408 a layer, top 6 of a softmax over
+    all 64, not renormalised, plus 2 shared experts. max_seq_len is the
+    cache's length, 4096 (the YaRN base context), not the published
+    163840."""
+    return dataclasses.replace(
+        ModelConfig(
+            name="deepseek-v2-lite", dim=2048, hidden_dim=10944,
+            n_layers=27, n_heads=16, n_kv_heads=16, head_dim=128,
+            vocab_size=102400, norm_eps=1e-6, rope_theta=10000.0,
+            max_seq_len=4096, n_experts=64, n_experts_per_tok=6,
+            kv_lora_rank=512, qk_nope_head_dim=128, qk_rope_head_dim=64,
+            v_head_dim=128, moe_hidden_dim=1408, n_shared_experts=2,
+            first_dense_layers=1, gate_scoring="all",
+            rope_scaling={"type": "yarn", "factor": 40.0,
+                          "original_max_position_embeddings": 4096,
+                          "beta_fast": 32, "beta_slow": 1, "mscale": 0.707,
+                          "mscale_all_dim": 0.707}),
         **kw,
     )
 

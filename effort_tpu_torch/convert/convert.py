@@ -79,6 +79,9 @@ def config_from_hf(src_dir: str,
     """
     with open(os.path.join(src_dir, "config.json")) as f:
         hf = json.load(f)
+    if hf.get("kv_lora_rank"):
+        raise ValueError("a DeepSeek-V2 (MLA) checkpoint: conversion has no "
+                         "MLA path (models/mla.assemble takes raw weights)")
     n_heads = hf["num_attention_heads"]
     dim = hf["hidden_size"]
     return ModelConfig(
@@ -291,7 +294,7 @@ def convert_checkpoint(src_dir: str, dst_dir: str, cfg: ModelConfig,
     writer.save()
     src.close()
 
-    meta = {"model": dataclasses.asdict(cfg),
+    meta = {"model": cfg.as_dict(),
             "buckets": dataclasses.asdict(bcfg),
             "fused": fuse,
             "calibrated": calib is not None}

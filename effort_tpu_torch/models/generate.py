@@ -360,6 +360,9 @@ class Engine:
             raise ValueError("pick one KV-cache mode")
         if ring_kv and not cfg.sliding_window:
             raise ValueError("ring_kv requires cfg.sliding_window")
+        if (ring_kv or quant_kv) and cfg.is_mla:
+            raise ValueError("an MLA model decodes over its latent cache: "
+                             "no ring or int8 KV cache")
         self.device = resolve_device(device)
         self.w = weights.to(self.device)
         self.cfg = cfg

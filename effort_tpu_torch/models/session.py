@@ -132,6 +132,8 @@ class ChatSession:
         self.ring_kv = ring_kv
         self.device = self.engine.device
         self._kv = self.engine._kv(self.engine.kv_mode)
+        # an MLA model's latent cache is k_cache, v_cache None
+        # (transformer.make_kv_cache)
         self.k_cache, self.v_cache = self._kv[:2]
         self.pos = 0
         self.history: List[int] = []
@@ -305,6 +307,13 @@ class ChatSession:
             yield toks
             done += len(toks)
 
+    def _named_caches(self) -> tuple:
+        """The caches save() writes, by name: keys and values, or an MLA
+        model's latent cache."""
+        if self.cfg.is_mla:
+            return (("latent_cache", self.k_cache),)
+        return (("k_cache", self.k_cache), ("v_cache", self.v_cache))
+
     def reset(self) -> None:
         """Forget the conversation (cache rows are overwritten lazily)."""
         self.pos = 0
@@ -316,7 +325,8 @@ class ChatSession:
     def save(self, path: str) -> None:
         """Persist the session (KV cache + position + history) so a long
         conversation resumes without re-prefill: session.json and the
-        cache rows [:, :pos + 1] (a ring session's whole ring) as bf16."""
+        cache rows [:, :pos + 1] (a ring session's whole ring) as bf16; an
+        MLA model's latent rows as "latent_cache"."""
         from effort_tpu_torch.runtime.safetensors_io import SafeTensorWriter
         os.makedirs(path, exist_ok=True)
         wmeta = {"pos": self.pos, "history": self.history,
@@ -327,8 +337,7 @@ class ChatSession:
         # the ring wraps: every slot may be live, save it whole
         rows = (self.k_cache.shape[1] if self.ring_kv
                 else max(1, self.pos + 1))
-        for name, c in (("k_cache", self.k_cache),
-                        ("v_cache", self.v_cache)):
+        for name, c in self._named_caches():
             wr.add(name, c[:, :rows].contiguous().cpu().view(torch.uint16)
                    .numpy(),
                    bf16_bits=True)
@@ -346,8 +355,7 @@ class ChatSession:
         self = cls(weights, cfg, **kw)
         rd = MultiShardReader(path, "session")
         try:
-            for name, c in (("k_cache", self.k_cache),
-                            ("v_cache", self.v_cache)):
+            for name, c in self._named_caches():
                 rows = _bf16_of(rd[name])
                 c[:, :rows.shape[1]].copy_(rows.to(self.device))
         finally:

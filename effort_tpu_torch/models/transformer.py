@@ -102,6 +102,16 @@ class LayerWeights:
     wqkv/w13:    optional fused projections (output columns q|k|v and
                  w1|w3): one kernel launch and one shared selection in place
                  of three / two. When set, the unfused fields are None.
+
+    DeepSeek-V2 (cfg.is_mla; models/mla.py) adds, always fused:
+    wqkv:        wq|wkv_a, q's heads then the latent and the rotary key.
+    kv_norm:     [L, kv_lora_rank] f32, the latent's RMS norm.
+    w_uk, w_uv:  [L, H, nope, R] and [L, H, R, v] bf16, wkv_b's key and
+                 value halves, dense at every effort (the absorbed form).
+    dense_w13/dense_w2: the leading dense layers' FFN (instance l).
+    w13/w2:      the routed experts, instance moe_layer(l) * E + e.
+    shared_w13/shared_w2: the shared experts as one FFN, instance
+                 moe_layer(l); ffn_gate [L - first_dense_layers, dim, E].
     """
     attn_norm: torch.Tensor
     ffn_norm: torch.Tensor
@@ -115,6 +125,13 @@ class LayerWeights:
     ffn_gate: Optional[torch.Tensor]
     wqkv: Optional[BucketedMatrix] = None
     w13: Optional[BucketedMatrix] = None
+    kv_norm: Optional[torch.Tensor] = None
+    w_uk: Optional[torch.Tensor] = None
+    w_uv: Optional[torch.Tensor] = None
+    dense_w13: Optional[BucketedMatrix] = None
+    dense_w2: Optional[BucketedMatrix] = None
+    shared_w13: Optional[BucketedMatrix] = None
+    shared_w2: Optional[BucketedMatrix] = None
 
     @property
     def any_w1(self) -> BucketedMatrix:
@@ -228,20 +245,69 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
 _FREQS: dict = {}
 
 
-def rope_angles(pos, head_dim: int, theta: float, device):
+def yarn_mscale(scale: float, mscale: float = 1.0) -> float:
+    """DeepSeek-V2's yarn_get_mscale: 0.1 mscale ln(scale) + 1 (1 at
+    scale <= 1)."""
+    return 1.0 if scale <= 1 else 0.1 * mscale * math.log(scale) + 1.0
+
+
+def yarn_range(dim: int, base: float, sc: dict) -> tuple:
+    """DeepSeek-V2's yarn_find_correction_range: the frequency indices
+    (low, high) between which YaRN ramps from interpolated to original
+    frequencies, for beta_fast / beta_slow rotations over the original
+    context."""
+    orig = sc["original_max_position_embeddings"]
+
+    def dim_of(rot):
+        return (dim * math.log(orig / (rot * 2 * math.pi))) \
+            / (2 * math.log(base))
+    return (max(math.floor(dim_of(sc["beta_fast"])), 0),
+            min(math.ceil(dim_of(sc["beta_slow"])), dim - 1))
+
+
+def yarn_inv_freq(dim: int, base: float, sc: dict) -> torch.Tensor:
+    """DeepSeek-V2's YaRN inverse frequencies [dim // 2] f32 on the CPU:
+    base ** (-2i / dim) below the correction range, those divided by the
+    factor above it, a linear ramp between (its
+    DeepseekV2YarnRotaryEmbedding, in f32)."""
+    exps = torch.arange(0, dim, 2, dtype=torch.float32) / dim
+    extra = 1.0 / (base ** exps)
+    inter = 1.0 / (sc["factor"] * base ** exps)
+    low, high = yarn_range(dim, base, sc)
+    if low == high:
+        high += 0.001
+    ramp = torch.clamp((torch.arange(dim // 2, dtype=torch.float32) - low)
+                       / (high - low), 0, 1)
+    keep = 1.0 - ramp
+    return inter * (1 - keep) + extra * keep
+
+
+def rope_angles(pos, head_dim: int, theta: float, device, scaling=None):
     """(cos, sin) [..., head_dim // 2] f32 at integer position pos (an int,
     or an integer tensor [...] of positions), frequencies theta ** (-i / h)
-    in f32."""
-    key = (head_dim, theta, str(device))
+    in f32; with scaling (a YaRN rope_scaling dict, ModelConfig) YaRN's
+    frequencies, cos and sin times mscale / mscale_all_dim."""
+    key = (head_dim, theta, str(device),
+           None if scaling is None else tuple(sorted(scaling.items())))
     if key not in _FREQS:
         h = head_dim // 2
-        _FREQS[key] = (theta ** (-torch.arange(0, h, dtype=torch.float32)
-                                 / h)).to(device)
+        if scaling is None:
+            _FREQS[key] = ((theta ** (-torch.arange(0, h, dtype=torch.float32)
+                                      / h)).to(device), 1.0)
+        else:
+            m = (yarn_mscale(scaling["factor"], scaling.get("mscale", 1.0))
+                 / yarn_mscale(scaling["factor"],
+                               scaling.get("mscale_all_dim", 0.0)))
+            _FREQS[key] = (yarn_inv_freq(head_dim, theta, scaling).to(device),
+                           m)
+    freqs, m = _FREQS[key]
     if isinstance(pos, torch.Tensor):
-        angle = pos.to(torch.float32)[..., None] * _FREQS[key]
+        angle = pos.to(torch.float32)[..., None] * freqs
     else:
-        angle = float(pos) * _FREQS[key]
-    return torch.cos(angle), torch.sin(angle)
+        angle = float(pos) * freqs
+    if m == 1.0:
+        return torch.cos(angle), torch.sin(angle)
+    return torch.cos(angle) * m, torch.sin(angle) * m
 
 
 def rope_apply(x: torch.Tensor, cos: torch.Tensor,
@@ -259,6 +325,12 @@ def rope_rotate(x: torch.Tensor, pos: int, head_dim: int,
 
 
 def make_kv_cache(cfg: ModelConfig, device, dtype=torch.bfloat16):
+    """(k_cache, v_cache) [L, S, KV, D] each; on an MLA model (latent
+    [L, S, kv_lora_rank + qk_rope_head_dim], None): one row a position and
+    layer, the latent then the rotary key (models/mla.py)."""
+    if cfg.is_mla:
+        return (torch.zeros((cfg.n_layers, cfg.max_seq_len, cfg.latent_dim),
+                            dtype=dtype, device=device), None)
     shape = (cfg.n_layers, cfg.max_seq_len, cfg.n_kv_heads, cfg.head_dim)
     return (torch.zeros(shape, dtype=dtype, device=device),
             torch.zeros(shape, dtype=dtype, device=device))
@@ -380,7 +452,12 @@ def attention_reads(live: int, calls: int, S: int, cfg: ModelConfig,
     (k8_route, with no attn_fn hook in _attention's place) those rows,
     once a head group of its launch (head_groups), else every row of
     every call (the plain version and the hooks widen the whole cache).
-    Stated in closed form from the route the calls take, not measured."""
+    Stated in closed form from the route the calls take, not measured.
+    On an MLA model the rows are latent rows: K9, which every cache on the
+    card takes (models/mla.absorbed_attention), reads the live ones once
+    for every head, the plain version on the CPU all of them."""
+    if cfg.is_mla:
+        return live if device.type == "cuda" else calls * S
     if not hooked and k8_route(device, cache_dtype, cfg):
         return live * head_groups(cfg.kv_repeats)
     return calls * S
@@ -489,55 +566,84 @@ def _psum(x: torch.Tensor, tp) -> torch.Tensor:
     return y
 
 
+def _gated(w13: BucketedMatrix, w2: BucketedMatrix, inst, x, pe: dict,
+           impl: str, mv=bucket_matvec):
+    """Gated FFN of instance inst of a fused w1|w3 and its w2, the hidden
+    width half of w13's output."""
+    x13 = mv(w13, x, pe["w13"], inst, impl)
+    hid = x13.shape[-1] // 2
+    return mv(w2, torch.nn.functional.silu(x13[..., :hid]) * x13[..., hid:],
+              pe["w2"], inst, impl)
+
+
 def _expert_ffn(layer: LayerWeights, inst, x, pe: dict, cfg: ModelConfig,
                 impl: str, mv=bucket_matvec):
-    """Gated FFN of one instance (layer l of a dense model, l * E + e of an
-    MoE layer; an int or a 0-d int32 device tensor) on x [dim] (mv =
-    bucket_matvec) or on rows X [T, dim] (mv = bucket_matmul)."""
-    hid = cfg.hidden_dim
+    """Gated FFN of one instance (layer l of a dense model, moe_layer(l) *
+    E + e of an MoE layer; an int or a 0-d int32 device tensor) on x [dim]
+    (mv = bucket_matvec) or on rows X [T, dim] (mv = bucket_matmul)."""
     if layer.w13 is not None:
-        x13 = mv(layer.w13, x, pe["w13"], inst, impl)
-        x1, x3 = x13[..., :hid], x13[..., hid:]
-    else:
-        x1 = mv(layer.w1, x, pe["w1"], inst, impl)
-        x3 = mv(layer.w3, x, pe["w3"], inst, impl)
+        return _gated(layer.w13, layer.w2, inst, x, pe, impl, mv)
+    x1 = mv(layer.w1, x, pe["w1"], inst, impl)
+    x3 = mv(layer.w3, x, pe["w3"], inst, impl)
     x2 = torch.nn.functional.silu(x1) * x3
     return mv(layer.w2, x2, pe["w2"], inst, impl)
 
 
+def _add_shared(out, layer: LayerWeights, l: int, X, pe: dict,
+                cfg: ModelConfig, impl: str, mv=bucket_matvec):
+    """out plus the shared experts of MoE layer l (one FFN, instance
+    moe_layer(l)); out itself when the model has none."""
+    if not cfg.n_shared_experts:
+        return out
+    return out + _gated(layer.shared_w13, layer.shared_w2,
+                        cfg.moe_layer(l), X, pe, impl, mv)
+
+
 def route(layer: LayerWeights, l: int, x, cfg: ModelConfig):
-    """Top-k gating of layer l for x [..., dim]: (gates [..., k] f32, the
-    softmax of the top logits, and experts [..., k] int32, best first).
-    The logits are the bf16 product with the gate accumulated in f32;
+    """Top-k gating of layer l for x [..., dim]: (gates [..., k] f32 and
+    experts [..., k] int32, best first). The logits are the bf16 product
+    with the layer's gate (ffn_gate[moe_layer(l)]) accumulated in f32;
     equal logits go to the lower expert, as lax.top_k breaks ties (a
-    stable descending sort; torch.topk does not promise the order). On
-    the device, with no host read."""
+    stable descending sort; torch.topk does not promise the order). The
+    gates: the softmax of the top-k logits (gate_scoring "topk"), or
+    (DeepSeek-V2, "all") the top k of the softmax over every logit, not
+    renormalised. On the device, with no host read."""
     lead = x.shape[:-1]
     logits = mm_f32(x.to(torch.bfloat16).reshape(-1, cfg.dim),
-                    layer.ffn_gate[l]).reshape(*lead, cfg.n_experts)
+                    layer.ffn_gate[cfg.moe_layer(l)]).reshape(
+                        *lead, cfg.n_experts)
     top, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
     k = cfg.n_experts_per_tok
-    return (torch.softmax(top[..., :k], dim=-1),
-            idx[..., :k].to(torch.int32))
+    idx = idx[..., :k]
+    if cfg.gate_scoring == "topk":
+        return torch.softmax(top[..., :k], dim=-1), idx.to(torch.int32)
+    return (torch.softmax(logits, dim=-1).gather(-1, idx),
+            idx.to(torch.int32))
 
 
 def _ffn(layer: LayerWeights, l: int, x, pe: dict, cfg: ModelConfig,
          impl: str, tp=None):
     """FFN of layer l on one token x [dim]: the dense gated FFN, or the
     MoE one (the JAX package's _ffn): the gates of the top-k experts, and
-    out = sum over i in top-k order of gates[i] * FFN_{l*E + e_i}(x), in
-    f32. Each instance stays a 0-d int32 device tensor, so K1 / K4 read
-    it on the card and the layer waits on no host read. tp: summed over
-    that axis after w2 (dense) or after the gated sum (MoE)."""
+    out = sum over i in top-k order of gates[i] * FFN_{m*E + e_i}(x), in
+    f32 (m = moe_layer(l)), then the shared experts added (DeepSeek-V2;
+    its leading dense layers run dense_w13 / dense_w2). Each instance
+    stays a 0-d int32 device tensor, so K1 / K4 read it on the card and
+    the layer waits on no host read. tp: summed over that axis after w2
+    (dense) or after the gated sum (MoE)."""
     E = cfg.n_experts
     if E == 1:
         return _psum(_expert_ffn(layer, l, x, pe, cfg, impl), tp)
+    if l < cfg.first_dense_layers:
+        return _psum(_gated(layer.dense_w13, layer.dense_w2, l, x, pe,
+                            impl), tp)
     gates, idx = route(layer, l, x, cfg)
+    base = cfg.moe_layer(l) * E
     out = None
     for i in range(cfg.n_experts_per_tok):
-        y = gates[i] * _expert_ffn(layer, idx[i] + l * E, x, pe, cfg, impl)
+        y = gates[i] * _expert_ffn(layer, idx[i] + base, x, pe, cfg, impl)
         out = y if out is None else out + y
-    return _psum(out, tp)
+    return _psum(_add_shared(out, layer, l, x, pe, cfg, impl), tp)
 
 
 def _row_efforts(pe: dict, rows) -> dict:
@@ -585,14 +691,14 @@ def _moe_grouped(layer: LayerWeights, l: int, X, pe: dict,
         pairs = order[start:start + n]
         rows = torch.div(pairs, k, rounding_mode="floor")
         Y.index_copy_(0, pairs, _expert_ffn(
-            layer, l * E + e, X.index_select(0, rows),
+            layer, cfg.moe_layer(l) * E + e, X.index_select(0, rows),
             _row_efforts(pe, rows), cfg, impl, mv=bucket_matmul))
         start += n
     Y = Y.reshape(T, k, cfg.dim)
     out = gates[:, :1] * Y[:, 0]
     for i in range(1, k):
         out = out + gates[:, i:i + 1] * Y[:, i]
-    return out
+    return _add_shared(out, layer, l, X, pe, cfg, impl, mv=bucket_matmul)
 
 
 def _ffn_seq(layer: LayerWeights, l: int, X, pe: dict, cfg: ModelConfig,
@@ -608,6 +714,9 @@ def _ffn_seq(layer: LayerWeights, l: int, X, pe: dict, cfg: ModelConfig,
     if cfg.n_experts == 1:
         return _psum(_expert_ffn(layer, l, X, pe, cfg, impl,
                                  mv=bucket_matmul), tp)
+    if l < cfg.first_dense_layers:
+        return _psum(_gated(layer.dense_w13, layer.dense_w2, l, X, pe, impl,
+                            mv=bucket_matmul), tp)
     if impl == "reference" or not moe_grouped:
         return _psum(_moe_rows(layer, l, X, pe, cfg, impl), tp)
     return _psum(_moe_grouped(layer, l, X, pe, cfg, impl), tp)
@@ -637,7 +746,17 @@ def forward_layers(w: ModelWeights, cfg: ModelConfig, h, pos, k_cache,
     layer, as the JAX package's scan stacks it).
     pos, rope_offset, mask_from: ints or 0-d int device tensors. The hooks
     (see forward_token) replace the row write, the attention read and the
-    FFN; tp sums over a tensor-parallel axis (the module docstring)."""
+    FFN; tp sums over a tensor-parallel axis (the module docstring).
+    An MLA model (cfg.is_mla) runs models/mla.forward_layers, k_cache its
+    latent cache (v_cache unused), with no hooks."""
+    if cfg.is_mla:
+        from effort_tpu_torch.models import mla
+        if (kv_update_fn or attn_fn or collect_h or tp is not None
+                or ffn_fn is not None):
+            raise ValueError("an MLA model's decode step takes no KV hooks, "
+                             "collect_h, tp or ffn_fn")
+        return mla.forward_layers(w, cfg, h, pos, k_cache, effort, impl,
+                                  rope_offset, mask_from)
     KV, D = cfg.n_kv_heads, cfg.head_dim
     pe = proj_efforts(effort, cfg)
     lw = w.layers
@@ -716,6 +835,13 @@ def forward_seq(w: ModelWeights, cfg: ModelConfig, token_ids: torch.Tensor,
     rank's vocabulary shard under tp)."""
     T = token_ids.shape[0]
     dev = w.device
+    if cfg.is_mla:
+        from effort_tpu_torch.models import mla
+        if tp is not None:
+            raise ValueError("an MLA model's prefill takes no tp")
+        return mla.forward_seq(w, cfg, token_ids, k_cache, start_slot,
+                               rope_offset, mask_from, effort, impl,
+                               moe_grouped)
     attn_impl = _attn_impl(attn_impl, dev)
     KV, D, H = cfg.n_kv_heads, cfg.head_dim, cfg.n_heads
     if not isinstance(start_slot, torch.Tensor) \
@@ -769,6 +895,7 @@ def forward_seq_batch(w: ModelWeights, cfg: ModelConfig,
     card, or materialized scores, as forward_seq's attn_impl); an MoE FFN
     token by token (_moe_rows). The caches [L, B, S, KV, D] are written
     in place. Returns logits [B, T, vocab] f32 through the bf16 head."""
+    _no_mla_batch(cfg)
     B, T = token_ids.shape
     dev = w.device
     attn_impl = _attn_impl(attn_impl, dev)
@@ -809,6 +936,13 @@ def forward_seq_batch(w: ModelWeights, cfg: ModelConfig,
     return mm_f32(X.to(torch.bfloat16), w.output).reshape(B, T, -1)
 
 
+def _no_mla_batch(cfg: ModelConfig) -> None:
+    if cfg.is_mla:
+        raise ValueError("batched decode of an MLA model (DeepSeek-V2) is "
+                         "not in the port: no batched latent cache, K9 over "
+                         "slots or K3 at unequal head widths")
+
+
 def make_batch_kv_cache(cfg: ModelConfig, batch_size: int, device,
                         dtype=torch.bfloat16):
     """The batch KV cache: [L, B, S, KV, D] per side (the int8 one is
@@ -841,6 +975,7 @@ def forward_token_batch(w: ModelWeights, cfg: ModelConfig,
     (data [L, B, S, KV, D], scale [L, B, S, KV]) pairs per side
     (make_quant_kv_cache), each new row quantized per kv head, and
     attention takes the plain version. Returns logits [B, vocab] f32."""
+    _no_mla_batch(cfg)
     B = toks.shape[0]
     dev = w.device
     KV, D, H = cfg.n_kv_heads, cfg.head_dim, cfg.n_heads
@@ -1023,10 +1158,42 @@ def _concat_raw(entries) -> RawWeight:
         n_inst, in_d, sum(r.out_dim for r in rws))
 
 
+def _bucketed(wt, bcfg: BucketConfig, keep_dense: bool = False,
+              bake: bool = True, percent_load: float = 1.0, in_rms=None,
+              in_pi=None, out_pi=None):
+    """One raw weight (a tensor [n_inst, in, out] or a RawWeight) as one
+    BucketedMatrix, bucketized a slice of instances at a time (~1 GB of
+    f32): baked with in_pi / out_pi, or with the run-time permute of
+    in_rms (bake=False)."""
+    from effort_tpu_torch.models.weights import truncate_bucketed
+    rw = wt if isinstance(wt, RawWeight) else RawWeight.of(wt)
+    b = dataclasses.replace(
+        bcfg, chunk_rows=pick_chunk_rows(bcfg, rw.in_dim, rw.out_dim))
+    chunk = max(1, int(2**30 // (rw.in_dim * rw.out_dim * 4)))
+
+    def parts():
+        for s in range(0, rw.n_inst, chunk):
+            wt_c = rw.make(s, min(chunk, rw.n_inst - s))
+            dev = wt_c.device
+            if bake:
+                p = bucketize(wt_c, b, keep_dense=keep_dense,
+                              in_perm=_on(in_pi, dev),
+                              out_perm=_on(out_pi, dev))
+            else:
+                p = bucketize(wt_c, b, keep_dense=keep_dense,
+                              act_rms=_on(in_rms, dev), perm_segment=1)
+            del wt_c
+            if percent_load < 1.0:
+                p = truncate_bucketed(p, percent_load)
+            yield p
+    return concat_bucketed(parts(), rw.n_inst)
+
+
 def assemble_weights(raw: dict, cfg: ModelConfig, bcfg: BucketConfig,
                      keep_dense: bool = False, rms_m=None, rms_f=None,
                      bake: bool = True, fuse: bool = False,
-                     percent_load: float = 1.0) -> ModelWeights:
+                     percent_load: float = 1.0, rms_e=None,
+                     rms_s=None) -> ModelWeights:
     """Bucketize raw dense weights (tensors [n_inst, in, out] or RawWeight)
     into ModelWeights, a slice of instances at a time (~1 GB of f32).
 
@@ -1040,33 +1207,20 @@ def assemble_weights(raw: dict, cfg: ModelConfig, bcfg: BucketConfig,
       pi_f: w1/w3 output cols, w2 input rows.
     The forward pass is unchanged and no run-time permute exists.
     bake=False keeps the run-time permute (seg_order) form instead.
+    An MLA model (DeepSeek-V2) is assembled by models/mla.assemble, always
+    fused and baked; rms_e / rms_s are its routed and shared experts'
+    hidden spaces (rms_f its dense layers').
     """
-    from effort_tpu_torch.models.weights import truncate_bucketed
+    if cfg.is_mla:
+        from effort_tpu_torch.models import mla
+        return mla.assemble(raw, cfg, bcfg, keep_dense, rms_m, rms_f, rms_e,
+                            rms_s)
     pi_m = calib_row_order(rms_m) if rms_m is not None else None
     pi_f = calib_row_order(rms_f) if rms_f is not None else None
 
     def bucketed(wt, in_rms=None, in_pi=None, out_pi=None):
-        rw = wt if isinstance(wt, RawWeight) else RawWeight.of(wt)
-        b = dataclasses.replace(
-            bcfg, chunk_rows=pick_chunk_rows(bcfg, rw.in_dim, rw.out_dim))
-        chunk = max(1, int(2**30 // (rw.in_dim * rw.out_dim * 4)))
-
-        def parts():
-            for s in range(0, rw.n_inst, chunk):
-                wt_c = rw.make(s, min(chunk, rw.n_inst - s))
-                dev = wt_c.device
-                if bake:
-                    p = bucketize(wt_c, b, keep_dense=keep_dense,
-                                  in_perm=_on(in_pi, dev),
-                                  out_perm=_on(out_pi, dev))
-                else:
-                    p = bucketize(wt_c, b, keep_dense=keep_dense,
-                                  act_rms=_on(in_rms, dev), perm_segment=1)
-                del wt_c
-                if percent_load < 1.0:
-                    p = truncate_bucketed(p, percent_load)
-                yield p
-        return concat_bucketed(parts(), rw.n_inst)
+        return _bucketed(wt, bcfg, keep_dense, bake, percent_load, in_rms,
+                         in_pi, out_pi)
 
     out_head = raw["output"]
     emb = raw["tok_embeddings"]

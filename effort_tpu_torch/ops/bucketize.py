@@ -53,7 +53,9 @@ def calib_row_order(act_rms) -> torch.Tensor:
 def pick_chunk_rows(cfg: BucketConfig, in_dim: int, out_dim: int) -> int:
     """Per-matrix chunk size. For the row-prefix layout (bucket_size=1)
     chunk_rows sets the streaming granularity of the coverage bound: the
-    largest chunk of at most ~3 MB that leaves >= 4 chunks."""
+    largest chunk of at most ~3 MB that leaves >= 4 chunks; where none
+    fits and chunk_rows does not divide in_dim, chunk_rows halved until it
+    does (DeepSeek-V2's dense w2: 10944 rows, 64-row chunks)."""
     if cfg.bucket_size != 1:
         return cfg.chunk_rows
     item = {"bf16": 2, "int8": 1, "int4": 0.5}[cfg.dtype]
@@ -62,6 +64,8 @@ def pick_chunk_rows(cfg: BucketConfig, in_dim: int, out_dim: int) -> int:
         if (in_dim % cand == 0 and cand * 4 <= in_dim
                 and cand * out_dim * item <= 3 * 2**20):
             return max(G, cand)
+    while in_dim % G and G % 2 == 0:
+        G //= 2
     return G
 
 

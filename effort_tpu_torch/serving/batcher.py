@@ -93,6 +93,11 @@ class BatchEngine:
                  spec_draft_effort: float = 0.25, device=None, capture=None):
         if kv_dtype not in ("bf16", "int8"):
             raise ValueError(f"kv_dtype {kv_dtype!r}: bf16 or int8")
+        if cfg.is_mla:
+            raise ValueError("BatchEngine has no MLA path (DeepSeek-V2): "
+                             "batched decode needs a batched latent cache "
+                             "and K9 over slots; serve it through Engine or "
+                             "ChatSession")
         if spec_k < 0:
             raise ValueError(f"spec_k {spec_k} < 0")
         if spec_k and kv_dtype == "int8":

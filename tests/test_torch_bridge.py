@@ -144,7 +144,8 @@ for name in ("kernels.fused_stream", "kernels.flash_attention",
              "train", "train.trainer", "train.optim", "parallel",
              "parallel.collectives", "parallel.multihost", "parallel.tp",
              "parallel.sp", "parallel.ep", "parallel.pp",
-             "parallel.composed", "parallel._ranks"):
+             "parallel.composed", "parallel._ranks", "models.mla",
+             "kernels.mla_decode"):
     importlib.import_module("effort_tpu_torch." + name)
 spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1])
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
@@ -168,9 +169,10 @@ def test_port_imports_no_jax():
     user-facing modules: cli, __main__, models.session, models.tester,
     models.autotune, ops.oracle, eval.harness, utils.profiling; the
     trainer: train, train.trainer, train.optim; the parallel modules:
-    parallel.*) and chip_smoke.py leaves jax, optax and every effort_tpu
-    module out of sys.modules, and so does a rank spawned by
-    parallel.multihost.spawn (gloo, one rank)."""
+    parallel.*; DeepSeek-V2's: models.mla, kernels.mla_decode) and
+    chip_smoke.py leaves jax, optax and every effort_tpu module out of
+    sys.modules, and so does a rank spawned by parallel.multihost.spawn
+    (gloo, one rank)."""
     r = subprocess.run(
         [sys.executable, "-c", _ISOLATION,
          os.path.join(REPO, "chip_smoke.py")],

@@ -237,7 +237,7 @@ def test_config_from_hf_matches_jax(tmp_path, family):
     for seq in (None, 96):
         tc = port_convert.config_from_hf(str(tmp_path), seq)
         jc = jax_convert.config_from_hf(str(tmp_path), seq)
-        assert dataclasses.asdict(tc) == dataclasses.asdict(jc)
+        assert tc.as_dict() == dataclasses.asdict(jc)
     assert tc.n_experts == cfg.n_experts and tc.max_seq_len == 96
 
 
@@ -305,7 +305,7 @@ def test_load_matches_jax(ckpts, cid, percent_load, load_dense):
     tw, tc, tb = port_weights.load_bucketized(
         dj, percent_load=percent_load, load_dense=load_dense, device="cpu",
         hbm_budget_bytes=16 * 2**30)
-    assert dataclasses.asdict(tc) == dataclasses.asdict(jc)
+    assert tc.as_dict() == dataclasses.asdict(jc)
     assert dataclasses.asdict(tb) == dataclasses.asdict(jb)
     _assert_same_weights(tw, jw)
     if percent_load is not None and BY_ID[cid].B == 4:

@@ -1521,3 +1521,217 @@ def test_decode_attention_launches_once_a_layer_a_step():
     cb.run_until_drained()
     assert be._graph is not None
     assert LAUNCHES["decode_attention"] - before == L * cb.counts["steps"]
+
+
+# ---- K9: latent attention of an MLA model in absorbed form --------------
+
+# K9 against the plain version: max|dy| <= K9_TOL max|y_ref|. Both sum in
+# f32, in other orders (the kernel by 16-row tiles and chunks, then a
+# combine of the chunks' partials; the plain version through einsums over
+# every row and a softmax over all of them); as K8_TOL
+K9_TOL = 1e-4
+
+
+def _k9_inputs(B, S, seed):
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    q = torch.randn((B, 16, 576), generator=g, device="cuda")
+    cache = torch.randn((B, S, 576), generator=g, device="cuda").to(
+        torch.bfloat16)
+    return q, cache
+
+
+def _k9_against_plain(q, cache, pos, mask_from):
+    """K9 and its plain version on the same inputs: slots with a live row
+    within K9_TOL, slots with none exactly 0 from K9."""
+    from effort_tpu_torch.kernels.mla_decode import (mla_decode,
+                                                     mla_decode_ref)
+    y = mla_decode(q, cache, pos, mask_from, 0.11472)
+    yr = mla_decode_ref(q, cache, pos, mask_from, 0.11472)
+    torch.cuda.synchronize()
+    some = (pos >= mask_from) & (mask_from < cache.shape[1])
+    assert not y[~some].any()
+    if some.any():
+        err = float((y[some] - yr[some]).abs().max())
+        assert err <= K9_TOL * float(yr[some].abs().max()), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1024, 4096])
+@pytest.mark.parametrize("B", [1, 3])
+def test_mla_decode_cuda_kernel_matches_plain(B, S):
+    """K9 against its plain version at DeepSeek-V2's widths over caches of
+    1k and 4k rows: positions 0, a tile's last and next row, a chunk's
+    edges, the middle and S - 1, left pads, and a slot with no live
+    position (ragged across the slots at B = 3); one launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from effort_tpu_torch.kernels.mla_decode import mla_plan
+    q, cache = _k9_inputs(B, S, seed=B + S)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = mla_plan(S, sms)
+    ch = 16 * plan.min_tiles
+    edges = [0, 15, 16, ch - 1, ch, S // 2 + 3, S - 1]
+    i32 = dict(dtype=torch.int32, device="cuda")
+    cases = []
+    for p in edges:
+        pos = torch.tensor([p, S - 1 - p, p // 2][:B], **i32)
+        cases.append((pos, torch.zeros(B, **i32)))
+    cases += [(torch.tensor([300, 1000, 17][:B], **i32),
+               torch.tensor([5, 999, 0][:B], **i32)),
+              (torch.tensor([40, S - 1, 3][:B], **i32),
+               torch.tensor([41, 0, 4][:B], **i32))]
+    launches = LAUNCHES["mla_decode"]
+    for pos, mf in cases:
+        _k9_against_plain(q, cache, pos, mf)
+    assert LAUNCHES["mla_decode"] == launches + len(cases)
+
+
+@pytest.mark.cuda
+def test_mla_decode_under_a_captured_graph_equals_eager():
+    """K9 captured once, replayed as the position and left pad in its
+    buffers move (the kernel reads them on the card and chunks the live
+    range itself): each replay equals the eager call, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from effort_tpu_torch.kernels.mla_decode import mla_decode
+    q, cache = _k9_inputs(1, 4096, seed=5)
+    pos = torch.tensor([5], dtype=torch.int32, device="cuda")
+    mf = torch.tensor([0], dtype=torch.int32, device="cuda")
+    out = torch.empty((1, 16, 512), device="cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        out.copy_(mla_decode(q, cache, pos, mf, 0.1))
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out.copy_(mla_decode(q, cache, pos, mf, 0.1))
+    for p, m in ((5, 0), (4095, 0), (1000, 7), (16, 16), (2047, 2000)):
+        pos.fill_(p)
+        mf.fill_(m)
+        graph.replay()
+        want = mla_decode(q, cache, pos, mf, 0.1)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want), p
+
+
+@pytest.mark.cuda
+def test_mla_decode_wrapper_raises_on_what_it_does_not_take():
+    """On CUDA tensors K9's wrapper launches or raises: an f32 cache, a
+    cache on the CPU, 8 heads, rows 512 wide, int64 positions and an int
+    position for several slots are refused before any launch, and nothing
+    is counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from effort_tpu_torch.kernels.mla_decode import mla_decode
+    q, cache = _k9_inputs(2, 64, seed=3)
+    pos = torch.tensor([3, 9], dtype=torch.int32, device="cuda")
+    before = dict(LAUNCHES)
+    with pytest.raises(ValueError, match="bf16"):
+        mla_decode(q, cache.float(), pos, pos * 0)
+    with pytest.raises(ValueError, match="tensors on"):
+        mla_decode(q, cache.cpu(), pos, pos * 0)
+    with pytest.raises(ValueError, match="16 heads"):
+        mla_decode(q[:, :8].contiguous(), cache, pos, pos * 0)
+    with pytest.raises(ValueError, match="16 heads"):
+        mla_decode(q[..., :512].contiguous(), cache[..., :512].contiguous(),
+                   pos, pos * 0)
+    with pytest.raises(ValueError, match="int32"):
+        mla_decode(q, cache, pos.long(), pos * 0)
+    with pytest.raises(ValueError, match="int32 tensor"):
+        mla_decode(q, cache, 3, 0)
+    assert LAUNCHES == before
+
+
+def _small_deepseek():
+    """DeepSeek-V2-Lite's attention widths (K9's) at 3 layers, 8 experts
+    of 256 (top 2) and one shared, hidden 512, int8 row-prefix buckets,
+    from the test reference's seeded raw weights."""
+    from deepseek_v2_reference import raw_weights
+    from effort_tpu_torch.config import deepseek_v2_lite
+    from effort_tpu_torch.models import transformer as tf
+    cfg = deepseek_v2_lite(dim=512, hidden_dim=1024, n_layers=3,
+                           n_experts=8, n_experts_per_tok=2,
+                           moe_hidden_dim=256, n_shared_experts=1,
+                           vocab_size=1024, max_seq_len=256)
+    hf = dict(num_hidden_layers=3, hidden_size=512, intermediate_size=1024,
+              num_attention_heads=16, kv_lora_rank=512, qk_nope_head_dim=128,
+              qk_rope_head_dim=64, v_head_dim=128, n_routed_experts=8,
+              num_experts_per_tok=2, moe_intermediate_size=256,
+              n_shared_experts=1, first_k_dense_replace=1, vocab_size=1024)
+    raw = raw_weights(hf, seed=3, device="cuda")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(4)
+
+    def rms(n):
+        return torch.exp(torch.randn(n, generator=g, device="cuda") * 1.2)
+    w = tf.quantize_head(tf.assemble_weights(
+        raw, cfg, BucketConfig(bucket_size=1, chunk_rows=128, dtype="int8"),
+        rms_m=rms(512), rms_f=rms(1024), rms_e=rms(256), rms_s=rms(256)))
+    return cfg, w
+
+
+@pytest.mark.cuda
+def test_mla_decode_launches_once_a_layer_a_step():
+    """An MLA model on the card: LAUNCHES["mla_decode"] rises by n_layers
+    a step through Engine's captured decode steps and a captured chat
+    turn, and no K8 runs; the captured turn's tokens equal the eager
+    turn's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from effort_tpu_torch.models.generate import Engine
+    from effort_tpu_torch.models.session import ChatSession
+    cfg, w = _small_deepseek()
+    L = cfg.n_layers
+    prompt = [1, 5, 9, 13]
+    eng = Engine(w, cfg, pad_to=8, eos_id=-1)
+    eng.generate(prompt, n_new=3, effort=0.25)               # capture
+    before = dict(LAUNCHES)
+    eng.generate(prompt, n_new=6, effort=0.25)
+    steps = 8 + 6 - 1
+    assert LAUNCHES["mla_decode"] - before["mla_decode"] == L * steps
+    assert LAUNCHES["decode_attention"] == before["decode_attention"]
+    turns = []
+    for capture in (True, False):
+        sess = ChatSession(w, cfg, pad_to=4, eos_id=-1, capture=capture)
+        assert sess.k_cache.is_cuda
+        out = [sess.turn([1, 5, 9], n_new=2, effort=0.25)]
+        before = LAUNCHES["mla_decode"]
+        out.append(sess.turn([7, 2], n_new=5, effort=0.25))
+        assert LAUNCHES["mla_decode"] - before == L * (2 + 5)
+        turns.append(out)
+    assert turns[0] == turns[1]
+
+
+@pytest.mark.cuda
+def test_mla_model_at_widths_k9_does_not_take_raises_on_the_card():
+    """An MLA model whose attention widths K9 does not take (the tiny
+    shape of tests/test_torch_deepseek.py: 4 heads over 80-wide rows) runs
+    no plain attention on the card: its decode step raises K9's refusal,
+    and nothing is launched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from deepseek_v2_reference import raw_weights
+    from effort_tpu_torch.config import deepseek_v2_lite
+    from effort_tpu_torch.models import transformer as tf
+    from effort_tpu_torch.models.session import ChatSession
+    cfg = deepseek_v2_lite(dim=128, hidden_dim=256, n_layers=2, n_heads=4,
+                           n_kv_heads=4, head_dim=32, n_experts=4,
+                           n_experts_per_tok=2, moe_hidden_dim=64,
+                           n_shared_experts=1, kv_lora_rank=64,
+                           qk_nope_head_dim=32, qk_rope_head_dim=16,
+                           v_head_dim=32, vocab_size=256, max_seq_len=64)
+    hf = dict(num_hidden_layers=2, hidden_size=128, intermediate_size=256,
+              num_attention_heads=4, kv_lora_rank=64, qk_nope_head_dim=32,
+              qk_rope_head_dim=16, v_head_dim=32, n_routed_experts=4,
+              num_experts_per_tok=2, moe_intermediate_size=64,
+              n_shared_experts=1, first_k_dense_replace=1, vocab_size=256)
+    w = tf.assemble_weights(raw_weights(hf, seed=1, device="cuda"), cfg,
+                            BucketConfig(bucket_size=1, chunk_rows=16,
+                                         dtype="int8"))
+    sess = ChatSession(w, cfg, pad_to=4, eos_id=-1, capture=False)
+    before = LAUNCHES["mla_decode"]
+    with pytest.raises(ValueError, match="16 heads"):
+        sess.turn([1, 5, 9], n_new=2, effort=1.0)
+    assert LAUNCHES["mla_decode"] == before
