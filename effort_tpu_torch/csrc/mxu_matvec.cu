@@ -14,19 +14,20 @@
 // weight. Three launches on the caller's stream, no host sync; the stream
 // reads C from device memory, so moving the effort knob changes nothing on
 // the host and a decode step stays capturable in a CUDA graph:
-//   k1_select_kernel  min(nc, SMs) blocks of kSelThreads threads (the
-//       wrapper's fused_stream.select_plan), each owning a run of whole
-//       chunks: every block finds the cutoff itself
-//       (row_prefix::find_cutoff: the same bits everywhere, no wait across
-//       blocks), writes u for its rows and its chunks' f64 masses into a
-//       per-card scratch with plain stores (a block's rows, up to
-//       kRowRegs a thread, are loaded before the search and held in
-//       registers; more go through row_prefix::chunk_masses after it);
-//       the last block to finish (a
-//       __threadfence and a ticket) scans the masses into C with one warp
-//       (row_prefix::chunk_prefix_len) and sets the ticket back to 0. The
-//       work that one block did alone (reading v, stats and scales, a
-//       serial prefix on one thread) is spread over the card.
+//   k1_select_kernel  kSelThreads threads a block: one block where it
+//       holds every row in registers (in_dim <= kRowRegs * kSelThreads),
+//       else min(nc, SMs) blocks, each owning a run of whole chunks (the
+//       wrapper's fused_stream.select_plan). Every block finds the cutoff
+//       itself (k1_find_cutoff, row_prefix::find_cutoff's search with its
+//       counts in kCopies histograms: the same bits everywhere, no wait
+//       across blocks) and writes u for its rows and its chunks' f64
+//       masses (a block's rows, up to kRowRegs a thread, are loaded before
+//       the search and held in registers; more go through
+//       row_prefix::chunk_masses after it). One block scans its masses
+//       into C with one warp (row_prefix::chunk_prefix_len); of several,
+//       each stores its masses into a per-card scratch, and the last to
+//       finish (a __threadfence and a ticket) scans them and sets the
+//       ticket back to 0.
 //   k1_stream_kernel  each warp streams its rows of the block's row range
 //       (it ends at C*G) in 16-byte loads, the next rows' loads issued
 //       before the current rows are decoded (int8 and int4 by a byte
@@ -34,22 +35,27 @@
 //       partial sums of the block's columns go to device memory.
 //   k1_reduce_kernel  adds the live splits in split order, so the output
 //       is deterministic and greedy tokens repeat run to run.
-// The stream and the split sum are launched as programmatic dependents
+// All three are launched as programmatic dependents
 // (cudaLaunchAttributeProgrammaticStreamSerialization): each is scheduled
 // while the launch before it runs and waits (griddepcontrol.wait) for its
-// end before it reads C, u or the partial sums, so a launch's latency is
-// hidden behind the work before it. The scratch and its ticket are one per
-// card: calls on one CUDA stream run in order, and every launch of the
-// port is on the caller's current stream, so no two selections use them
-// at once.
+// end before it reads its inputs, so a launch's latency is hidden behind
+// the work before it. HBM would idle through the selection, which sets a
+// call's time on every matrix of the cells (a few us against a stream of
+// 0.3-9 us); so the stream's blocks, resident beside the selection, ask
+// their rows among the leading kPrefetchNum / kPrefetchDen of the chunks
+// (rows every C streams first, at most kPrefetchBytes) into L2 before they
+// wait, and read them from there once C is known. The scratch and its
+// ticket are one per card: calls on one CUDA stream run in order, and
+// every launch of the port is on the caller's current stream, so no two
+// selections use them at once.
 //
 // The instance. The kernels take base pointers of every instance and a
 // pointer to the instance e (int32), and form their own offsets: values
 // e*in_dim rows, probes e*P, stats and scales e*in_dim. The instance is
 // written before the chain (by the routing's kernels, or it is a constant
-// the wrapper keeps), and k1_select_kernel is an ordinary launch, which
-// starts after all earlier work on the stream has ended; so the stream, a
-// dependent, may read it before griddepcontrol.wait.
+// the wrapper keeps); k1_select_kernel reads it after its wait and lets
+// the stream be scheduled only then, so the stream, a dependent, may read
+// it before its own griddepcontrol.wait.
 
 #include "row_prefix.cuh"
 
@@ -61,6 +67,12 @@ constexpr int kStreamThreads = 256;  // 8 warps; one warp row = 512 bytes
 constexpr int kWarps = kStreamThreads / 32;
 constexpr int kUnroll = 4;
 constexpr int kRowRegs = 2;          // selection rows a thread holds
+constexpr int kCopies = 4;           // histograms of a cutoff search level
+// The leading rows the stream prefetches into L2 while the selection runs:
+// the first kPrefetchNum / kPrefetchDen of the chunks, and at most
+// kPrefetchBytes of values (about what HBM moves in a selection's time).
+constexpr int kPrefetchNum = 1, kPrefetchDen = 4;
+constexpr long long kPrefetchBytes = 24ll << 20;
 
 // programmatic dependent launch: let the next launch on the stream be
 // scheduled, and wait until the launch before has ended and its writes are
@@ -76,12 +88,91 @@ __device__ __forceinline__ void prefetch_l2(const void* p) {
   asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
 }
 
+// One level of the cutoff search, as row_prefix::level_misses counts it,
+// with the counts in kCopies histograms (warp w adds into copy w %
+// kCopies; hist holds kCopies * kNL, zeroed by the caller): after the
+// barrier a lane adds kCopies counts. level_misses has every warp add all
+// 32 warps' histograms, 32 times the shared-memory reads, which its
+// bandwidth makes about a thousand cycles a level. Integer counts: the
+// same answer.
+template <class Thr, class Est>
+__device__ __forceinline__ int k1_level_misses(const float* sc, int* hist,
+                                               int kq, Thr t, Est est) {
+  const int lane = threadIdx.x & 31;
+  int* own = hist + ((threadIdx.x >> 5) % kCopies) * kNL;
+#pragma unroll
+  for (int k = 0; k < kScores; ++k) {
+    if (!(sc[k] >= 0.f)) continue;
+    const int b = bin_from(sc[k], est(sc[k]), t);
+    if (b < kNL) atomicAdd(&own[b], 1);
+  }
+  __syncthreads();
+  int c = 0;
+#pragma unroll
+  for (int q = 0; q < kCopies; ++q) c += hist[q * kNL + lane];
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, c, o);
+    if (lane >= o) c += y;
+  }
+  return __popc(__ballot_sync(0xffffffffu, c < kq));
+}
+
+// row_prefix::find_cutoff, bit for bit, with its levels counted by
+// k1_level_misses (K2 and K4 keep find_cutoff).
+__device__ __forceinline__ float k1_find_cutoff(
+    const float* __restrict__ v, int P, int stride,
+    const float* __restrict__ probes, float eff,
+    const float* __restrict__ tables) {
+  __shared__ float s_wmax[kSelWarps];
+  __shared__ float s_tab[2 * kNL];
+  __shared__ int s_hist[2][kCopies * kNL];
+  const int tid = threadIdx.x, lane = tid & 31;
+  if (tid < 2 * kNL) s_tab[tid] = tables[tid];
+  if (tid < kCopies * kNL) {
+    s_hist[0][tid] = 0;
+    s_hist[1][tid] = 0;
+  }
+  float sc[kScores];
+  float mx = 0.f;  // scores are >= 0; -1 marks past P
+#pragma unroll
+  for (int k = 0; k < kScores; ++k) {
+    const int i = tid + k * kSelThreads;
+    sc[k] = i < P ? fabsf(__fmul_rn(v[(size_t)i * stride], probes[i])) : -1.f;
+    mx = fmaxf(mx, sc[k]);
+  }
+  mx = warp_max(mx);
+  if (lane == 0) s_wmax[tid >> 5] = mx;
+  __syncthreads();
+  const float m = __fadd_rn(warp_max(s_wmax[lane]), 1e-30f);
+  const int kq = (int)fminf(fmaxf(rintf(__fmul_rn((float)P, eff)), 1.f),
+                            (float)P);
+  const float log2m = __log2f(m);
+  const int nh = k1_level_misses(
+      sc, s_hist[0], kq, [&](int j) { return __fmul_rn(m, s_tab[j]); },
+      [&](float x) {
+        return clamp_bin((__log2f(x) - log2m) * -1.4499901f);  // 1/log2 .62
+      });
+  const float lo = nh < kNL ? __fmul_rn(m, s_tab[nh]) : 0.f;
+  const float hi = (nh < kNL && nh >= 1) ? __fmul_rn(m, s_tab[nh - 1]) : m;
+  const float span = __fsub_rn(hi, lo);
+  const float per = (float)kNL / span;
+  auto t2 = [&](int j) {
+    return __fsub_rn(hi, __fmul_rn(span, s_tab[kNL + j]));
+  };
+  const int nh2 = k1_level_misses(sc, s_hist[1], kq, t2, [&](float x) {
+    return clamp_bin((hi - x) * per);
+  });
+  return nh2 < kNL ? t2(nh2) : lo;
+}
+
 // A selection block's rows [r0, r0 + n) (whole chunks of G rows, n <=
-// kRowRegs * kSelThreads), row r0 + tid + q*kSelThreads in slot q: its
-// selected mass x = stats * |v| and its u before selection, v * scale,
-// loaded before the cutoff is known.
+// kRowRegs * kSelThreads): rows r0 + kRowRegs*tid + q, so a warp holds
+// 32*kRowRegs consecutive rows. v, stats and scales are loaded as they
+// are before the cutoff search and first used after it, so their latency
+// overlaps the search's own loads.
 struct HeldRows {
-  float x[kRowRegs], uv[kRowRegs];
+  float vi[kRowRegs], st[kRowRegs], sc[kRowRegs];
 
   __device__ __forceinline__ void load(const float* __restrict__ v,
                                        const float* __restrict__ stats,
@@ -89,33 +180,54 @@ struct HeldRows {
                                        int r0, int n) {
 #pragma unroll
     for (int q = 0; q < kRowRegs; ++q) {
-      const int r = r0 + threadIdx.x + q * kSelThreads;
-      const bool in = r < r0 + n;
-      const float vi = in ? v[r] : 0.f;
-      x[q] = in ? __fmul_rn(stats[r], fabsf(vi)) : 0.f;
-      uv[q] = (in && scales != nullptr) ? __fmul_rn(vi, scales[r]) : vi;
+      const int r = kRowRegs * threadIdx.x + q;
+      const bool in = r < n;
+      vi[q] = in ? v[r0 + r] : 0.f;
+      st[q] = in ? stats[r0 + r] : 0.f;
+      sc[q] = (in && scales != nullptr) ? scales[r0 + r] : 1.f;
     }
   }
 
-  // u of the rows, and each chunk's selected mass added (f64, exact in
-  // any order) into s_mass[chunk - r0 / G], zeroed before: a warp's 32
-  // rows lie in one chunk where G is a multiple of 32 (one add a warp),
-  // else each row adds its own.
-  __device__ __forceinline__ void select(float cutoff, int G, int r0, int n,
+  // u of the rows (x = stats * |v| selected where above the cutoff, u =
+  // v * scale there) and, on return, each chunk's selected mass in
+  // s_mass[chunk - r0 / G] (f64: exact in any order). Where a warp's rows
+  // lie in one chunk (G a multiple of 32*kRowRegs) its lanes' masses add in
+  // one warp sum into s_warp[warp], and after a barrier thread c adds its
+  // chunk's warps; else each selected row adds its own into s_mass, zeroed
+  // before.
+  __device__ __forceinline__ void select(float cutoff, bool scaled, int G,
+                                         int r0, int n,
                                          __nv_bfloat16* __restrict__ u,
-                                         double* s_mass) {
+                                         double* s_mass, double* s_warp) {
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const bool whole = G % (32 * kRowRegs) == 0;
+    double m = 0.0;
 #pragma unroll
     for (int q = 0; q < kRowRegs; ++q) {
-      const int r = threadIdx.x + q * kSelThreads;  // in the block's rows
-      if (r - (int)(threadIdx.x & 31) >= n) break;  // the warp's rows
-      const bool sel = r < n && x[q] > cutoff;
-      if (r < n) u[r0 + r] = __float2bfloat16_rn(sel ? uv[q] : 0.f);
-      double m = sel ? (double)x[q] : 0.0;
-      if (G % 32 == 0) {
+      const int r = kRowRegs * tid + q;
+      if (r >= n) break;
+      const float x = __fmul_rn(st[q], fabsf(vi[q]));
+      const bool sel = x > cutoff;
+      const float uv = scaled ? __fmul_rn(vi[q], sc[q]) : vi[q];
+      u[r0 + r] = __float2bfloat16_rn(sel ? uv : 0.f);
+      if (sel) {
+        if (whole)
+          m += (double)x;
+        else
+          atomicAdd(&s_mass[r / G], (double)x);
+      }
+    }
+    if (whole) {
+      if (kRowRegs * 32 * warp < n) {
         m = warp_sum(m);
-        if ((threadIdx.x & 31) == 0) atomicAdd(&s_mass[r / G], m);
-      } else if (sel) {
-        atomicAdd(&s_mass[r / G], m);
+        if (lane == 0) s_warp[warp] = m;
+      }
+      __syncthreads();
+      const int per = G / (32 * kRowRegs);  // warps a chunk
+      if (tid < n / G) {
+        double s = 0.0;
+        for (int w = tid * per; w < (tid + 1) * per; ++w) s += s_warp[w];
+        s_mass[tid] = s;
       }
     }
     __syncthreads();
@@ -131,8 +243,13 @@ __global__ void __launch_bounds__(kSelThreads) k1_select_kernel(
     int32_t* __restrict__ c_out, float* __restrict__ cutoff_out,
     double* __restrict__ mass, unsigned int* __restrict__ ticket) {
   __shared__ double s_seg[kMaxSegs];
+  __shared__ double s_warp[kSelWarps];
   __shared__ bool s_last;
   const int tid = threadIdx.x;
+  // a programmatic dependent of the work before it: scheduled while that
+  // drains, it reads nothing before it has ended (v, the effort and the
+  // instance may be its outputs), and lets the stream be scheduled after
+  wait_prior();
   const float eff = __fmul_rn((float)eff_q[0], 1.0f / 65536.0f);
   const size_t e = (size_t)inst[0];
   probes += e * P;
@@ -157,11 +274,23 @@ __global__ void __launch_bounds__(kSelThreads) k1_select_kernel(
       if (scales != nullptr) prefetch_l2(scales + i);
     }
   }
-  const float cutoff = find_cutoff(v, P, stride, probes, eff, tables);
+  const float cutoff = k1_find_cutoff(v, P, stride, probes, eff, tables);
   if (held)
-    rows.select(cutoff, G, r0, n, u, s_seg);
+    rows.select(cutoff, scales != nullptr, G, r0, n, u, s_seg, s_warp);
   else
     chunk_masses(v, stats, scales, cutoff, G, c0, c1 - c0, u, s_seg);
+  // one block holds every chunk's mass: C from shared memory, with no
+  // ticket and no round trip through device memory
+  if (gridDim.x == 1) {
+    if (tid < 32) {
+      const int C = chunk_prefix_len(s_seg, nc, tau);
+      if (tid == 0) {
+        c_out[0] = C;
+        cutoff_out[0] = cutoff;
+      }
+    }
+    return;
+  }
   // one thread stores the block's masses, makes them seen before its
   // ticket (u needs no fence: the stream waits for this grid's end) and
   // takes the ticket
@@ -191,7 +320,7 @@ template <int KIND>
 __global__ void __launch_bounds__(kStreamThreads) k1_stream_kernel(
     const uint8_t* __restrict__ vals, const int32_t* __restrict__ inst,
     int in_dim, int row_bytes, int G, const int32_t* __restrict__ c_in,
-    const __nv_bfloat16* __restrict__ u, int rows_per_block,
+    const __nv_bfloat16* __restrict__ u, int rows_per_block, int pf_rows,
     float* __restrict__ partial, int width) {
   constexpr int N = Acc<KIND>::N;
   __shared__ float s_acc[kWarps][N][32];
@@ -202,6 +331,14 @@ __global__ void __launch_bounds__(kStreamThreads) k1_stream_kernel(
   // written before the chain (see the top of the file): read before the
   // wait
   vals += (size_t)inst[0] * in_dim * row_bytes;
+  // the block's rows below pf_rows, which every C streams first, asked
+  // into L2 while the selection runs (HBM is otherwise idle until C is
+  // known); a block that starts after the selection asks for them just
+  // before it loads them
+  if (active)
+    for (int r = r0 + warp; r < min(r0 + rows_per_block, pf_rows);
+         r += kWarps)
+      prefetch_l2(vals + (size_t)r * row_bytes + cb);
   wait_prior();
   launch_dependents();
   const int r_end = min(r0 + rows_per_block, c_in[0] * G);
@@ -299,7 +436,7 @@ extern "C" {
 // caller's cudaStream_t on that card. probes, stats, scales and vals are
 // those of instance 0; inst points to the instance, an int32 the kernels
 // read (not range-checked). `blocks` selection blocks, 1 to nc
-// (select_plan: at most one an SM). mass is the per-card scratch:
+// (select_plan: one, or at most one an SM). mass is the per-card scratch:
 // kMaxChunks f64 and the ticket after them (zero between calls: the
 // wrapper allocates it zeroed once a card). Returns the CUDA error of the
 // launches (0 = none).
@@ -320,32 +457,34 @@ int effort_mxu_matvec(const float* v, const float* probes,
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   __nv_bfloat16* ub = static_cast<__nv_bfloat16*>(u);
-  k1_select_kernel<<<blocks, kSelThreads, 0, st>>>(
-      v, P, stride, probes, stats, scales, eff_q, inst, tables, G, nc, tau,
-      ub, c_out, cutoff_out, mass,
-      reinterpret_cast<unsigned int*>(mass + kMaxChunks));
-  err = cudaGetLastError();
+  err = launch_dependent(
+      k1_select_kernel, dim3(blocks), dim3(kSelThreads), st, v, P, stride,
+      probes, stats, scales, eff_q, inst, tables, G, nc, tau, ub, c_out,
+      cutoff_out, mass, reinterpret_cast<unsigned int*>(mass + kMaxChunks));
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((row_bytes + 511) / 512,
                   (in_dim + rows_per_block - 1) / rows_per_block);
+  const int pf_rows = (int)min(
+      (long long)((nc * kPrefetchNum + kPrefetchDen - 1) / kPrefetchDen) * G,
+      kPrefetchBytes / row_bytes);
   const uint8_t* vb = static_cast<const uint8_t*>(vals);
   const __nv_bfloat16* uc = ub;
   const int32_t* cc = c_out;
   if (kind == kBf16)
     err = launch_dependent(k1_stream_kernel<kBf16>, grid,
                            dim3(kStreamThreads), st, vb, inst, in_dim,
-                           row_bytes, G, cc, uc, rows_per_block, partial,
-                           width);
+                           row_bytes, G, cc, uc, rows_per_block, pf_rows,
+                           partial, width);
   else if (kind == kInt8)
     err = launch_dependent(k1_stream_kernel<kInt8>, grid,
                            dim3(kStreamThreads), st, vb, inst, in_dim,
-                           row_bytes, G, cc, uc, rows_per_block, partial,
-                           width);
+                           row_bytes, G, cc, uc, rows_per_block, pf_rows,
+                           partial, width);
   else
     err = launch_dependent(k1_stream_kernel<kInt4>, grid,
                            dim3(kStreamThreads), st, vb, inst, in_dim,
-                           row_bytes, G, cc, uc, rows_per_block, partial,
-                           width);
+                           row_bytes, G, cc, uc, rows_per_block, pf_rows,
+                           partial, width);
   if (err != cudaSuccess) return (int)err;
   const float* pc = partial;
   err = launch_dependent(k1_reduce_kernel, dim3((out_dim + 255) / 256),

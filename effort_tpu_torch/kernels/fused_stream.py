@@ -70,6 +70,9 @@ _MAX_PROBES = 4096
 _MAX_CHUNKS = 1024
 # enough blocks in flight for 132 SMs: at least two per SM
 _MIN_BLOCKS = 264
+# rows a K1 selection block holds in registers (kRowRegs * kSelThreads in
+# csrc/mxu_matvec.cu)
+_K1_HELD_ROWS = 2048
 
 LAUNCHES["mxu_matvec"] = 0
 LAUNCHES["mxu_matvec_batch"] = 0
@@ -293,11 +296,14 @@ def _k2_per_sm(kind: int, nn: int, dev) -> int:
     return _K2_PER_SM[key]
 
 
-def select_plan(nc: int, sms: int) -> list:
-    """K1's selection grid on a card of `sms` SMs: min(nc, sms) blocks, at
-    most one an SM and none without a chunk; block b owns chunks [b*nc //
-    n, (b+1)*nc // n), the kernel's split. Returns those ranges."""
-    n = min(nc, sms)
+def select_plan(nc: int, sms: int, in_dim: int) -> list:
+    """K1's selection grid on a card of `sms` SMs for nc chunks of in_dim
+    rows: one block where it holds every row in registers (in_dim <=
+    _K1_HELD_ROWS: C then needs no ticket across blocks), else min(nc, sms)
+    blocks, at most one an SM and none without a chunk; block b owns chunks
+    [b*nc // n, (b+1)*nc // n), the kernel's split. Returns those
+    ranges."""
+    n = 1 if in_dim <= _K1_HELD_ROWS else min(nc, sms)
     return [(b * nc // n, (b + 1) * nc // n) for b in range(n)]
 
 
@@ -401,7 +407,8 @@ def mxu_matvec(bm: BucketedMatrix, v: torch.Tensor, effort,
     rb = _rows_per_block(-(-row_bytes // 512), in_dim)
 
     blocks = len(select_plan(
-        nc, torch.cuda.get_device_properties(dev).multi_processor_count))
+        nc, torch.cuda.get_device_properties(dev).multi_processor_count,
+        in_dim))
     scratch = mxu_scratch(dev, in_dim)
     c_len = torch.empty(1, dtype=torch.int32, device=dev)
     partial = torch.empty((-(-in_dim // rb), width), dtype=torch.float32,

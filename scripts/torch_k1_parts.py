@@ -12,7 +12,7 @@ by chip_smoke.KERNEL_PARTS), once as it is and once for each variant built
 from an edited copy of csrc/ under build/k1_parts/ (the results of a
 variant are wrong by design; only its times mean anything):
   full    the kernels as they are
-  nocut   the selection skips the cutoff search (row_prefix::find_cutoff)
+  nocut   the selection skips the cutoff search (k1_find_cutoff)
   nomass  the selection skips u and the chunk masses (for the rows it
           holds: their loads stay)
   noscan  the selection skips the chunk prefix that finds C (C is then 1,
@@ -60,8 +60,8 @@ PROFILED = 5
 VARIANTS = {
     "full": [],
     "nocut": [("mxu_matvec.cu",
-               "  const float cutoff = find_cutoff(v, P, stride, probes, eff,"
-               " tables);",
+               "  const float cutoff = k1_find_cutoff(v, P, stride, probes, "
+               "eff, tables);",
                "  const float cutoff = eff;")],
     "nomass": [("mxu_matvec.cu", "  if (held)\n    rows.select(",
                 "  if (false)\n    rows.select(")],

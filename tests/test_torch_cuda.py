@@ -334,7 +334,7 @@ def test_mxu_matvec_grid_selection_matches_plain(dtype):
                                         dtype=dtype), in_perm=pi)
         if in_dim == 4096:
             assert bm.probes.shape[1] == 4096
-        plan = port_fs.select_plan(bm.n_chunks, sms)
+        plan = port_fs.select_plan(bm.n_chunks, sms, in_dim)
         ncs.append(bm.n_chunks)
         block_rows.append(max(c1 - c0 for c0, c1 in plan) * G)
         v = rms[pi.long()] * torch.randn(in_dim, generator=g, device="cuda")
@@ -368,6 +368,120 @@ def test_mxu_matvec_grid_selection_matches_plain(dtype):
     assert 112 in ncs and max(ncs) > sms and max(ncs) % sms
     assert max(block_rows) > 2048
     assert LAUNCHES["mxu_matvec"] - launches == n
+
+
+def _k1_ticket_clear():
+    """Whether K1's ticket (the "mass" scratch's last element as int32
+    words) is 0, as every call leaves it."""
+    mass = port_fs.mxu_scratch("cuda")["mass"]
+    return not bool(mass[-1:].view(torch.int32).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bf16", "int8", "int4"])
+def test_mxu_matvec_deepseek_shapes_match_plain(dtype):
+    """K1 at DeepSeek-V2-Lite's narrow matrices (wq|wkv_a, wo, a routed
+    expert's w13 and w2 of 1408 rows, the shared experts' w13 and w2, the
+    dense w2 of 10944 rows in 64-row chunks) at the chunk rows the port
+    picks, efforts 0.1, 0.25 and 1, tau 0.97: those of up to 2048 rows take
+    one selection block (select_plan), the others several; u from the
+    scratch, C and the cutoff equal to the plain selection's, y within cos
+    0.9999 and max|dy| <= 1e-2 max|y_ref|, two calls the same bits, the
+    ticket back at 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from effort_tpu_torch.ops.bucketize import pick_chunk_rows
+    g = torch.Generator(device="cuda")
+    g.manual_seed(23)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks = []
+    for in_dim, out_dim in ((2048, 3648), (2048, 2048), (2048, 2816),
+                            (1408, 2048), (2048, 5632), (2816, 2048),
+                            (10944, 2048)):
+        bc = BucketConfig(bucket_size=1, chunk_rows=128, dtype=dtype)
+        G = pick_chunk_rows(bc, in_dim, out_dim)
+        rms = torch.exp(torch.randn(in_dim, generator=g, device="cuda") * 1.2)
+        pi = calib_row_order(rms)
+        wt = torch.randn((in_dim, out_dim), generator=g, device="cuda") * 0.02
+        bm = bucketize(wt, BucketConfig(bucket_size=1, chunk_rows=G,
+                                        dtype=dtype), in_perm=pi)
+        del wt
+        blocks.append(len(port_fs.select_plan(bm.n_chunks, sms, in_dim)))
+        v = rms[pi.long()] * torch.randn(in_dim, generator=g, device="cuda")
+        for e in (0.1, 0.25, 1.0):
+            y, C = port_fs.mxu_matvec(bm, v, e, 0, tau=0.97, return_len=True)
+            sc = port_fs.mxu_scratch(v.device)
+            u, cut = sc["u"][:in_dim].clone(), sc["cutoff"].clone()
+            y2 = port_fs.mxu_matvec(bm, v, e, 0, tau=0.97)
+            ur, Cr, cutr = port_fs.mxu_select_ref(bm, v, e, 0, 0.97)
+            yr = port_fs.mxu_matvec_ref(bm, v, e, 0, tau=0.97)
+            torch.cuda.synchronize()
+            what = (in_dim, out_dim, G, e)
+            assert torch.equal(u, ur), what
+            assert int(C) == int(Cr), (what, int(C), int(Cr))
+            assert torch.equal(cut, cutr), what
+            assert torch.equal(y, y2), what
+            assert _k1_ticket_clear(), what
+            c = torch.nn.functional.cosine_similarity(
+                y.double(), yr.double(), dim=0)
+            assert float(c) >= 0.9999, (what, float(c))
+            err = float((y - yr).abs().max())
+            assert err <= 1e-2 * float(yr.abs().max()), (what, err)
+        del bm
+    assert blocks[:5] == [1] * 5 and min(blocks[5:]) > 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["int8", "int4"])
+def test_mxu_matvec_captured_replay_equals_eager(dtype):
+    """K1 captured once in a CUDA graph over a 3-instance container, with
+    the instance, the 16.16 effort and v in device buffers and a kernel
+    writing v just before the call (the selection waits for it as a
+    programmatic dependent): each replay, after the instance and the effort
+    are changed on the card, equals the eager call at the same inputs bit
+    for bit (and the plain version within cos 0.9999); the ticket is 0
+    after every replay. One selection block (2048 rows) and several (4096
+    rows)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from effort_tpu_torch.ops.effort import effort_q16
+    g = torch.Generator(device="cuda")
+    g.manual_seed(31)
+    for in_dim, out_dim in ((2048, 2816), (4096, 1024)):
+        wt = torch.randn((3, in_dim, out_dim), generator=g,
+                         device="cuda") * 0.02
+        bm = bucketize(wt, BucketConfig(bucket_size=1, chunk_rows=512,
+                                        dtype=dtype))
+        inst = torch.zeros((), dtype=torch.int32, device="cuda")
+        eq = effort_q16(0.25, "cuda").clone()
+        src = torch.randn(in_dim, generator=g, device="cuda")
+        v = torch.empty(in_dim, device="cuda")
+        out = torch.empty(bm.n_buckets, device="cuda")
+
+        def step():
+            torch.mul(src, 2.0, out=v)
+            out.copy_(port_fs.mxu_matvec(bm, v, eq, inst))
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            step()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            step()
+        for i, e in ((2, 0.1), (0, 1.0), (1, 0.25), (2, 0.5), (0, 0.1)):
+            inst.fill_(i)
+            eq.copy_(effort_q16(e, "cuda"))
+            src.copy_(torch.randn(in_dim, generator=g, device="cuda"))
+            graph.replay()
+            want = port_fs.mxu_matvec(bm, src * 2.0, eq, inst)
+            yr = port_fs.mxu_matvec_ref(bm, src * 2.0, e, i)
+            torch.cuda.synchronize()
+            assert torch.equal(out, want), (in_dim, i, e)
+            assert _k1_ticket_clear(), (in_dim, i, e)
+            c = torch.nn.functional.cosine_similarity(
+                out.double(), yr.double(), dim=0)
+            assert float(c) >= 0.9999, (in_dim, i, e, float(c))
 
 
 @pytest.mark.cuda

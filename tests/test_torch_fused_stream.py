@@ -120,13 +120,18 @@ def test_mxu_matvec_stream_length_bounds():
     assert LAUNCHES["mxu_matvec"] == launches
 
 
-@pytest.mark.parametrize("nc,sms", [(8, 132), (32, 132), (112, 132),
-                                    (200, 132), (13, 4), (7, 3)])
-def test_select_plan_owns_every_chunk_once(nc, sms):
-    """K1's selection grid: at most one block an SM, none without a chunk,
-    every chunk owned by exactly one block, in order."""
-    plan = port_fs.select_plan(nc, sms)
-    assert len(plan) == min(nc, sms)
+@pytest.mark.parametrize("nc,sms,in_dim", [
+    (8, 132, 4096), (32, 132, 4096), (112, 132, 14336), (200, 132, 3200),
+    (13, 4, 3328), (7, 3, 3584), (4, 132, 2048), (11, 132, 1408),
+    (16, 132, 2048)])
+def test_select_plan_owns_every_chunk_once(nc, sms, in_dim):
+    """K1's selection grid: one block where it holds every row in
+    registers (in_dim <= _K1_HELD_ROWS: DeepSeek-V2-Lite's 2048- and
+    1408-row matrices), else at most one block an SM; none without a
+    chunk, every chunk owned by exactly one block, in order."""
+    plan = port_fs.select_plan(nc, sms, in_dim)
+    one = in_dim <= port_fs._K1_HELD_ROWS
+    assert len(plan) == (1 if one else min(nc, sms))
     assert all(c1 > c0 for c0, c1 in plan)
     owned = [c for c0, c1 in plan for c in range(c0, c1)]
     assert owned == list(range(nc))
@@ -136,8 +141,9 @@ def test_select_plan_owns_every_chunk_once(nc, sms):
                                           (1664, "bf16")])
 def test_mxu_matvec_ref_uneven_chunks_matches_jax(in_dim, dtype):
     """The plain version against JAX's mxu_matvec (interpret) at chunk
-    counts (7 or 13 chunks of 128 rows) that do not divide evenly over the
-    selection's blocks (select_plan at 4 SMs): C within 1..nc and y within
+    counts (7 or 13 chunks of 128 rows) that do not divide evenly over 4
+    selection blocks (select_plan at 4 SMs for a matrix too tall for one
+    block): C within 1..nc and y within
     cos 0.9999 at tau = 1. The plain version has no block split; this holds
     the function that the kernel's uneven split must give, and the card
     test test_mxu_matvec_grid_selection_matches_plain runs the split."""
@@ -146,7 +152,8 @@ def test_mxu_matvec_ref_uneven_chunks_matches_jax(in_dim, dtype):
     jb = jax_bucketize(jnp.asarray(wt), JaxBucketConfig(
         bucket_size=1, chunk_rows=128, dtype=dtype))
     tb = bucketed_from_numpy(jax_bm_to_numpy(jb))
-    assert tb.n_chunks % len(port_fs.select_plan(tb.n_chunks, 4))
+    assert tb.n_chunks % len(port_fs.select_plan(
+        tb.n_chunks, 4, port_fs._K1_HELD_ROWS + 1))
     v = rng.standard_normal(in_dim).astype(np.float32)
     for effort in (0.3, 0.8):
         yj = jax_mxu_matvec(jb, jnp.asarray(v), effort, 0, tau=FULL_TAU,
